@@ -1,0 +1,70 @@
+"""Count lookup: out[..., :] = sum_k wgt[..., k] * compact2[inv[..., k]].
+
+Counterpart of the forward of dssm_tpu/kernels/pallas_count.py::
+count_lookup_pallas; the CUDA kernel is csrc/count.cu, a direct
+gather-accumulate that never builds the count matrix. The plain version
+repeats the reference's formulation, count_matrix(inv, wgt) @ compact2.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dssm_tpu_torch.kernels import _build
+
+_NAME = "count_lookup"
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def count_matrix(inv: torch.Tensor, wgt: torch.Tensor, u: int) -> torch.Tensor:
+    """cnt[row, j] = sum_k wgt[row, k] * (inv[row, k] == j), f32
+    [prod(...), u]; lookups with inv outside [0, u) count nowhere."""
+    k = inv.shape[-1]
+    inv2 = inv.reshape(-1, k).long()
+    w2 = wgt.reshape(-1, k).float()
+    valid = (inv2 >= 0) & (inv2 < u)
+    cnt = torch.zeros((inv2.shape[0], u), dtype=torch.float32,
+                      device=inv.device)
+    return cnt.scatter_add_(1, torch.where(valid, inv2, 0),
+                            torch.where(valid, w2, 0.0))
+
+
+def count_lookup_plain(compact2: torch.Tensor, inv: torch.Tensor,
+                       wgt: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: the count matrix, cast to compact2's dtype as
+    the reference casts it, times compact2 with f32 accumulation."""
+    u2, h = compact2.shape
+    cnt = count_matrix(inv, wgt, u2).to(compact2.dtype).float()
+    out = cnt @ compact2.float()
+    return out.reshape(*inv.shape[:-1], h)
+
+
+def count_lookup(compact2: torch.Tensor, inv: torch.Tensor,
+                 wgt: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+    """compact2 [U2, H] f32/bf16, inv [..., K] int32, wgt [..., K] f32
+    -> [..., H] f32."""
+    if _build.resolve_impl(impl, compact2, _NAME) == "plain":
+        return count_lookup_plain(compact2, inv, wgt)
+    if compact2.dtype not in _DTYPE_CODE or compact2.dim() != 2:
+        raise ValueError(f"{_NAME}: compact2 must be 2-D f32 or bf16, got "
+                         f"{compact2.dtype} {tuple(compact2.shape)}")
+    if inv.dtype != torch.int32 or wgt.dtype != torch.float32:
+        raise ValueError(f"{_NAME}: inv must be int32 and wgt f32, got "
+                         f"{inv.dtype} and {wgt.dtype}")
+    if inv.shape != wgt.shape or inv.dim() < 1:
+        raise ValueError(f"{_NAME}: inv {tuple(inv.shape)} and wgt "
+                         f"{tuple(wgt.shape)} differ")
+    _build.check_cuda(_NAME, compact2.device, compact2, inv, wgt)
+    u2, h = compact2.shape
+    k = inv.shape[-1]
+    rows = inv.numel() // k if k else 0
+    out = torch.empty((*inv.shape[:-1], h), dtype=torch.float32,
+                      device=compact2.device)
+    if rows == 0 or h == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    _build.launch(_NAME, "dssm_count_lookup", compact2.device,
+                  compact2.data_ptr(), inv.data_ptr(), wgt.data_ptr(),
+                  out.data_ptr(), rows, k, u2, h, _DTYPE_CODE[compact2.dtype])
+    return out
