@@ -42,11 +42,12 @@ SMALL = ["--tower.vocab_size=4096", "--tower.embed_width=40",
          f"--train.batch_size={BATCH}"]
 
 
-def _cfgs(compute_dtype="float32", max_unique=512, activation="tanh"):
+def _cfgs(compute_dtype="float32", max_unique=512, activation="tanh",
+          shared=True):
     kw = dict(
         tower=dict(vocab_size=4096, embed_width=40, hidden_dims=(64,),
                    semantic_dim=32, compute_dtype=compute_dtype,
-                   activation=activation),
+                   activation=activation, shared_weights=shared),
         data=dict(max_trigrams=16, max_trigrams_query=8,
                   max_unique=max_unique, max_unique_rows=128),
         train=dict(batch_size=BATCH),
@@ -110,11 +111,13 @@ def _top_k_agree(jq, jd, ts, ti, k):
         assert abs(scores[q, ti[q, r]] - scores[q, ji[q, r]]) <= 1e-5
 
 
-@pytest.mark.parametrize("compute_dtype,activation,tol", [
-    ("float32", "tanh", 1e-5), ("float32", "relu", 1e-5),
-    ("bfloat16", "tanh", 2e-2)])
-def test_serving_matches_dssm_tpu(pairs, compute_dtype, activation, tol):
-    jc, tc = _cfgs(compute_dtype, activation=activation)
+# The last case has separate query and doc towers: per-side dedupe fields.
+@pytest.mark.parametrize("compute_dtype,activation,tol,shared", [
+    ("float32", "tanh", 1e-5, True), ("float32", "relu", 1e-5, True),
+    ("bfloat16", "tanh", 2e-2, True), ("float32", "tanh", 1e-5, False)])
+def test_serving_matches_dssm_tpu(pairs, compute_dtype, activation, tol,
+                                  shared):
+    jc, tc = _cfgs(compute_dtype, activation=activation, shared=shared)
     jp, tp = _params(jc, tc)
     titles = list(dict.fromkeys(pairs.titles))
     jd = jserve.build_doc_index(jp, jc, titles, BATCH, impl="xla")
@@ -143,6 +146,15 @@ def test_serving_with_remap_matches_dssm_tpu_pallas(pairs):
     td = tserve.build_doc_index(tp, tc, titles, BATCH, remap=remap,
                                 device="cpu")
     np.testing.assert_allclose(td, jd, rtol=0, atol=1e-5)
+
+
+def test_raw_index_batch_not_ported():
+    jc, tc = _cfgs()
+    _, tp = _params(jc, tc)
+    batch = {"d_idx": torch.ones((2, 16), dtype=torch.int32),
+             "d_wgt": torch.ones((2, 16))}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tbase.embed(tp, tc.tower, "d", batch)
 
 
 def test_top_k_matches_dssm_tpu():
