@@ -69,7 +69,7 @@ def _embed_side(
             outs.append(tower(tb, side, impl=impl)[:n])
     if not outs:
         return np.zeros((0, cfg.tower.semantic_dim), dtype=np.float32)
-    return torch.cat(outs).float().cpu().numpy()
+    return torch.cat(outs).cpu().numpy()
 
 
 def build_doc_index(
