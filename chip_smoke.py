@@ -53,6 +53,7 @@ def main() -> int:
     from dssm_tpu_torch.data import make_toy_pairs
     from dssm_tpu_torch.data.dedupe import SKIP_SENTINEL_GID
     from dssm_tpu_torch.data.remap import apply_remap, build_freq_remap
+    from dssm_tpu_torch.data.trigram import hash_batch
     from dssm_tpu_torch.device import resolve_device
     from dssm_tpu_torch.kernels import _build
     from dssm_tpu_torch.kernels.count import count_lookup, count_matrix
@@ -287,16 +288,30 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s ({len(titles)} titles, "
           f"{len(queries)} queries)")
 
-    # Host-side batches as the doc index sees them: group slots and drops.
+    # Host-side batches as the doc index sees them: group slots and drops,
+    # and the host time split into hashing (both sides, as the serving path
+    # hashes them), remap and dedupe; then the doc side hashed alone.
     t0 = time.perf_counter()
-    doc_hashed = apply_remap(hash_pairs(ToyPairs(queries=titles,
-                                                 titles=titles), t, cfg.data),
-                             remap)
+    doc_hashed = hash_pairs(ToyPairs(queries=titles, titles=titles), t,
+                            cfg.data)
+    t1 = time.perf_counter()
+    doc_hashed = apply_remap(doc_hashed, remap)
+    t2 = time.perf_counter()
     host_batches = list(eval_batches(
         doc_hashed, cfg.train.batch_size, dedup_unique=cfg.data.max_unique,
         dedup_group=8, dedup_unique_rows=cfg.data.max_unique_rows,
         dedup_joint=True))
-    host_s = time.perf_counter() - t0
+    t3 = time.perf_counter()
+    host_s = t3 - t0
+    hash_batch(titles, t.vocab_size, cfg.data.max_trigrams,
+               cfg.data.normalize_counts)
+    host_split = dict(hash_both_sides_s=t1 - t0, remap_s=t2 - t1,
+                      dedupe_s=t3 - t2,
+                      hash_doc_side_alone_s=time.perf_counter() - t3)
+    unused_share = ((host_split["hash_both_sides_s"]
+                     - host_split["hash_doc_side_alone_s"]) / host_s)
+    print(f"host prep split (s): {json.dumps(host_split)}; hashing the "
+          f"unused query side is {unused_share:.1%} of host prep")
     real_slots = [int((b["uniq"] < SKIP_SENTINEL_GID).sum())
                   for b in host_batches]
     live = int((doc_hashed.d_wgt != 0).sum())
@@ -402,6 +417,8 @@ def main() -> int:
                                 plain2["query_s"] * 1e3],
         peak_mem_gb=run["peak"] / 1e9,
         host_prep_s_for_index=host_s,
+        host_prep_split_s=host_split,
+        unused_side_hash_share_of_host_prep=unused_share,
         device_forward_ms_per_batch_eager=fwd_ms,
         traced_forward_wall_ms_per_batch=prof_wall * 1e3 / len(dev_batches),
         traced_device_busy_ms_per_batch=dev_us / 1e3 / len(dev_batches),

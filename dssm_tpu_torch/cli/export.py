@@ -1,15 +1,16 @@
 """Export + retrieval entry point (the serving path) on the GPU.
 
     # embed the corpus titles -> index file
-    python -m dssm_tpu_torch.cli.export --preset=full --io.workdir=/tmp/run \
-        --out=/tmp/run/index.npz [--cpu]
+    python -m dssm_tpu_torch.cli.export --preset=full --io.workdir=$RUN \
+        --out=$RUN/index.npz [--cpu]
 
     # top-k retrieval against an index (ad-hoc query or a query file)
-    python -m dssm_tpu_torch.cli.export --preset=full --io.workdir=/tmp/run \
-        --index=/tmp/run/index.npz --query="best hiking boots" --k=5 [--cpu]
+    python -m dssm_tpu_torch.cli.export --preset=full --io.workdir=$RUN \
+        --index=$RUN/index.npz --query="best hiking boots" --k=5 [--cpu]
 
 The flags are dssm_tpu.cli.export's. It runs on the GPU unless --cpu is
-given, and fails when there is no GPU. With --data.path=... the corpus comes
+given, and fails when there is no GPU; on the GPU it always runs the CUDA
+kernels (there is no use_pallas switch). With --data.path=... the corpus comes
 from the TSV/JSONL file; otherwise the toy corpus. A workdir without a
 checkpoint serves the seeded fresh init; one holding a dssm_tpu (orbax)
 checkpoint is refused, since the port has no reader for it yet.
@@ -69,7 +70,9 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     device = resolve_device(cpu)
     cfg = validate_cfg(coerce_overrides(get_preset(preset), raw_overrides))
-    impl = "auto" if cfg.train.use_pallas else "plain"
+    # The kernels run on CUDA tensors, their plain versions on CPU tensors;
+    # no preset or flag changes that.
+    impl = "auto"
 
     steps = checkpoint_steps(cfg.io.workdir)
     if steps:

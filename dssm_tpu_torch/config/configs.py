@@ -152,9 +152,8 @@ class TrainConfig(_Replaceable):
     checkpoint_every: int = 500
     keep_checkpoints: int = 3
     seed: int = 42
-    # Hand-written kernels on the accelerator (impl="auto"); plain tensor
-    # code otherwise.
-    use_pallas: bool = True
+    # No use_pallas switch: the CUDA kernels take any width, so entry points
+    # always run them on CUDA tensors (impl="auto").
     remat: bool = False  # recompute the towers in backward (trade FLOPs for memory)
     # Row-wise sparse table updates. Exact for SGD; momentum/adam use the
     # dense step regardless.
@@ -203,7 +202,7 @@ def _preset_tiny() -> RunConfig:
         name="tiny",
         tower=TowerConfig(arch="mlp", vocab_size=30_000, embed_width=300,
                           hidden_dims=(300,), semantic_dim=128),
-        train=TrainConfig(batch_size=256, use_pallas=False),
+        train=TrainConfig(batch_size=256),
     )
 
 

@@ -21,19 +21,15 @@ import torch
 from dssm_tpu_torch.kernels.count import count_lookup
 from dssm_tpu_torch.kernels.gather import gather_row_groups
 
+# dssm_tpu's name for the compact gather; here it is the kernel itself.
+gather_compact = gather_row_groups
+
 
 def select_rows(compact: torch.Tensor, row_sel: torch.Tensor,
                 compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """compact2 [u2, H] = compact[row_sel] in the compute dtype: the exact
     selection dssm_tpu forms as a one-hot matmul."""
     return compact.to(compute_dtype).index_select(0, row_sel.long())
-
-
-def gather_compact(table: torch.Tensor, uniq_groups: torch.Tensor,
-                   group: int = 8, impl: str = "auto") -> torch.Tensor:
-    """compact [G*group, H] = table rows of each unique group (zero rows for
-    the dedupe's sentinel padding slots)."""
-    return gather_row_groups(table, uniq_groups, group, impl=impl)
 
 
 def lookup_from_compact(
@@ -70,6 +66,6 @@ def dedup_embedding_bag(
     row_sel: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Full forward: gather the compact row groups, then the count lookup."""
-    compact = gather_compact(table, uniq_groups, group, impl=impl)
+    compact = gather_row_groups(table, uniq_groups, group, impl=impl)
     return lookup_from_compact(compact, inv, wgt, compute_dtype, row_sel,
                                impl=impl)

@@ -48,8 +48,9 @@ def _embed_side(
     table = tower.W0
     if table.device.type != dev.type:
         raise ValueError(f"parameters are on {table.device}, not {dev}")
-    # Hash through the standard pipeline; the unused side is hashed too, so
-    # the batches (and their union dedupe) are the loader's own.
+    # Hash through the standard pipeline, so the batches (and their union
+    # dedupe) are the loader's own. The unused side is hashed too, which
+    # costs host time (ROADMAP.md, Queue 1: hash only the embedded side).
     hashed = hash_pairs(ToyPairs(queries=list(texts), titles=list(texts)),
                         cfg.tower, cfg.data)
     if remap is not None:

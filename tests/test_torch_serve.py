@@ -211,6 +211,30 @@ def test_export_cli_builds_and_queries_index(tmp_path):
     assert out["results"][0]["score"] >= out["results"][-1]["score"]
 
 
+@pytest.mark.parametrize("preset", sorted(tcfg.PRESETS))
+def test_export_cli_impl_does_not_depend_on_preset(tmp_path, monkeypatch,
+                                                    preset):
+    """The CLI always asks for impl="auto" (kernels on CUDA tensors), and
+    dssm_tpu's use_pallas switch is refused rather than honoured."""
+    seen = []
+
+    def embed(params, cfg, texts, batch_size, impl, remap, device):
+        seen.append(impl)
+        return np.eye(len(texts), 4, dtype=np.float32)
+
+    monkeypatch.setattr(tbase, "init_params", lambda *a, **k: None)
+    monkeypatch.setattr(tserve, "build_doc_index", embed)
+    monkeypatch.setattr(tserve, "embed_queries", embed)
+    index = str(tmp_path / "index.npz")
+    common = [f"--preset={preset}", "--cpu", f"--io.workdir={tmp_path}",
+              "--data.toy_num_pairs=8"]
+    texport.main([*common, f"--out={index}"])
+    texport.main([*common, f"--index={index}", "--query=hiking", "--k=2"])
+    assert seen == ["auto", "auto"]
+    with pytest.raises(AttributeError, match="use_pallas"):
+        texport.main([*common, f"--out={index}", "--train.use_pallas=false"])
+
+
 def test_export_cli_refuses_dssm_tpu_checkpoint(tmp_path):
     (tmp_path / "checkpoints" / "60").mkdir(parents=True)
     with pytest.raises(SystemExit, match="no orbax checkpoint reader"):
