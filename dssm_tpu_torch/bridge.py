@@ -1,15 +1,17 @@
-"""Carry weights and batches across from numpy to the port.
+"""Carry weights, train states and batches across from numpy to the port.
 
 params_from_jax takes dssm_tpu's parameter pytree as numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)`` on the JAX side) and returns the port's
-parameters with the same keys and padded shapes. batch_to_torch moves a
-numpy batch from the loader onto a device, widening the compressed wire
-fields as dssm_tpu's lookup does.
+parameters with the same keys and padded shapes; state_from_jax does the
+same for a whole TrainState (step, params, the optax state of the dense
+subtree), and params_to_numpy is the way back. batch_to_torch moves a numpy
+batch from the loader onto a device, widening the compressed wire fields
+there as dssm_tpu's lookup does.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -17,6 +19,7 @@ import torch
 from dssm_tpu_torch.config import TowerConfig
 from dssm_tpu_torch.device import DeviceLike, as_device
 from dssm_tpu_torch.models.base import Params, pad_table_cols
+from dssm_tpu_torch.train.state import TrainState
 
 # Batch fields that are lookup slots or indices (widened to int32) and
 # lookup weights (widened to f32).
@@ -74,10 +77,58 @@ def batch_to_torch(batch: Mapping[str, np.ndarray],
     dev = as_device(device)
     out = {}
     for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
+        # Move the (possibly compressed) field first, widen on the device.
+        t = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
         if k in _INDEX_FIELDS or k.endswith(_INDEX_SUFFIXES):
             t = t.to(torch.int32)
         elif k.endswith("_wgt"):
             t = t.to(torch.float32)
-        out[k] = t.to(dev)
+        out[k] = t
     return out
+
+
+def optax_field(opt_state: Any, name: str) -> Any:
+    """The first optax sub-state (a namedtuple in a tuple chain) that has
+    field `name`, e.g. `trace` or `mu`."""
+    if name in getattr(opt_state, "_fields", ()):
+        return getattr(opt_state, name)
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = optax_field(sub, name)
+            if found is not None:
+                return found
+    return None
+
+
+def state_from_jax(step: int, np_params: Mapping, np_opt_state: Any,
+                   cfg, device: DeviceLike = "cuda") -> TrainState:
+    """dssm_tpu's TrainState as numpy (``jax.tree.map(np.asarray, state)``:
+    its step, params and opt_state) -> the port's TrainState on `device`.
+    The optax state of sgd is empty, of sgd-with-momentum a trace tree, of
+    adam a count and the mu / nu trees, each over the dense subtree."""
+    dev = as_device(device)
+
+    def tree(t):
+        return {tower: {k: _to_tensor(np.asarray(v)).to(dev)
+                        for k, v in tp.items()} for tower, tp in t.items()}
+
+    opt = cfg.train.optimizer
+    if opt == "sgd":
+        opt_state: Dict[str, Any] = {}
+    elif opt == "momentum":
+        opt_state = {"trace": tree(optax_field(np_opt_state, "trace"))}
+    elif opt == "adam":
+        opt_state = {"count": int(optax_field(np_opt_state, "count")),
+                     "mu": tree(optax_field(np_opt_state, "mu")),
+                     "nu": tree(optax_field(np_opt_state, "nu"))}
+    else:
+        raise ValueError(f"unknown optimizer {opt!r}")
+    return TrainState(step=int(step),
+                      params=params_from_jax(np_params, cfg.tower, dev),
+                      opt_state=opt_state)
+
+
+def params_to_numpy(params: Params) -> Dict[str, Dict[str, np.ndarray]]:
+    """The port's parameters as float32 numpy arrays (bf16 widened)."""
+    return {tower: {k: v.detach().float().cpu().numpy()
+                    for k, v in tp.items()} for tower, tp in params.items()}

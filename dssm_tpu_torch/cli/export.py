@@ -11,9 +11,11 @@
 The flags are dssm_tpu.cli.export's. It runs on the GPU unless --cpu is
 given, and fails when there is no GPU; on the GPU it always runs the CUDA
 kernels (there is no use_pallas switch). With --data.path=... the corpus comes
-from the TSV/JSONL file; otherwise the toy corpus. A workdir without a
-checkpoint serves the seeded fresh init; one holding a dssm_tpu (orbax)
-checkpoint is refused, since the port has no reader for it yet.
+from the TSV/JSONL file; otherwise the toy corpus. A workdir that
+`python -m dssm_tpu_torch.cli.train` wrote is served from its latest
+checkpoint; one without a checkpoint serves the seeded fresh init; one
+holding only a dssm_tpu (orbax) checkpoint is refused, since the port has no
+reader for it yet.
 """
 
 from __future__ import annotations
@@ -74,15 +76,24 @@ def main(argv: Optional[List[str]] = None) -> None:
     # no preset or flag changes that.
     impl = "auto"
 
+    from dssm_tpu_torch.io.checkpoint import CHECKPOINT_DIR, Checkpointer
+
+    restored = None
+    if os.path.isdir(os.path.join(cfg.io.workdir, CHECKPOINT_DIR)):
+        restored = Checkpointer(cfg.io.workdir).restore(device=device)
     steps = checkpoint_steps(cfg.io.workdir)
-    if steps:
+    if restored is not None:
+        print(f"restored step {restored.step} from {cfg.io.workdir}",
+              file=sys.stderr)
+    elif steps:
         raise SystemExit(
             f"{cfg.io.workdir} holds dssm_tpu checkpoint(s) (steps {steps}); "
             "dssm_tpu_torch has no orbax checkpoint reader yet (ROADMAP.md, "
             "Queue 1: the orbax checkpoint reader) and will not serve fresh "
             "weights in their place")
-    print(f"no checkpoint under {cfg.io.workdir}; using fresh init",
-          file=sys.stderr)
+    else:
+        print(f"no checkpoint under {cfg.io.workdir}; using fresh init",
+              file=sys.stderr)
 
     # Vocab remap persisted by training (data/remap.py): serving inputs must
     # go through the same permutation the trained table rows live in.
@@ -91,8 +102,11 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"applying saved vocab remap from {cfg.io.workdir}",
               file=sys.stderr)
 
-    params = model_base.init_params(cfg.tower, seed=cfg.train.seed,
-                                    device=device)
+    if restored is not None:
+        params = restored.params
+    else:
+        params = model_base.init_params(cfg.tower, seed=cfg.train.seed,
+                                        device=device)
 
     if out:
         if cfg.data.path:

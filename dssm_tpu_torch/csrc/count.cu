@@ -1,9 +1,10 @@
 // Count lookup: out[r, :] = sum_k wgt[r, k] * compact2[inv[r, k], :].
 //
-// Replaces the forward of dssm_tpu/kernels/pallas_count.py::
-// count_lookup_pallas (kernel _fwd_kernel). A TPU gathers rows serially, so
-// that kernel builds the count matrix cnt[r, u] = sum_k wgt[r,k]*[inv==u]
-// with vector compares and multiplies it into compact2 on the matrix unit.
+// Replaces dssm_tpu/kernels/pallas_count.py::count_lookup_pallas, forward
+// (kernel _fwd_kernel) and backward (kernel _bwd_kernel). A TPU gathers rows
+// serially, so that kernel builds the count matrix
+// cnt[r, u] = sum_k wgt[r,k]*[inv==u] with vector compares and multiplies it
+// into compact2 on the matrix unit.
 // The same function here is a direct gather-accumulate: the count matrix is
 // never built. Counts are small integers, exact in bf16, so only the f32
 // summation order differs from cnt @ compact2.
@@ -22,17 +23,19 @@
 // order (ballot + popc, so the sum order is fixed); every thread then runs
 // the same branch-free loop over them, unrolled so that several compact2
 // loads are in flight. Reads of one compact2 row are coalesced.
+//
+// Backward: d_compact2[inv[r, k], :] += wgt[r, k] * g[r, :], f32, into a
+// zeroed [u2, h] buffer: the same block layout, with an atomic add per
+// (live lookup, column) in place of the load (lookup.cuh). It moves g once
+// and the touched rows of d_compact2 once; the atomics on hot rows bound it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "lookup.cuh"
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+namespace {
 
 template <typename T>
 __global__ void count_lookup_kernel(const T* __restrict__ compact2,
@@ -41,42 +44,39 @@ __global__ void count_lookup_kernel(const T* __restrict__ compact2,
                                     float* __restrict__ out, int k, int u2,
                                     int h) {
   extern __shared__ unsigned char smem_raw[];
-  int32_t* s_inv = reinterpret_cast<int32_t*>(smem_raw);
+  int32_t* s_row = reinterpret_cast<int32_t*>(smem_raw);
   float* s_wgt = reinterpret_cast<float*>(smem_raw + sizeof(int32_t) * k);
   __shared__ int s_live;
   const int64_t r = blockIdx.x;
   if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    int live = 0;
-    for (int j0 = 0; j0 < k; j0 += 32) {
-      const int j = j0 + lane;
-      int32_t u = 0;
-      float w = 0.f;
-      if (j < k) {
-        u = inv[r * k + j];
-        w = wgt[r * k + j];
-      }
-      const bool keep = j < k && w != 0.f && u >= 0 && u < u2;
-      const unsigned int mask = __ballot_sync(0xffffffffu, keep);
-      if (keep) {
-        const int pos = live + __popc(mask & ((1u << lane) - 1u));
-        s_inv[pos] = u;
-        s_wgt[pos] = w;
-      }
-      live += __popc(mask);
-    }
-    if (lane == 0) s_live = live;
+    const int live = dssm::compact_live_pairs(inv + r * k, wgt + r * k,
+                                              nullptr, k, u2, u2, s_row,
+                                              s_wgt);
+    if (threadIdx.x == 0) s_live = live;
   }
   __syncthreads();
-  const int n = s_live;
-  for (int c = threadIdx.x; c < h; c += blockDim.x) {
-    float acc = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < n; ++j) {
-      acc = fmaf(s_wgt[j], to_f32(compact2[(int64_t)s_inv[j] * h + c]), acc);
-    }
-    out[r * h + c] = acc;
+  dssm::accumulate_row(compact2, s_row, s_wgt, s_live, h, out + r * h);
+}
+
+template <typename G>
+__global__ void count_lookup_bwd_kernel(const int32_t* __restrict__ inv,
+                                        const float* __restrict__ wgt,
+                                        const G* __restrict__ g,
+                                        float* __restrict__ dc2, int k,
+                                        int u2, int h) {
+  extern __shared__ unsigned char smem_raw[];
+  int32_t* s_row = reinterpret_cast<int32_t*>(smem_raw);
+  float* s_wgt = reinterpret_cast<float*>(smem_raw + sizeof(int32_t) * k);
+  __shared__ int s_live;
+  const int64_t r = blockIdx.x;
+  if (threadIdx.x < 32) {
+    const int live = dssm::compact_live_pairs(inv + r * k, wgt + r * k,
+                                              nullptr, k, u2, u2, s_row,
+                                              s_wgt);
+    if (threadIdx.x == 0) s_live = live;
   }
+  __syncthreads();
+  dssm::scatter_row_grad(dc2, s_row, s_wgt, s_live, h, g + r * h);
 }
 
 }  // namespace
@@ -90,8 +90,7 @@ extern "C" int dssm_count_lookup(const void* compact2, const void* inv,
   if (rows <= 0 || k <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem = (sizeof(int32_t) + sizeof(float)) * (size_t)k;
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  int threads = ((h + 31) / 32) * 32;
-  threads = threads > 512 ? 512 : threads;
+  const int threads = dssm::block_threads(h);
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
     count_lookup_kernel<float><<<(unsigned int)rows, threads, smem, s>>>(
@@ -102,6 +101,32 @@ extern "C" int dssm_count_lookup(const void* compact2, const void* inv,
                                          s>>>(
         (const __nv_bfloat16*)compact2, (const int32_t*)inv,
         (const float*)wgt, (float*)out, k, u2, h);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// inv, wgt: [rows, k]; g: [rows, h] (g_dtype 0 = f32, 1 = bf16); dc2:
+// [u2, h] f32, zeroed by the caller, added into. Returns cudaGetLastError().
+extern "C" int dssm_count_lookup_bwd(const void* inv, const void* wgt,
+                                     const void* g, void* dc2, long long rows,
+                                     int k, int u2, int h, int g_dtype,
+                                     void* stream) {
+  if (rows <= 0 || k <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (sizeof(int32_t) + sizeof(float)) * (size_t)k;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int threads = dssm::block_threads(h);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (g_dtype == 0) {
+    count_lookup_bwd_kernel<float><<<(unsigned int)rows, threads, smem, s>>>(
+        (const int32_t*)inv, (const float*)wgt, (const float*)g, (float*)dc2,
+        k, u2, h);
+  } else if (g_dtype == 1) {
+    count_lookup_bwd_kernel<__nv_bfloat16><<<(unsigned int)rows, threads,
+                                             smem, s>>>(
+        (const int32_t*)inv, (const float*)wgt, (const __nv_bfloat16*)g,
+        (float*)dc2, k, u2, h);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -5,8 +5,12 @@
 // dense_tower_pallas (kernel _tower_kernel), with its arithmetic: f32
 // accumulation, f32 bias and activation, the activation cast back to the
 // input dtype between layers, the last layer kept in f32, and
-// y = h / max(||h||, eps) when normalizing. It emits y only; the per-layer
-// residuals the Pallas kernel also writes come with training.
+// y = h / max(||h||, eps) when normalizing. Asked for residuals (training),
+// it also writes every layer's activation in f32, before the cast that
+// feeds the next layer, as the Pallas kernel does; its backward (plain
+// matmuls in the reference too) reads them. A serving call passes no
+// residual pointers and writes y only. The reference's norm residual is
+// recomputed by the backward from the last activation.
 //
 // Bound on the H100: bytes. At the `full` preset (x [1024, 300] bf16,
 // W1 [300, 300], W2 [300, 128] bf16, y [1024, 128] f32) it moves ~1.4 MB
@@ -37,6 +41,7 @@ constexpr int kRows = 4;
 struct TowerLayers {
   const void* w[DSSM_TOWER_MAX_LAYERS];
   const void* b[DSSM_TOWER_MAX_LAYERS];
+  float* hs[DSSM_TOWER_MAX_LAYERS];  // per-layer f32 residuals, or null
   int dims[DSSM_TOWER_MAX_LAYERS + 1];
   int num_layers;
 };
@@ -84,6 +89,7 @@ __global__ void dense_tower_kernel(const T* __restrict__ x,
     const T* w = static_cast<const T*>(layers.w[l]);
     const T* b = static_cast<const T*>(layers.b[l]);
     const bool last = l + 1 == layers.num_layers;
+    float* hs = layers.hs[l];
     for (int c = threadIdx.x; c < dout; c += blockDim.x) {
       float acc[kRows];
 #pragma unroll
@@ -114,6 +120,7 @@ __global__ void dense_tower_kernel(const T* __restrict__ x,
         const float z = acc[r] + bias;
         const float a = kRelu ? fmaxf(z, 0.f) : tanhf(z);
         h_out[r * max_dim + c] = last ? a : round_to<T>(a);
+        if (hs != nullptr && r < rows) hs[(row0 + r) * dout + c] = a;
       }
     }
     __syncthreads();
@@ -178,9 +185,11 @@ int launch_tower(const void* x, void* y, const TowerLayers& layers,
 
 // x: [batch, dims[0]] (dtype 0 = f32, 1 = bf16); ws[l]: [dims[l], dims[l+1]]
 // and bs[l]: [dims[l+1]] of x's dtype; y: [batch, dims[num_layers]] f32.
+// hs: null, or num_layers pointers to [batch, dims[l+1]] f32 residuals.
 // activation 0 = tanh, 1 = relu. Returns cudaGetLastError().
 extern "C" int dssm_dense_tower(const void* x, void* y, const void* const* ws,
-                                const void* const* bs, const int* dims,
+                                const void* const* bs, void* const* hs,
+                                const int* dims,
                                 int num_layers, long long batch, int dtype,
                                 int activation, int normalize, float eps,
                                 void* stream) {
@@ -200,6 +209,7 @@ extern "C" int dssm_dense_tower(const void* x, void* y, const void* const* ws,
   for (int l = 0; l < num_layers; ++l) {
     layers.w[l] = ws[l];
     layers.b[l] = bs[l];
+    layers.hs[l] = hs == nullptr ? nullptr : (float*)hs[l];
   }
   if (2 * sizeof(float) * kRows * (size_t)max_dim > 227 * 1024) {
     return (int)cudaErrorInvalidValue;

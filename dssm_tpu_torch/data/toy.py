@@ -9,7 +9,7 @@ seed; a copy of dssm_tpu/data/toy.py, pair for pair the same corpus.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
@@ -68,3 +68,18 @@ def make_toy_pairs(
         queries.append(" ".join(q_words))
         titles.append(" ".join(t_words))
     return ToyPairs(queries=queries, titles=titles)
+
+
+def train_eval_split(pairs: ToyPairs, eval_frac: float = 0.1,
+                     seed: int = 0) -> Tuple[ToyPairs, ToyPairs]:
+    rng = np.random.default_rng(seed + 2)
+    n = len(pairs)
+    perm = rng.permutation(n)
+    n_eval = max(1, int(n * eval_frac))
+    ev, tr = perm[:n_eval], perm[n_eval:]
+
+    def pick(idx):
+        return ToyPairs(queries=[pairs.queries[i] for i in idx],
+                        titles=[pairs.titles[i] for i in idx])
+
+    return pick(tr), pick(ev)

@@ -3,7 +3,8 @@
 The sources under dssm_tpu_torch/csrc/ expose a plain C interface. On first
 use they are compiled with nvcc for sm_90a (one nvcc per source, all started
 together), linked into one shared library under dssm_tpu_torch/build/, and
-loaded with ctypes. The library is rebuilt when a source is newer than it.
+loaded with ctypes. The library is rebuilt when a source or a header is newer
+than it.
 Nothing is built at import time: the CPU tests import every module without
 nvcc.
 
@@ -25,7 +26,9 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("gather.cu", "count.cu", "tower.cu")
+SOURCES = ("gather.cu", "count.cu", "tower.cu", "joint.cu", "loss.cu",
+           "scatter.cu")
+HEADERS = ("lookup.cuh",)  # included by count.cu and joint.cu
 LIB_NAME = "libdssm_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -37,12 +40,30 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "dssm_gather_row_groups": [_P, _P, _P, _I64, _I64, _I64, _P],
     "dssm_count_lookup": [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _P],
+    "dssm_count_lookup_bwd": [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT,
+                              _P],
     "dssm_dense_tower": [_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
-                         ctypes.POINTER(_INT), _INT, _I64, _INT, _INT, _INT,
-                         ctypes.c_float, _P],
+                         ctypes.POINTER(_P), ctypes.POINTER(_INT), _INT, _I64,
+                         _INT, _INT, _INT, ctypes.c_float, _P],
+    "dssm_joint_lookup": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT,
+                          _INT, _INT, _INT, _INT, _P],
+    "dssm_joint_lookup_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT,
+                              _INT, _INT, _INT, _INT, _INT, _P],
+    "dssm_in_batch_loss_fwd": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _INT,
+                               ctypes.c_float, _P],
+    "dssm_in_batch_loss_dq": [_P, _P, _P, _P, _P, _P, _I64, _I64, _INT,
+                              ctypes.c_float, _P],
+    "dssm_in_batch_loss_dd": [_P, _P, _P, _P, _P, _P, _I64, _I64, _INT,
+                              ctypes.c_float, _P],
+    "dssm_scatter_add_row_groups": [_P, _P, _P, _I64, _I64, _I64, _P],
 }
 
-KERNELS = ("gather_row_groups", "count_lookup", "dense_tower")
+# One name per counted entry point. dense_tower_residuals is the tower's
+# training call (the same C function, asked for its per-layer residuals).
+KERNELS = ("gather_row_groups", "count_lookup", "dense_tower",
+           "joint_lookup", "joint_lookup_bwd", "count_lookup_bwd",
+           "dense_tower_residuals", "in_batch_loss", "in_batch_loss_dq",
+           "in_batch_loss_dd", "scatter_add_row_groups")
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -91,7 +112,8 @@ def build(force: bool = False) -> str:
     than a source; returns its path."""
     lib = library_path()
     srcs = [os.path.join(CSRC, s) for s in SOURCES]
-    newest = max(os.path.getmtime(s) for s in srcs)
+    newest = max(os.path.getmtime(s) for s in
+                 srcs + [os.path.join(CSRC, h) for h in HEADERS])
     if not force and os.path.exists(lib) and os.path.getmtime(lib) >= newest:
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)

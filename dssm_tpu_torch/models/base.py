@@ -129,12 +129,20 @@ def embed_table_lookup(params: Params, cfg: TowerConfig, side: str,
                        batch: Dict[str, torch.Tensor], *,
                        impl: str = "auto") -> torch.Tensor:
     """The first-layer embedding bag only, before bias and activation."""
-    return tower_module(params, cfg, side).table_lookup(batch, side, impl=impl)
+    from dssm_tpu_torch.models import mlp
+
+    _check_ported(cfg)
+    return mlp.table_lookup(tower_params(params, side), cfg, batch, side,
+                            impl=impl)
 
 
 def embed_from_lookup(params: Params, cfg: TowerConfig, side: str,
                       batch: Dict[str, torch.Tensor], lookup: torch.Tensor, *,
                       impl: str = "auto") -> torch.Tensor:
-    """Rest of the tower given the table lookup output; touches no table."""
-    return tower_module(params, cfg, side).tower_from_lookup(
-        batch, side, lookup, impl=impl)
+    """Rest of the tower given the table lookup output; touches no table, so
+    `params` may be the dense subtree (no W0) and may require grad."""
+    from dssm_tpu_torch.models import mlp
+
+    _check_ported(cfg)
+    return mlp.tower_from_lookup(tower_params(params, side), cfg, batch,
+                                 side, lookup, impl=impl)

@@ -30,47 +30,66 @@ def init_tower(cfg: TowerConfig, seed: int = 0) -> Dict[str, np.ndarray]:
     return np_params
 
 
-class MLPTower(nn.Module):
-    """One tower over a parameter dict {W0 (table), b0, W1, b1, ...}.
+def table_lookup(params: Dict[str, torch.Tensor], cfg: TowerConfig,
+                 batch: Dict[str, torch.Tensor], prefix: str, *,
+                 impl: str = "auto") -> torch.Tensor:
+    """First-layer embedding bag: [B, K] sparse text -> [B, H_pad] in the
+    compute dtype. The table is gathered at its storage dtype and only the
+    small result is cast."""
+    return bag_lookup(params["W0"], cfg, batch, prefix, impl=impl)
 
-    The tensors are held as frozen parameters without a copy. The table
-    lookup is the differentiation boundary of sparse training, so it is
-    split from the rest of the tower as in dssm_tpu.
-    """
+
+def tower_from_lookup(params: Dict[str, torch.Tensor], cfg: TowerConfig,
+                      batch: Dict[str, torch.Tensor], prefix: str,
+                      lookup: torch.Tensor, *,
+                      impl: str = "auto") -> torch.Tensor:
+    """Rest of the tower given the table lookup output. `params` may be the
+    dense subtree without W0 (the sparse-update step), so the layers are
+    enumerated by key presence. Differentiable in lookup and params."""
+    cd = torch_dtype(cfg.compute_dtype)
+    lookup = lookup[..., : cfg.embed_width]  # drop padding columns
+    # Layer 0's bias and activation run outside the dense tower.
+    h = activate(lookup + params["b0"].to(cd), cfg.activation)
+    layers = []
+    l = 1
+    while f"W{l}" in params:
+        layers.append((params[f"W{l}"].to(cd), params[f"b{l}"].to(cd)))
+        l += 1
+    if layers:
+        y = dense_tower(h.to(cd).contiguous(), layers, cfg.activation,
+                        normalize=False, impl=impl)
+    else:
+        y = h
+    # Normalize in f32 for stable cosine geometry even under bf16 compute.
+    return l2_normalize(y.float())
+
+
+class MLPTower(nn.Module):
+    """One tower over a parameter dict {W0 (table), b0, W1, b1, ...}, for
+    serving: the tensors are held as frozen parameters without a copy.
+    Training calls table_lookup / tower_from_lookup on plain dicts, whose
+    tensors may require grad."""
 
     def __init__(self, cfg: TowerConfig, params: Dict[str, torch.Tensor]):
         super().__init__()
         self.cfg = cfg
-        self.compute_dtype = torch_dtype(cfg.compute_dtype)
-        self.num_dense = 0
-        while f"W{self.num_dense + 1}" in params:
-            self.num_dense += 1
         for name, t in params.items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            self.register_parameter(
+                name, nn.Parameter(t.detach(), requires_grad=False))
+
+    def _params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.named_parameters())
 
     def table_lookup(self, batch: Dict[str, torch.Tensor], prefix: str, *,
                      impl: str = "auto") -> torch.Tensor:
-        """First-layer embedding bag: [B, K] sparse text -> [B, H_pad] in
-        the compute dtype. The table is gathered at its storage dtype and
-        only the small result is cast."""
-        return bag_lookup(self.W0, self.cfg, batch, prefix, impl=impl)
+        return table_lookup(self._params(), self.cfg, batch, prefix,
+                            impl=impl)
 
     def tower_from_lookup(self, batch: Dict[str, torch.Tensor], prefix: str,
                           lookup: torch.Tensor, *,
                           impl: str = "auto") -> torch.Tensor:
-        cd = self.compute_dtype
-        lookup = lookup[..., : self.cfg.embed_width]  # drop padding columns
-        # Layer 0's bias and activation run outside the dense tower.
-        h = activate(lookup + self.b0.to(cd), self.cfg.activation)
-        layers = [(getattr(self, f"W{l}").to(cd), getattr(self, f"b{l}").to(cd))
-                  for l in range(1, self.num_dense + 1)]
-        if layers:
-            y = dense_tower(h.to(cd).contiguous(), layers, self.cfg.activation,
-                            normalize=False, impl=impl)
-        else:
-            y = h
-        # Normalize in f32 for stable cosine geometry even under bf16 compute.
-        return l2_normalize(y.float())
+        return tower_from_lookup(self._params(), self.cfg, batch, prefix,
+                                 lookup, impl=impl)
 
     def forward(self, batch: Dict[str, torch.Tensor], prefix: str, *,
                 impl: str = "auto") -> torch.Tensor:

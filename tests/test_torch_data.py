@@ -204,3 +204,91 @@ def test_sequence_towers_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tloader.hash_pairs(ttoy.ToyPairs(["a"], ["b"]),
                            tcfg.TowerConfig(arch="cnn"), tcfg.DataConfig())
+
+
+def _hashed_pair(n=330):
+    tower, data, ttower, tdata = _tower_data()
+    pairs = jtoy.make_toy_pairs(n, 96, 2)
+    jh = jloader.hash_pairs(pairs, tower, data)
+    th = tloader.hash_pairs(ttoy.ToyPairs(pairs.queries, pairs.titles),
+                            ttower, tdata)
+    return jh, th
+
+
+@pytest.mark.parametrize("joint,sort_rows,wire,start", [
+    (True, True, True, 0), (False, True, True, 0), (True, False, False, 0),
+    (True, True, True, 7), (False, False, True, 12),
+])
+def test_batch_iterator_identical(joint, sort_rows, wire, start):
+    """The training stream, with row sorting, the compressed wire format and
+    a resumed data cursor (start_batch, across an epoch boundary: 5 batches
+    an epoch)."""
+    jh, th = _hashed_pair()
+    kw = dict(seed=5, dedup_unique=512, dedup_group=8, dedup_unique_rows=128,
+              dedup_joint=joint, wire_compress=wire, sort_rows=sort_rows,
+              start_batch=start)
+    ti = tloader.batch_iterator(th, 64, **kw)
+    ji = jloader.batch_iterator(jh, 64, **kw)
+    for _ in range(7):
+        a, b = next(ti), next(ji)
+        _assert_batches_equal(a, b)
+        assert ("q_idx" in a) == (not wire)
+    if start:
+        # The resumed stream is the uninterrupted one from batch `start` on.
+        whole = tloader.batch_iterator(th, 64, **{**kw, "start_batch": 0})
+        for _ in range(start):
+            next(whole)
+        _assert_batches_equal(
+            next(whole), next(tloader.batch_iterator(th, 64, **kw)))
+
+
+def test_batch_iterator_fixed_epoch_order_and_refusals():
+    jh, th = _hashed_pair()
+    kw = dict(seed=1, dedup_unique=512, dedup_unique_rows=128,
+              dedup_joint=True, reshuffle_each_epoch=False)
+    ti = tloader.batch_iterator(th, 64, **kw)
+    ji = jloader.batch_iterator(jh, 64, **kw)
+    got = [next(ti) for _ in range(10)]
+    for a in got:
+        _assert_batches_equal(a, next(ji))
+    _assert_batches_equal(got[0], got[5])  # epoch 2 replays epoch 1
+    for bad in (dict(process_count=2), dict(pipeline_workers=4),
+                dict(cache_epoch_batches=True), dict(local_sel_cap=64),
+                dict(sequence=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            next(tloader.batch_iterator(th, 64, **bad))
+    with pytest.raises(ValueError, match="corpus size"):
+        next(tloader.batch_iterator(th, 1024))
+
+
+def test_wire_plan_compress_sort_and_prefetch_identical():
+    jh, th = _hashed_pair(150)
+    for args in ((512, 128), (8 * 40000, None)):
+        assert (tloader.wire_dtype_plan(th, *args)
+                == jloader.wire_dtype_plan(jh, *args))
+    rows = np.arange(64)
+    tb = tloader.select_batch(th, rows, 512, 8, 128, True)
+    jb = jloader.select_batch(jh, rows, False, 512, 8, 128, True)
+    _assert_batches_equal(tloader.sort_batch_rows(tb),
+                          jloader.sort_batch_rows(jb))
+    for plan in (None, {"inv_int16": True, "wgt_uint8": False},
+                 {"inv_int16": False, "wgt_uint8": True}):
+        _assert_batches_equal(tloader.compress_wire(tb, plan),
+                              jloader.compress_wire(jb, plan))
+    frac = dict(tb, q_wgt=tb["q_wgt"] * 0.5)  # not integral: stays f32
+    assert tloader.compress_wire(frac)["q_wgt"].dtype == np.float32
+    items = [{"i": np.asarray(i)} for i in range(5)]
+    assert [int(b["i"]) for b in tloader.prefetch(iter(items), depth=2)] \
+        == list(range(5))
+
+
+@pytest.mark.parametrize("n,frac,seed", [(150, 0.1, 0), (40, 0.25, 3),
+                                         (5, 0.1, 1)])
+def test_train_eval_split_identical(n, frac, seed):
+    pairs = jtoy.make_toy_pairs(n, 64, seed)
+    jt, je = jtoy.train_eval_split(pairs, frac, seed)
+    tt, te = ttoy.train_eval_split(
+        ttoy.ToyPairs(pairs.queries, pairs.titles), frac, seed)
+    assert (tt.queries, tt.titles) == (jt.queries, jt.titles)
+    assert (te.queries, te.titles) == (je.queries, je.titles)
+    assert len(te) == max(1, int(n * frac))

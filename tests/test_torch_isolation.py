@@ -1,8 +1,10 @@
 """dssm_tpu_torch stands alone: no module of it, nor chip_smoke.py, imports
-jax, orbax or dssm_tpu, and every module imports with jax made unimportable."""
+jax, optax, flax, orbax or dssm_tpu, and every module imports with them made
+unimportable."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -10,7 +12,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "dssm_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "orbax", "dssm_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "orbax", "dssm_tpu")
 
 
 def _port_files():
@@ -31,8 +33,12 @@ def _modules():
 
 
 def test_port_has_modules():
-    assert "dssm_tpu_torch.kernels.gather" in _modules()
-    assert len(_port_files()) > 20
+    mods = _modules()
+    for name in ("kernels.gather", "kernels.joint", "kernels.loss",
+                 "loss.cosine_softmax", "train.state", "train.sparse_update",
+                 "train.loop", "io.checkpoint", "io.metrics", "cli.train"):
+        assert f"dssm_tpu_torch.{name}" in mods
+    assert len(_port_files()) > 30
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -55,7 +61,7 @@ def test_no_forbidden_imports(path):
 def test_every_module_imports_without_jax():
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'orbax', 'dssm_tpu'):\n"
+        f"for m in {FORBIDDEN!r}:\n"
         "    sys.modules[m] = None\n"
         "import importlib\n"
         f"for m in {_modules()!r}:\n"
@@ -67,3 +73,28 @@ def test_every_module_imports_without_jax():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip() == "ok"
+
+
+def test_not_ported_messages_name_roadmap_items():
+    """Every "(ROADMAP.md, Queue N: name)" in the port names a bold item
+    title of that queue as ROADMAP.md stands."""
+    with open(os.path.join(REPO, "ROADMAP.md")) as f:
+        roadmap = f.read()
+    titles = {}
+    for n, body in re.findall(r"### Queue (\d)(.*?)(?=\n### |\Z)", roadmap,
+                              re.S):
+        titles[n] = [re.sub(r"\s+", " ", t).lower() for t in
+                     re.findall(r"^\s*\d+\. \*\*(.+?)\*\*", body, re.S | re.M)]
+    assert len(titles["1"]) >= 8 and len(titles["2"]) >= 4
+    refs = []
+    for path in _port_files():
+        with open(path) as f:
+            text = re.sub(r'"\s*\n\s*#?\s*f?"?', "", f.read())
+        refs += [(path, n, name) for n, name in re.findall(
+            r"ROADMAP\.md, Queue (\d): ?([^)\"]+)\)", text)]
+    assert len(refs) >= 12
+    for path, n, name in refs:
+        name = re.sub(r"\s+", " ", name).strip().lower()
+        assert any(name in t for t in titles[n]), (
+            f"{os.path.relpath(path, REPO)}: Queue {n} has no item "
+            f"titled {name!r}")

@@ -242,3 +242,77 @@ def test_export_cli_refuses_dssm_tpu_checkpoint(tmp_path):
                       f"--io.workdir={tmp_path}",
                       f"--out={tmp_path / 'index.npz'}"])
     assert not (tmp_path / "index.npz").exists()
+
+
+def _train(*args, cpu=True):
+    return subprocess.run(
+        [sys.executable, "-m", "dssm_tpu_torch.cli.train", "--preset=tiny",
+         *(["--cpu"] if cpu else []), *SMALL, "--data.toy_num_pairs=400",
+         "--train.log_every=1", *args],
+        capture_output=True, text=True, timeout=300)
+
+
+def test_train_cli_then_export_serves_the_trained_weights(tmp_path):
+    """Train 2 steps on the CPU, save, and cli.export serves from the
+    port's checkpoint (and through the saved vocab remap); --resume
+    continues at the saved step."""
+    work, index = str(tmp_path / "run"), str(tmp_path / "index.npz")
+    r = _train(f"--io.workdir={work}", "--train.max_steps=2",
+               "--data.freq_remap=true")
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "step 0: loss=" in r.stderr and "step 1: loss=" in r.stderr
+    assert "evaluation is not ported yet" in r.stderr
+    records = [json.loads(line)
+               for line in (tmp_path / "run" / "metrics.jsonl").open()]
+    assert [rec["step"] for rec in records] == [0, 1]
+    assert all(rec["tag"] == "train" and np.isfinite(rec["loss"])
+               for rec in records)
+    from dssm_tpu_torch.data.remap import load_remap
+    from dssm_tpu_torch.io.checkpoint import Checkpointer
+
+    state = Checkpointer(work).restore(device="cpu")
+    assert state.step == 2 and load_remap(work) is not None
+    fresh = tbase.init_params(
+        tcfg.TowerConfig(vocab_size=4096, embed_width=40, hidden_dims=(64,),
+                         semantic_dim=32), seed=42, device="cpu")
+    assert not torch.equal(state.params["shared"]["W1"],
+                           fresh["shared"]["W1"])  # it trained
+
+    r = _export(f"--io.workdir={work}", f"--out={index}",
+                "--data.toy_num_pairs=400", "--data.freq_remap=true")
+    assert "restored step 2" in r.stderr and "fresh init" not in r.stderr
+    assert "applying saved vocab remap" in r.stderr
+    emb, titles = tserve.load_index(index)
+    # The index is the restored weights' own, not the fresh init's.
+    from dssm_tpu_torch.config import configs as cfgs
+    from dssm_tpu_torch.cli.args import coerce_overrides
+
+    cfg = cfgs.validate(coerce_overrides(
+        cfgs.get_preset("tiny"),
+        dict(a[2:].split("=", 1) for a in SMALL)))
+    want = tserve.build_doc_index(state.params, cfg, titles, BATCH, "auto",
+                                  load_remap(work), "cpu")
+    np.testing.assert_allclose(emb, want, rtol=0, atol=1e-6)
+    r = _export(f"--io.workdir={work}", f"--index={index}",
+                f"--query={titles[5]}", "--k=3")
+    assert json.loads(r.stdout.strip().splitlines()[-1])["results"]
+
+    r = _train(f"--io.workdir={work}", "--train.max_steps=3", "--resume",
+               "--data.freq_remap=true")
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "resumed from step 2" in r.stderr and "step 2: loss=" in r.stderr
+    assert Checkpointer(work).all_steps() == [2, 3]
+
+
+def test_train_cli_refuses_what_is_not_ported(tmp_path):
+    if not torch.cuda.is_available():
+        r = _train(f"--io.workdir={tmp_path}", "--train.max_steps=1",
+                   cpu=False)
+        assert r.returncode != 0 and "no CUDA device" in r.stderr
+    for flag, what in (("--data.path=/nonexistent.tsv", "file corpus"),
+                       ("--train.sparse_embed_update=false",
+                        "dense-table train step"),
+                       ("--io.tensorboard=true", "tooling")):
+        r = _train(f"--io.workdir={tmp_path}", "--train.max_steps=1", flag)
+        assert r.returncode != 0 and "NotImplementedError" in r.stderr
+        assert what in r.stderr and "ROADMAP.md" in r.stderr
