@@ -5,18 +5,24 @@
 
 Builds the port's CUDA kernels from dssm_tpu_torch/csrc, holds each kernel
 to its plain PyTorch version at the `full` preset's shapes and times both,
-then drives the `full` preset end to end (500k x 384 f32 table, towers
+then drives the `full` preset end to end (500k x 384 table, towers
 300->300->128 in bf16, batch 1024, union dedupe):
 
   - trains it from seeded fresh weights on the toy corpus's batch stream,
-    24 steps through the kernels and the same steps from the same state
+    12 steps through the kernels and the same steps from the same state
     through the plain versions, which must agree, with the loss falling;
     then 3 steps of the per-side branch (separate towers) the same way;
+  - trains it the same way on a bf16 table and on an int8 table (12 steps
+    each, the stochastic-rounding scatters, kernels against plain versions);
+  - evaluates the f32, bf16 and int8 models on the held-out split (recall@1,
+    NDCG@10, MRR), kernels against plain versions, the second pass from the
+    cache of prepared batches;
   - saves the trained state with the port's Checkpointer, restores it,
   - serves from the restored weights: a doc index over 4096 toy titles and
     top-10 for 64 queries, through the kernels and through the plain
     versions, which must agree, and
-  - runs cli.train for a few steps and cli.export on its workdir.
+  - runs cli.train (f32 table; then a bf16 table with periodic eval),
+    cli.eval and cli.export on their workdirs.
 
 It checks that every kernel was launched by the path it belongs to. The
 next-to-last line is a JSON object with each kernel's numbers; the last
@@ -39,12 +45,15 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 CUDA cores
 SEED = 0
-TRAIN_STEPS = 24       # joint branch, kernels against plain
+TRAIN_STEPS = 12       # joint branch, kernels against plain, per table dtype
 PER_SIDE_STEPS = 3     # per-side branch (separate towers)
+SR_SEEDS = 64          # seeds averaged in the scatters' unbiasedness check
+RANK_N = 6553          # eval pairs of the full preset (10% of 65536)
 TRAIN_PAIRS = 32768    # of the preset's 65536 toy pairs: bounds hashing time
 INDEX_BATCHES = 4      # served index: 4 batches of 1024 titles
 CLI_PAIRS = 8192       # toy corpus of the command-line drive
-CLI_STEPS = 6          # its training steps
+CLI_STEPS = 4          # its training steps (f32 table)
+CLI_LOWPREC_STEPS = 6  # bf16 table, eval every 3 steps
 
 
 def check(ok: bool, msg: str) -> None:
@@ -89,6 +98,11 @@ def main() -> int:
     from dssm_tpu_torch.kernels.joint import (
         joint_lookup, joint_lookup_bwd, joint_lookup_bwd_plain,
         joint_lookup_plain)
+    from dssm_tpu_torch.kernels.rank import (
+        rank_counts, rank_counts_plain, true_scores)
+    from dssm_tpu_torch.kernels.scatter_sr import (
+        scatter_sr_int8_row_groups, scatter_sr_int8_row_groups_plain,
+        scatter_sr_row_groups, scatter_sr_row_groups_plain)
     from dssm_tpu_torch.kernels.loss import (
         in_batch_loss_dd, in_batch_loss_dq, in_batch_loss_grads_plain,
         in_batch_nll_kernel, in_batch_nll_plain)
@@ -96,6 +110,7 @@ def main() -> int:
         dense_tower, dense_tower_residuals)
     from dssm_tpu_torch.models import base as model_base
     from dssm_tpu_torch.serve import build_doc_index, embed_queries, top_k
+    from dssm_tpu_torch.train import eval as eval_mod
     from dssm_tpu_torch.train.loop import make_train_step
     from dssm_tpu_torch.train.state import create_run_state
 
@@ -337,25 +352,27 @@ def main() -> int:
     t0 = time.perf_counter()
     pairs = make_toy_pairs(cfg.data.toy_num_pairs, cfg.data.toy_vocab_words,
                            cfg.data.seed)
-    train_pairs, _ = train_eval_split(
+    train_pairs, eval_pairs = train_eval_split(
         ToyPairs(queries=pairs.queries[:TRAIN_PAIRS],
                  titles=pairs.titles[:TRAIN_PAIRS]),
         eval_frac=cfg.data.eval_frac, seed=cfg.data.seed)
     hashed_train = hash_pairs(train_pairs, t, cfg.data)
+    hashed_eval = hash_pairs(eval_pairs, t, cfg.data)
     tmp_dir = tempfile.TemporaryDirectory(prefix="dssm_smoke_")
     workdir = tmp_dir.name  # removed below, or at exit if a check fails
     train_remap = build_freq_remap(hashed_train, t.vocab_size)
     hashed_train = apply_remap(hashed_train, train_remap)
+    hashed_eval = apply_remap(hashed_eval, train_remap)
     save_remap(workdir, train_remap)
     print(f"training corpus: {len(hashed_train)} pairs hashed + remapped in "
           f"{time.perf_counter() - t0:.1f} s (cut from "
           f"{cfg.data.toy_num_pairs} pairs; widths, vocab, batch and caps "
           "are the preset's)")
 
-    def stream(joint):
+    def stream(joint, dedup_group=group):
         return batch_iterator(
             hashed_train, cfg.train.batch_size, seed=cfg.train.seed,
-            dedup_unique=cfg.data.max_unique, dedup_group=group,
+            dedup_unique=cfg.data.max_unique, dedup_group=dedup_group,
             dedup_unique_rows=cfg.data.max_unique_rows, dedup_joint=joint,
             wire_compress=True, sort_rows=True)
 
@@ -647,9 +664,239 @@ def main() -> int:
               f"{real_t} real",
     )
     del tbl_k
+
+    # ---- phase 3b: the low-precision table kernels and the rank count ----
+    # Tables of the full shape in bf16 (16-row groups) and int8 (32-row
+    # groups); slots are the first batch's own `uniq` of a stream deduped at
+    # that group size, with its sentinel tail.
+    lowprec = {}
+    for name, dtype, grp in (("bfloat16", torch.bfloat16, 16),
+                             ("int8", torch.int8, 32)):
+        it = stream(True, grp)
+        batches = [next(it) for _ in range(TRAIN_STEPS)]
+        lowprec[name] = dict(dtype=dtype, group=grp, batches=batches)
+    sr_cases = (
+        ("scatter_sr_row_groups", "bfloat16", scatter_sr_row_groups,
+         scatter_sr_row_groups_plain, 286),
+        ("scatter_sr_int8_row_groups", "int8", scatter_sr_int8_row_groups,
+         scatter_sr_int8_row_groups_plain, 410))
+    for name, tname, fn, fn_plain, line in sr_cases:
+        lp = lowprec[tname]
+        grp, dtype = lp["group"], lp["dtype"]
+        uniq_lp = batch_to_torch(lp["batches"][0], dev)["uniq"]
+        groups_lp = table.shape[0] // grp
+        if dtype == torch.bfloat16:
+            tbl = table.to(dtype)
+            upd = torch.from_numpy(rng.normal(size=(slots * grp, h)).astype(
+                np.float32)).to(dev) * 1e-4
+            small = upd * 0.1          # well under a bf16 ulp of the rows
+        else:
+            tbl = torch.from_numpy(rng.integers(-100, 101, size=(
+                table.shape[0], h)).astype(np.int8)).to(dev)
+            upd = torch.from_numpy(rng.uniform(-3, 3, size=(
+                slots * grp, h)).astype(np.float32)).to(dev)
+            small = upd * 0.3          # under one int8 level
+        real_s = int(((uniq_lp >= 0) & (uniq_lp < groups_lp)).sum())
+        check(0 < real_s < slots, f"{name}: {real_s} real slots of {slots}")
+        check(bool((uniq_lp[real_s:] == SKIP_SENTINEL_GID).all()),
+              f"{name}: the slots' tail is not the sentinel")
+        rows_lp = (uniq_lp[:real_s].long()[:, None] * grp
+                   + torch.arange(grp, device=dev)).reshape(-1)
+        # The gather on this table dtype (csrc/gather.cu copies bytes).
+        c_k = gather_row_groups(tbl, uniq_lp, grp, impl="kernel")
+        c_p = gather_row_groups(tbl, uniq_lp, grp, impl="plain")
+        check(torch.equal(c_k, c_p), f"gather_row_groups differs on the "
+              f"{tname} table")
+        results["gather_row_groups"][f"ms_{tname}"] = graph_ms(
+            lambda: gather_row_groups(tbl, uniq_lp, grp, impl="kernel"))
+        # Bit-equal to the plain version (same Philox stream), in place.
+        t_k, t_p = tbl.clone(), tbl.clone()
+        out = fn(t_k, uniq_lp, upd, grp, 12345, impl="kernel")
+        fn_plain(t_p, uniq_lp, upd, grp, 12345)
+        torch.cuda.synchronize()
+        check(out is t_k and torch.equal(t_k, t_p), f"{name} differs from "
+              "its plain version (bit-equal expected)")
+        moved = (t_k != tbl).any(dim=1)
+        inside = torch.zeros_like(moved)
+        inside[rows_lp] = True
+        check(bool((moved & ~inside).sum() == 0), f"{name} changed a row of "
+              "no real slot")
+        check(int(moved.sum()) > 0.9 * rows_lp.numel(), f"{name} moved only "
+              f"{int(moved.sum())} of {rows_lp.numel()} rows")
+        fn(t_p, uniq_lp, upd, grp, 12346, impl="kernel")
+        check(not torch.equal(t_p[rows_lp], t_k[rows_lp]), f"{name}: another "
+              "seed gave the same rows twice over")
+        del t_p
+        t_k.copy_(tbl)
+        fn(t_k, uniq_lp, torch.zeros_like(upd), grp, 7, impl="kernel")
+        check(torch.equal(t_k, tbl), f"{name}: a zero update changed the "
+              "table")
+        # Unbiased: the mean over seeds of an update under one grid step is
+        # within 3 sigma of the f32 sum (where a normal reading holds).
+        old_rows = tbl[rows_lp].float()
+        acc = old_rows + small[: rows_lp.numel()]
+        total = torch.zeros_like(acc, dtype=torch.float64)
+        lo = torch.full_like(acc, float("inf"))
+        hi = torch.full_like(acc, float("-inf"))
+        for seed in range(SR_SEEDS):
+            fn(t_k, uniq_lp, small, grp, 1000 + seed, impl="kernel")
+            new = t_k[rows_lp].float()
+            total += new
+            lo, hi = torch.minimum(lo, new), torch.maximum(hi, new)
+            t_k.index_copy_(0, rows_lp, tbl[rows_lp])
+        if dtype == torch.bfloat16:
+            down = acc.view(torch.int32) & -65536
+            g_lo = down.view(torch.float32)
+            g_hi = (down + 65536).view(torch.float32)
+            g_lo, g_hi = torch.minimum(g_lo, g_hi), torch.maximum(g_lo, g_hi)
+        else:
+            g_lo = torch.floor(acc)
+            g_hi = g_lo + 1
+        check(bool(((lo >= g_lo) & (hi <= g_hi)).all()), f"{name}: a result "
+              "is not a grid neighbour of the f32 sum")
+        step_ = (g_hi - g_lo).double()
+        frac = ((acc - g_lo).double() / step_).clamp(0, 1)
+        sigma = step_ * torch.sqrt(frac * (1 - frac) / SR_SEEDS)
+        mid = (frac >= 0.2) & (frac <= 0.8)
+        z = ((total / SR_SEEDS - acc.double()).abs() / sigma)[mid]
+        bias = float(((total / SR_SEEDS - acc.double()) / step_).mean())
+        beyond = float((z > 3).double().mean())
+        check(int(mid.sum()) > 1000 and beyond < 0.01 and float(z.max()) < 6
+              and abs(bias) < 1e-3, f"{name}: mean of {SR_SEEDS} seeds off "
+              f"the f32 sum: {beyond:.4f} of elements beyond 3 sigma, max z "
+              f"{float(z.max()):.2f}, mean bias {bias:.2e} grid steps")
+        # Times: kernel and library as graph replays, the plain version
+        # eagerly (its boolean row mask cannot be captured in a graph).
+        composed = t_k[rows_lp].clone()
+        itemsize = tbl.element_size()
+        b_ms, b_by = bound_ms(real_s * grp * h * (2 * itemsize + 4)
+                              + slots * 4, real_s * grp * h, "f32")
+        results[name] = dict(
+            source="dssm_tpu_torch/csrc/scatter_sr.cu",
+            replaces=f"dssm_tpu/kernels/pallas_gather.py:{line}",
+            max_abs_err=0.0, tolerance="bit-equal (same Philox stream)",
+            ms=graph_ms(lambda: fn(t_k, uniq_lp, upd, grp, 5, impl="kernel")),
+            plain_ms=eager_ms(lambda: fn_plain(t_k, uniq_lp, upd, grp, 5),
+                              reps=5, trials=3),
+            library_ms=graph_ms(lambda: t_k.index_copy_(0, rows_lp,
+                                                        composed)),
+            bound_ms=b_ms, bound_by=b_by,
+            shape=f"table {tuple(tbl.shape)} {tname}, {slots} slots of "
+                  f"{grp} rows, {real_s} real; {SR_SEEDS}-seed mean: "
+                  f"{beyond:.4f} beyond 3 sigma, bias {bias:.1e} grid steps; "
+                  "plain timed eagerly",
+        )
+        del tbl, t_k, upd, small, acc, total, old_rows, composed
+
+    # The scatter-add's bf16 branch (a bf16 table trained with
+    # train.table_stochastic_round=False): rounded to nearest, bit-equal.
+    tbl16 = table[: 1 << 16].to(torch.bfloat16)
+    g16 = torch.tensor([5, 1 << 25, 4095, 0], dtype=torch.int32, device=dev)
+    v16 = (torch.from_numpy(rng.normal(size=(4 * 16, h)).astype(
+        np.float32)).to(dev) * 1e-3).to(torch.bfloat16)
+    check(torch.equal(
+        scatter_add_row_groups(tbl16.clone(), g16, v16, 16, impl="kernel"),
+        scatter_add_row_groups_plain(tbl16.clone(), g16, v16, 16)),
+        "scatter_add_row_groups differs on a bf16 table")
+
+    # The joint lookup's bf16-compact branch, forward and backward, on the
+    # bf16 stream's first batch.
+    tb16 = batch_to_torch(lowprec["bfloat16"]["batches"][0], dev)
+    f16 = [tb16[k].contiguous() for k in ("sel", "q_inv", "q_wgt", "d_inv",
+                                          "d_wgt")]
+    compact16 = gather_row_groups(table.to(torch.bfloat16), tb16["uniq"], 16,
+                                  impl="kernel")
+    gr16 = compact16.shape[0]
+    lk = joint_lookup(compact16, *f16, impl="kernel")
+    lp_ = joint_lookup_plain(compact16, *f16)
+    err = max(float((a_ - b_).abs().max()) for a_, b_ in zip(lk, lp_))
+    scale = max(float(b_.abs().max()) for b_ in lp_)
+    check(err <= 1e-5 * scale, f"joint_lookup on a bf16 compact: max err "
+          f"{err} over 1e-5 x {scale}")
+    dck = joint_lookup_bwd(*f16, g_q, g_d, gr16, impl="kernel")
+    dcp = joint_lookup_bwd_plain(*f16, g_q, g_d, gr16)
+    err_b, scale_b = float((dck - dcp).abs().max()), float(dcp.abs().max())
+    check(err_b <= 1e-5 * scale_b, f"joint_lookup_bwd at the bf16 table's "
+          f"slots: max err {err_b} over 1e-5 x {scale_b}")
+    results["joint_lookup"]["ms_bfloat16"] = graph_ms(
+        lambda: joint_lookup(compact16, *f16, impl="kernel"))
+    results["joint_lookup_bwd"]["ms_bfloat16"] = graph_ms(
+        lambda: joint_lookup_bwd(*f16, g_q, g_d, gr16, impl="kernel"))
+    del compact16, tb16, lk, lp_, dck, dcp
+
+    # Rank count: unit vectors with ranks spread from 1 into the hundreds,
+    # redrawn until no score lies within 1e-5 of its row's true score, so
+    # the kernel's and the plain version's sums cannot disagree on a count.
+    def rank_case(n, nd):
+        q_ = F.normalize(torch.from_numpy(rng.normal(size=(n, dims[-1]))
+                                          .astype(np.float32)).to(dev), dim=1)
+        d_ = F.normalize(torch.from_numpy(rng.normal(size=(nd, dims[-1]))
+                                          .astype(np.float32)).to(dev), dim=1)
+        d_[:n] = F.normalize(d_[:n] + 0.35 * q_, dim=1)
+        diag = torch.arange(n, device=dev)
+
+        def gaps():
+            gap_ = (q_ @ d_.T - true_scores(q_, d_)[:, None]).abs()
+            gap_[diag, diag] = 1.0
+            return gap_
+
+        redrawn = []
+        for _ in range(20):
+            close = gaps() < 2e-5
+            bad = (close.any(dim=1) | close.any(dim=0)[:n]).nonzero()[:, 0]
+            redrawn.append(bad.numel())
+            if bad.numel() == 0:
+                break
+            new_q = F.normalize(torch.from_numpy(rng.normal(size=(
+                bad.numel(), dims[-1])).astype(np.float32)).to(dev), dim=1)
+            new_d = F.normalize(F.normalize(torch.from_numpy(rng.normal(size=(
+                bad.numel(), dims[-1])).astype(np.float32)).to(dev), dim=1)
+                + 0.35 * new_q, dim=1)
+            q_.index_copy_(0, bad, new_q)
+            d_.index_copy_(0, bad, new_d)
+        margin = float(gaps().min())
+        check(margin >= 1e-5, f"rank_counts inputs ({n} x {nd}): a score "
+              f"within {margin} of its true score after redrawing "
+              f"{redrawn} rows")
+        return q_.contiguous(), d_.contiguous(), margin
+
+    for n_, nd_ in ((1000, 1777), (RANK_N, RANK_N)):
+        rq, rd, margin = rank_case(n_, nd_)
+        r_k = rank_counts(rq, rd, impl="kernel")
+        r_p = rank_counts_plain(rq, rd)
+        torch.cuda.synchronize()
+        check(torch.equal(r_k, r_p), f"rank_counts differs from its plain "
+              f"version at {n_} x {nd_} ({int((r_k != r_p).sum())} ranks)")
+        check(int(r_k.min()) == 1 and int(r_k.max()) > 10,
+              f"rank_counts: ranks {int(r_k.min())}..{int(r_k.max())}")
+    true_r = true_scores(rq, rd)
+    b_ms, b_by = bound_ms((rq.numel() + rd.numel() + 2 * RANK_N) * 4,
+                          2.0 * RANK_N * RANK_N * dims[-1], "f32")
+    results["rank_counts"] = dict(
+        source="dssm_tpu_torch/csrc/rank.cu",
+        replaces="dssm_tpu/kernels/pallas_rank.py:84",
+        max_abs_err=0.0,
+        tolerance=f"equal (no score within {margin:.2g} of a true score)",
+        ms=graph_ms(lambda: rank_counts(rq, rd, impl="kernel"), reps=5),
+        plain_ms=graph_ms(lambda: rank_counts_plain(rq, rd), reps=5),
+        library_ms=graph_ms(lambda: (rq @ rd.T > true_r[:, None]).sum(1),
+                            reps=5),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"q, d ({RANK_N}, {dims[-1]}) f32, ranks "
+              f"{int(r_k.min())}..{int(r_k.max())}; also equal at a ragged "
+              "1000 x 1777",
+    )
+    del rq, rd
     new_names = ("joint_lookup", "joint_lookup_bwd", "count_lookup_bwd",
                  "dense_tower_residuals", "in_batch_loss", "in_batch_loss_dq",
-                 "in_batch_loss_dd", "scatter_add_row_groups")
+                 "in_batch_loss_dd", "scatter_add_row_groups",
+                 "scatter_sr_row_groups", "scatter_sr_int8_row_groups",
+                 "rank_counts")
+    for extra in ("gather_row_groups", "joint_lookup", "joint_lookup_bwd"):
+        r = results[extra]
+        print(f"{extra} at the low-precision tables' shapes: "
+              + ", ".join(f"{k[3:]} {r[k]:.4f} ms" for k in r
+                          if k.startswith("ms_")) + f" on {card}")
     for name in new_names:
         r = results[name]
         r["eager_ms"] = None
@@ -678,19 +925,70 @@ def main() -> int:
         wall = time.perf_counter() - t_start
         return state, [float(v) for v in losses], wall
 
-    def compare_training(run_cfg, init, batches_np, what, expect):
+    def grid_steps_apart(a, b, before):
+        """Largest distance between two updated tables in grid steps, and
+        the share of elements that differ. A grid step is an int8 level, or
+        the bf16 ulp of the largest of the two values and the value before
+        the update (an update that nearly cancels a weight leaves a result
+        on a much finer grid than the sum was formed on)."""
+        if a.dtype == torch.int8:
+            gap = (a.to(torch.int32) - b.to(torch.int32)).abs().float()
+        else:
+            af, bf_ = a.float(), b.float()
+            big = torch.maximum(torch.maximum(af.abs(), bf_.abs()),
+                                before.float().abs())
+            expo = (big.view(torch.int32) >> 23) & 0xFF
+            ulp = ((expo - 7).clamp(min=1) << 23).view(torch.float32)
+            gap = (af - bf_).abs() / ulp
+        return float(gap.max()), float((gap > 0).float().mean())
+
+    def touched_rows(tw, init, batches_np, dedup_group):
+        """Mask of the table rows of tower tw that some batch gathered."""
+        sides = {"shared": "qd", "query": "q", "doc": "d"}[tw]
+        keys = (["uniq"] if "uniq" in batches_np[0]
+                else [f"{s_}_uniq" for s_ in sides])
+        rows_total = init[tw]["W0"].shape[0]
+        gids_ = np.unique(np.concatenate(
+            [b_np[k] for b_np in batches_np for k in keys]))
+        gids_ = torch.from_numpy(gids_[gids_ < rows_total // dedup_group]
+                                 .astype(np.int64)).to(dev)
+        touched = torch.zeros((rows_total,), dtype=torch.bool, device=dev)
+        touched[(gids_[:, None] * dedup_group
+                 + torch.arange(dedup_group, device=dev)).reshape(-1)] = True
+        return touched
+
+    def compare_training(run_cfg, init, batches_np, what, expect,
+                         dedup_group=group, loss_tol=2e-2):
         """The same steps from the same state through the kernels and
-        through the plain versions; checks and returns the kernel run."""
+        through the plain versions; checks and returns the kernel run.
+        Under bf16 compute the two runs drift apart step by step (a tower
+        activation rounds to the neighbouring bf16 value, the backward's
+        atomics add in another order), so the whole run is held to the
+        absolute tolerances of the f32 comparison. A bf16 or int8 table is
+        also compared in grid steps after ONE step from the same state:
+        both runs draw the same random stream, so they part only where
+        the accumulators' last bits tip a rounding."""
         steps = len(batches_np)
         # Warm-up outside the counted run (cuBLAS handles, allocator): one
-        # step of each on throw-away copies.
+        # step of each on copies, kept for the one-step comparison.
+        first = {}
         for impl in ("auto", "plain"):
-            run_steps(run_cfg, create_run_state(run_cfg, clone_params(init)),
-                      batches_np[:1], impl)
+            first[impl] = run_steps(
+                run_cfg, create_run_state(run_cfg, clone_params(init)),
+                batches_np[:1], impl)[0].params
+        first_gap, first_share = 0.0, 0.0
+        for tw in init:
+            if init[tw]["W0"].dtype != torch.float32:
+                hit = touched_rows(tw, init, batches_np[:1], dedup_group)
+                first_gap, first_share = grid_steps_apart(
+                    first["auto"][tw]["W0"][hit], first["plain"][tw]["W0"][hit],
+                    init[tw]["W0"][hit])
+        del first
         s_p, loss_p, wall_p = run_steps(
             run_cfg, create_run_state(run_cfg, clone_params(init)),
             batches_np, "plain")
         torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
         _build.reset_launch_counts()
         s_k, loss_k, wall_k = run_steps(
             run_cfg, create_run_state(run_cfg, clone_params(init)),
@@ -706,21 +1004,12 @@ def main() -> int:
                   f"launched {n} times, expected none")
         check(all(np.isfinite(loss_k)), f"{what}: non-finite loss")
         gap = max(abs(a - b) for a, b in zip(loss_k, loss_p))
-        check(gap <= 2e-2, f"{what}: kernel and plain loss curves differ by "
-              f"{gap} > 2e-2")
+        check(gap <= loss_tol, f"{what}: kernel and plain loss curves differ "
+              f"by {gap} > {loss_tol}")
         dense_gap = table_gap = 0.0
         for tw, tp_ in s_p.params.items():
-            sides = {"shared": "qd", "query": "q", "doc": "d"}[tw]
-            keys = (["uniq"] if "uniq" in batches_np[0]
-                    else [f"{s_}_uniq" for s_ in sides])
-            gids_ = np.unique(np.concatenate(
-                [b_np[k] for b_np in batches_np for k in keys]))
-            gids_ = torch.from_numpy(
-                gids_[gids_ < num_groups].astype(np.int64)).to(dev)
-            touched = torch.zeros((init[tw]["W0"].shape[0],), dtype=torch.bool,
-                                  device=dev)
-            touched[(gids_[:, None] * group
-                     + torch.arange(group, device=dev)).reshape(-1)] = True
+            touched = touched_rows(tw, init, batches_np, dedup_group)
+            scale_ = tp_.get("W0_scale")
             for k, want in tp_.items():
                 got = s_k.params[tw][k]
                 if k == "W0":
@@ -728,8 +1017,13 @@ def main() -> int:
                           f"{what}: table rows of no gathered group changed")
                     check(not torch.equal(got[touched], init[tw][k][touched]),
                           f"{what}: the table did not move")
-                    table_gap = max(table_gap, float(
-                        (got[touched] - want[touched]).abs().max()))
+                    diff = (got[touched].float() - want[touched].float()).abs()
+                    if scale_ is not None:  # int8: in the weights' units
+                        diff = diff * scale_[touched]
+                    table_gap = max(table_gap, float(diff.max()))
+                elif k == "W0_scale":
+                    check(torch.equal(got, init[tw][k]),
+                          f"{what}: the int8 scale changed")
                 else:
                     dense_gap = max(dense_gap,
                                     float((got - want).abs().max()))
@@ -738,8 +1032,10 @@ def main() -> int:
               f"{table_gap} (table rows touched) > 1e-2")
         return dict(state=s_k, loss=loss_k, loss_plain=loss_p, wall_s=wall_k,
                     plain_wall_s=wall_p, counts=counts,
-                    peak=peak, loss_gap=gap, dense_gap=dense_gap,
-                    table_gap=table_gap)
+                    peak=peak, resident=resident, loss_gap=gap,
+                    dense_gap=dense_gap,
+                    table_gap=table_gap, first_step_grid_gap=first_gap,
+                    first_step_differ_share=first_share)
 
     joint_kernels = ("gather_row_groups", "joint_lookup",
                      "dense_tower_residuals", "in_batch_loss",
@@ -801,6 +1097,7 @@ def main() -> int:
         device_busy_share_traced=(
             None if dev_us_t is None else dev_us_t / 1e6 / prof_wall_t),
         peak_mem_gb=tr["peak"] / 1e9,
+        resident_before_run_gb=tr["resident"] / 1e9,
         real_group_slots_first_batch=real_t,
     )
     print("training path: " + json.dumps(train_path))
@@ -827,6 +1124,146 @@ def main() -> int:
           f"count_lookup_bwd launched {ps['counts']['count_lookup_bwd']} "
           "times")
     del params_ps, ps
+
+    # ---- phase 4b: the same path on a bf16 and on an int8 table ----------
+    # Fresh seeded weights through the entry point (init_params casts or
+    # quantizes the table), the stream deduped at the dtype's group size,
+    # the stochastic-rounding scatter in the step.
+    lowprec_runs = {}
+    for tname, sr_name in (("bfloat16", "scatter_sr_row_groups"),
+                           ("int8", "scatter_sr_int8_row_groups")):
+        lp = lowprec[tname]
+        cfg_lp = validate(cfg.replace(tower=t.replace(table_dtype=tname)))
+        t0 = time.perf_counter()
+        params_lp = model_base.init_params(cfg_lp.tower, seed=cfg.train.seed,
+                                           device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        kernels_lp = joint_kernels[:-1] + (sr_name,)
+        # An int8 level is 1/16 of a row's largest weight (headroom 8), so a
+        # rounding that tips the other way moves a weight 15x further than
+        # on the bf16 table and the two runs drift faster: 5e-2 on the loss
+        # (under 2% of it) against the other tables' 2e-2.
+        run = compare_training(cfg_lp, params_lp, lp["batches"],
+                               f"training ({tname} table)",
+                               {k: 1 for k in kernels_lp}, lp["group"],
+                               5e-2 if tname == "int8" else 2e-2)
+        first, last = (statistics.mean(run["loss"][:4]),
+                       statistics.mean(run["loss"][-4:]))
+        check(last < 0.9 * first, f"training ({tname} table): the loss did "
+              f"not fall (first 4 steps {first:.4f}, last 4 {last:.4f})")
+        # One step from the same state, the same random stream. int8: the
+        # f32 accumulators differ in their last bits, each run rounds to a
+        # neighbour of its own: under 2 levels. bf16: the compact gradient
+        # is rounded to bf16 first, and where the atomics tip that rounding
+        # the update differs by one bf16 ulp of itself, at most 2 ulps of
+        # the larger of the old and new weight; with a neighbour on each
+        # side that is under 4 grid steps (2.0 was the most seen).
+        gap_limit = 4 if tname == "bfloat16" else 2
+        check(run["first_step_grid_gap"] <= gap_limit
+              and run["first_step_differ_share"] <= 0.1,
+              f"training ({tname} table): after one step from the same state "
+              f"kernel and plain tables are {run['first_step_grid_gap']} "
+              f"grid steps apart and {run['first_step_differ_share']:.4%} of "
+              "the touched elements differ (same random stream: expected at "
+              f"most {gap_limit} steps and 10%)")
+        results[sr_name]["launches"] = run["counts"][sr_name]
+        table_lp = run["state"].params["shared"]["W0"]
+        table_mb = (table_lp.numel() * table_lp.element_size()
+                    + (table_lp.shape[0] * 4 if tname == "int8" else 0)) / 1e6
+        summary = dict(
+            card=card, table_dtype=tname, table_mb=table_mb, steps=TRAIN_STEPS,
+            init_s=init_s, loss_first_last=[run["loss"][0], run["loss"][-1]],
+            steps_per_s=TRAIN_STEPS / run["wall_s"],
+            plain_steps_per_s=TRAIN_STEPS / run["plain_wall_s"],
+            loss_gap_kernel_vs_plain=run["loss_gap"],
+            dense_gap=run["dense_gap"],
+            table_gap=run["table_gap"],
+            first_step_table_gap_grid_steps=run["first_step_grid_gap"],
+            first_step_table_elements_differing=run[
+                "first_step_differ_share"],
+            peak_mem_gb=run["peak"] / 1e9,
+            # of which alive before the run: the f32 model and its trained
+            # copy, this table's init and the plain run's copy
+            resident_before_run_gb=run["resident"] / 1e9)
+        print(f"training path, {tname} table: " + json.dumps(summary))
+        lowprec_runs[tname] = dict(cfg=cfg_lp, state=run["state"],
+                                   summary=summary)
+        del params_lp, run
+
+    # ---- phase 4c: evaluation of the three trained models -----------------
+    # The held-out split of the smoke corpus through evaluate(): both
+    # towers over every batch, then the rank count. Kernels against plain
+    # versions; the second pass reads the cache of prepared batches.
+    def near_ties(q_, d_, width):
+        """Per query, the docs scoring within `width` of the true doc."""
+        gap_ = (q_ @ d_.T - true_scores(q_, d_)[:, None]).abs()
+        diag = torch.arange(q_.shape[0], device=dev)
+        gap_[diag, diag] = 1.0
+        return (gap_ < width).sum(dim=1)
+
+    eval_runs = {}
+    eval_models = [("float32", cfg, tr["state"].params)] + [
+        (tname, r_["cfg"], r_["state"].params)
+        for tname, r_ in lowprec_runs.items()]
+    eval_mod._EVAL_CACHES.clear()
+    for tname, cfg_e, params_e in eval_models:
+        bs = cfg_e.train.batch_size
+        eval_mod.evaluate(params_e, cfg_e, hashed_eval, bs, "auto",
+                          cache=False)  # warm-up, outside the counts
+        m_plain = eval_mod.evaluate(params_e, cfg_e, hashed_eval, bs, "plain",
+                                    cache=False)
+        cold, hot = {}, {}
+        _build.reset_launch_counts()
+        m_cold = eval_mod.evaluate(params_e, cfg_e, hashed_eval, bs, "auto",
+                                   cache=True, stats=cold)
+        counts_e = _build.launch_counts()
+        m_hot = eval_mod.evaluate(params_e, cfg_e, hashed_eval, bs, "auto",
+                                  cache=True, stats=hot)
+        n_batches = -(-len(hashed_eval) // bs)
+        for name, n in (("gather_row_groups", 2 * n_batches),
+                        ("count_lookup", 2 * n_batches),
+                        ("dense_tower", 2 * n_batches), ("rank_counts", 1)):
+            check(counts_e[name] == n, f"evaluate ({tname}): kernel {name} "
+                  f"launched {counts_e[name]} times, expected {n}")
+        check(cold["cache_hit"] == 0.0 and hot["cache_hit"] == 1.0,
+              f"evaluate ({tname}): the second pass did not hit the cache")
+        check(m_cold == m_hot, f"evaluate ({tname}): cached and uncached "
+              f"metrics differ: {m_cold} / {m_hot}")
+        check(m_cold["num_queries"] == len(hashed_eval)
+              and all(np.isfinite(v) for v in m_cold.values())
+              and 0 < m_cold["recall@1"] <= m_cold["recall@10"] <= 1,
+              f"evaluate ({tname}): metrics {m_cold}")
+        # Kernels against plain versions: the embeddings differ in their
+        # last bits (bf16 tower), so a rank can move where scores nearly
+        # tie; every metric is a mean over the queries of a value in [0, 1].
+        metric_gap = max(abs(m_cold[k] - m_plain[k]) for k in m_plain)
+        check(metric_gap <= 5e-3, f"evaluate ({tname}): kernel and plain "
+              f"metrics differ by {metric_gap} > 5e-3: {m_cold} / {m_plain}")
+        # The rank kernel against its plain version on the model's own
+        # embeddings: a rank may differ only by docs that score within 1e-6
+        # of the true doc (duplicate titles embed to the same vector).
+        q_e, d_e = eval_mod.embed_corpus(params_e, cfg_e, hashed_eval, bs,
+                                         "auto", cache=True)
+        r_k = rank_counts(q_e, d_e, impl="kernel")
+        r_p = rank_counts_plain(q_e, d_e)
+        ties = near_ties(q_e, d_e, 1e-6)
+        differing = int((r_k != r_p).sum())
+        check(bool(((r_k - r_p).abs() <= ties).all()), f"evaluate ({tname}): "
+              f"{differing} ranks differ between the kernel and its plain "
+              "version beyond the docs within 1e-6 of the true score")
+        eval_runs[tname] = dict(
+            card=card, table_dtype=tname, eval_pairs=len(hashed_eval),
+            batches=n_batches, metrics=m_cold,
+            metric_gap_kernel_vs_plain=metric_gap,
+            ranks_differing_kernel_vs_plain=differing,
+            queries_with_a_near_tie=int((ties > 0).sum()),
+            first_pass_s=dict(cold), cached_pass_s=dict(hot))
+        print(f"evaluate, {tname} table: " + json.dumps(eval_runs[tname]))
+        del q_e, d_e
+    results["rank_counts"]["launches"] = counts_e["rank_counts"]
+    eval_mod._EVAL_CACHES.clear()
+    del lowprec_runs, eval_models
 
     # ---- phase 5: train -> save -> restore ---------------------------------
     t0 = time.perf_counter()
@@ -991,10 +1428,30 @@ def main() -> int:
 
     # ---- phase 7: the same path through the command-line entry points ----
     # cli.train in this process: the full preset on a toy corpus cut to
-    # CLI_PAIRS pairs, CLI_STEPS steps, then cli.export builds an index from
-    # the checkpoint it wrote and answers one query.
+    # CLI_PAIRS pairs, first on the f32 table (CLI_STEPS steps and the final
+    # eval; cli.export then builds an index from the checkpoint it wrote and
+    # answers one query), then on a bf16 table with an eval every 3 steps,
+    # followed by cli.eval and cli.export on that workdir.
+    from dssm_tpu_torch.cli import eval as cli_eval
     from dssm_tpu_torch.cli import export as cli_export
     from dssm_tpu_torch.cli import train as cli_train
+
+    cli_eval_pairs = len(train_eval_split(
+        make_toy_pairs(CLI_PAIRS, cfg.data.toy_vocab_words, cfg.data.seed),
+        eval_frac=cfg.data.eval_frac, seed=cfg.data.seed)[1].queries)
+    cli_eval_batches = -(-cli_eval_pairs // cfg.train.batch_size)
+
+    def cli_expected(steps, evals, scatter):
+        want = {k: steps for k in joint_kernels[:-1] + (scatter,)}
+        want["gather_row_groups"] += 2 * cli_eval_batches * evals
+        want["count_lookup"] = want["dense_tower"] = (
+            2 * cli_eval_batches * evals)
+        want["rank_counts"] = evals
+        return want
+
+    def cli_records(workdir_):
+        with open(os.path.join(workdir_, cfg.io.metrics_file)) as f:
+            return [json.loads(line) for line in f]
 
     cli_dir = tempfile.TemporaryDirectory(prefix="dssm_smoke_cli_")
     cli_flags = ["--preset=full", f"--io.workdir={cli_dir.name}",
@@ -1006,38 +1463,96 @@ def main() -> int:
     torch.cuda.synchronize()
     cli_counts = _build.launch_counts()
     t1 = time.perf_counter()
-    for name in joint_kernels:
-        check(cli_counts[name] == CLI_STEPS, f"cli.train: kernel {name} "
-              f"launched {cli_counts[name]} times in {CLI_STEPS} steps")
-    with open(os.path.join(cli_dir.name, cfg.io.metrics_file)) as f:
-        cli_records = [json.loads(line) for line in f]
-    cli_losses = [r["loss"] for r in cli_records if r["tag"] == "train"]
+    for name, n in cli_expected(CLI_STEPS, 1,
+                                "scatter_add_row_groups").items():
+        check(cli_counts[name] == n, f"cli.train: kernel {name} launched "
+              f"{cli_counts[name]} times, expected {n}")
+    records = cli_records(cli_dir.name)
+    cli_losses = [r["loss"] for r in records if r["tag"] == "train"]
     check(len(cli_losses) == CLI_STEPS // 2 and all(np.isfinite(cli_losses)),
-          f"cli.train: metrics records {cli_records}")
+          f"cli.train: metrics records {records}")
+    check(records[-1]["tag"] == "eval_final"
+          and records[-1]["num_queries"] == cli_eval_pairs
+          and 0 < records[-1]["recall@1"] <= 1,
+          f"cli.train: final eval record {records[-1]}")
     check(Checkpointer(cli_dir.name).latest_step() == CLI_STEPS,
           "cli.train wrote no checkpoint of its last step")
     cli_index = os.path.join(cli_dir.name, "index.npz")
     cli_query = make_toy_pairs(CLI_PAIRS, cfg.data.toy_vocab_words,
                                cfg.data.seed).queries[0]
-    cli_out = io.StringIO()
-    with contextlib.redirect_stdout(cli_out):
-        cli_export.main(cli_flags + [f"--out={cli_index}"])
-        cli_export.main(cli_flags + [f"--index={cli_index}",
+
+    def export_and_query(flags):
+        out_ = io.StringIO()
+        with contextlib.redirect_stdout(out_):
+            cli_export.main(flags + [f"--out={cli_index}"])
+            cli_export.main(flags + [f"--index={cli_index}",
                                      f"--query={cli_query}", "--k=5"])
-    built, answer = (json.loads(line)
-                     for line in cli_out.getvalue().splitlines())
-    check(built["indexed_docs"] > 0 and built["dim"] == t.semantic_dim,
-          f"cli.export index: {built}")
-    cli_scores = [r["score"] for r in answer["results"]]
-    check(len(cli_scores) == 5 and all(np.isfinite(cli_scores))
-          and cli_scores == sorted(cli_scores, reverse=True),
-          f"cli.export answer: {answer}")
+        built_, answer_ = (json.loads(line)
+                           for line in out_.getvalue().splitlines())
+        check(built_["indexed_docs"] > 0 and built_["dim"] == t.semantic_dim,
+              f"cli.export index: {built_}")
+        scores_ = [r["score"] for r in answer_["results"]]
+        check(len(scores_) == 5 and all(np.isfinite(scores_))
+              and scores_ == sorted(scores_, reverse=True),
+              f"cli.export answer: {answer_}")
+        return built_, scores_
+
+    built, cli_scores = export_and_query(cli_flags)
     print(f"cli.train: {CLI_STEPS} steps of the full preset on {CLI_PAIRS} toy "
           f"pairs in {t1 - t0:.1f} s (hashing included), loss "
-          f"{cli_losses[0]:.4f} -> {cli_losses[-1]:.4f}, 1 launch of each of "
-          f"{len(joint_kernels)} kernels a step; cli.export restored step "
-          f"{CLI_STEPS}, indexed {built['indexed_docs']} titles and answered "
-          f"one query (top score {cli_scores[0]:.4f}) in "
+          f"{cli_losses[0]:.4f} -> {cli_losses[-1]:.4f}, final eval recall@1 "
+          f"{records[-1]['recall@1']:.4f} on {cli_eval_pairs} pairs, 1 launch "
+          f"of each of {len(joint_kernels)} kernels a step; cli.export "
+          f"restored step {CLI_STEPS}, indexed {built['indexed_docs']} titles "
+          f"and answered one query (top score {cli_scores[0]:.4f}) in "
+          f"{time.perf_counter() - t1:.1f} s")
+    cli_dir.cleanup()
+
+    cli_dir = tempfile.TemporaryDirectory(prefix="dssm_smoke_cli16_")
+    cli_flags = ["--preset=full", f"--io.workdir={cli_dir.name}",
+                 f"--data.toy_num_pairs={CLI_PAIRS}",
+                 "--tower.table_dtype=bfloat16"]
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    cli_train.main(cli_flags + [f"--train.max_steps={CLI_LOWPREC_STEPS}",
+                                "--train.log_every=2",
+                                "--train.eval_every=3"])
+    torch.cuda.synchronize()
+    cli_counts = _build.launch_counts()
+    t1 = time.perf_counter()
+    for name, n in cli_expected(CLI_LOWPREC_STEPS, 2,
+                                "scatter_sr_row_groups").items():
+        check(cli_counts[name] == n, f"cli.train (bf16 table): kernel {name} "
+              f"launched {cli_counts[name]} times, expected {n}")
+    check(cli_counts["scatter_add_row_groups"] == 0,
+          "cli.train (bf16 table) launched the f32 scatter")
+    records = cli_records(cli_dir.name)
+    check([(r["tag"], r["step"]) for r in records if r["tag"] != "train"]
+          == [("eval", 3), ("eval_final", CLI_LOWPREC_STEPS)],
+          f"cli.train (bf16 table): eval records {records}")
+    final = records[-1]
+    state16 = Checkpointer(cli_dir.name).restore(device=dev)
+    check(state16.step == CLI_LOWPREC_STEPS
+          and state16.params["shared"]["W0"].dtype == torch.bfloat16,
+          "cli.train (bf16 table): the checkpoint's table is not bf16")
+    del state16
+    out_eval = io.StringIO()
+    with contextlib.redirect_stdout(out_eval):
+        cli_eval.main(cli_flags)
+    lines = out_eval.getvalue().strip().splitlines()
+    check(len(lines) == 1, f"cli.eval printed {len(lines)} lines")
+    reported = json.loads(lines[0])
+    check(reported["step"] == CLI_LOWPREC_STEPS and all(
+        reported[k] == final[k] for k in ("recall@1", "recall@10", "ndcg@10",
+                                          "mrr", "num_queries")),
+        f"cli.eval reports {reported}, the run's final eval was {final}")
+    built, cli_scores = export_and_query(cli_flags)
+    print(f"cli.train on a bf16 table: {CLI_LOWPREC_STEPS} steps with an eval "
+          f"at step 3 and at the end in {t1 - t0:.1f} s, final eval "
+          f"{json.dumps({k: final[k] for k in ('recall@1', 'ndcg@10', 'mrr')})}"
+          f"; cli.eval restored step {reported['step']} and reported the same "
+          f"metrics; cli.export indexed {built['indexed_docs']} titles and "
+          f"answered one query (top score {cli_scores[0]:.4f}) in "
           f"{time.perf_counter() - t1:.1f} s")
     cli_dir.cleanup()
 
@@ -1050,6 +1565,7 @@ def main() -> int:
         row = {k: r[k] for k in keys}
         row["kernel_ms"] = r["ms"]
         row["eager_ms"] = r["eager_ms"]
+        row.update({k: v for k, v in r.items() if k.startswith("ms_")})
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 params_from_jax takes dssm_tpu's parameter pytree as numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)`` on the JAX side) and returns the port's
-parameters with the same keys and padded shapes; state_from_jax does the
+parameters with the same keys, dtypes (an f32, bf16 or int8 table; an int8
+table with its `W0_scale`) and padded shapes; state_from_jax does the
 same for a whole TrainState (step, params, the optax state of the dense
 subtree), and params_to_numpy is the way back. batch_to_torch moves a numpy
 batch from the loader onto a device, widening the compressed wire fields
@@ -58,14 +59,18 @@ def params_from_jax(np_params: Mapping[str, Mapping[str, np.ndarray]],
     for tower, tp in np_params.items():
         if tower not in ("shared", "query", "doc"):
             raise KeyError(f"unexpected tower {tower!r}")
-        if set(tp) != set(want):
+        want_t = dict(want)
+        if "W0" in tp and np.asarray(tp["W0"]).dtype == np.int8:
+            # An int8 table comes with its per-row scale.
+            want_t["W0_scale"] = (cfg.vocab_size, 1)
+        if set(tp) != set(want_t):
             raise KeyError(f"tower {tower!r} has keys {sorted(tp)}, "
-                           f"expected {sorted(want)}")
+                           f"expected {sorted(want_t)}")
         out[tower] = {}
         for k, v in tp.items():
-            if tuple(v.shape) != want[k]:
+            if tuple(v.shape) != want_t[k]:
                 raise ValueError(f"{tower}/{k}: shape {tuple(v.shape)}, "
-                                 f"expected {want[k]}")
+                                 f"expected {want_t[k]}")
             out[tower][k] = _to_tensor(v).to(dev)
     return out
 
@@ -129,6 +134,8 @@ def state_from_jax(step: int, np_params: Mapping, np_opt_state: Any,
 
 
 def params_to_numpy(params: Params) -> Dict[str, Dict[str, np.ndarray]]:
-    """The port's parameters as float32 numpy arrays (bf16 widened)."""
-    return {tower: {k: v.detach().float().cpu().numpy()
+    """The port's parameters as numpy arrays: float32 (bf16 widened), an
+    int8 table as int8."""
+    return {tower: {k: (v.detach() if v.dtype == torch.int8
+                        else v.detach().float()).cpu().numpy()
                     for k, v in tp.items()} for tower, tp in params.items()}

@@ -6,14 +6,16 @@
 The flags are dssm_tpu.cli.train's: any config field is overridable with
 --section.field=value. It runs on the GPU unless --cpu is given, and fails
 when there is no GPU; on the GPU every kernel of the step is the port's CUDA
-kernel. It trains on the toy corpus, writes JSONL metrics and checkpoints
-(io/checkpoint.py) under --io.workdir, and saves the frequency remap there
-when data.freq_remap is set; `python -m dssm_tpu_torch.cli.export` then
-serves from the same workdir. --resume continues from the latest checkpoint
-with the data stream at the step it left off.
+kernel. It trains on the toy corpus with an f32, bf16 or int8 table
+(--tower.table_dtype), evaluates the held-out split every train.eval_every
+steps and at the end (records `eval` / `eval_final`), writes JSONL metrics
+and checkpoints (io/checkpoint.py) under --io.workdir, and saves the
+frequency remap there when data.freq_remap is set;
+`python -m dssm_tpu_torch.cli.eval` and `cli.export` then read the same
+workdir. --resume continues from the latest checkpoint with the data stream
+at the step it left off.
 
-Not ported yet: evaluation (train.eval_every is ignored, said once on
-stderr), a file corpus (data.path) and the multi-device path.
+Not ported yet: a file corpus (data.path) and the multi-device path.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     from dssm_tpu_torch.io.metrics import MetricsWriter
     from dssm_tpu_torch.kernels.gather import sublane_group
     from dssm_tpu_torch.models import base as model_base
+    from dssm_tpu_torch.train.eval import evaluate
     from dssm_tpu_torch.train.loop import add_rotation_offsets, make_train_step
     from dssm_tpu_torch.train.sparse_update import uses_sparse_update
     from dssm_tpu_torch.train.state import create_run_state
@@ -67,14 +70,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     kind = (torch.cuda.get_device_name(0) if device.type == "cuda"
             else "cpu")
     print(f"preset={cfg.name} device={kind}", file=sys.stderr)
-    print("evaluation is not ported yet (ROADMAP.md, Queue 1: eval): no "
-          "eval runs during or after training", file=sys.stderr)
 
     pairs = make_toy_pairs(cfg.data.toy_num_pairs, cfg.data.toy_vocab_words,
                            cfg.data.seed)
-    train_pairs, _eval_pairs = train_eval_split(
+    train_pairs, eval_pairs = train_eval_split(
         pairs, eval_frac=cfg.data.eval_frac, seed=cfg.data.seed)
     hashed_train = hash_pairs(train_pairs, cfg.tower, cfg.data)
+    hashed_eval = hash_pairs(eval_pairs, cfg.tower, cfg.data)
 
     if cfg.data.freq_remap:
         # Frequency-ordered vocab remap (data/remap.py), built from the train
@@ -86,6 +88,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         remap = build_freq_remap(hashed_train, cfg.tower.vocab_size,
                                  num_shards=cfg.mesh.model_parallel)
         hashed_train = apply_remap(hashed_train, remap)
+        hashed_eval = apply_remap(hashed_eval, remap)
         save_remap(cfg.io.workdir, remap)
         print("freq_remap: vocab permutation built from the train corpus, "
               f"saved to {cfg.io.workdir}", file=sys.stderr)
@@ -151,12 +154,25 @@ def main(argv: Optional[List[str]] = None) -> None:
             writer.write("train", step, metrics)
             print(f"step {step}: loss={metrics['loss']:.4f} "
                   f"r@1={metrics['in_batch_recall@1']:.3f}", file=sys.stderr)
+        if (cfg.train.eval_every and step
+                and step % cfg.train.eval_every == 0):
+            # The eval corpus's prepared batches are cached on the device
+            # after the first eval (train/eval.py).
+            ev = evaluate(state.params, cfg, hashed_eval,
+                          cfg.train.batch_size)
+            writer.write("eval", step, ev)
+            print(f"eval@{step}: recall@1={ev['recall@1']:.3f} "
+                  f"ndcg@10={ev['ndcg@10']:.3f}", file=sys.stderr)
         if (cfg.train.checkpoint_every and step
                 and step % cfg.train.checkpoint_every == 0):
             ckpt.save(step, state)
         step += 1
 
     ckpt.save(cfg.train.max_steps, state)
+    ev = evaluate(state.params, cfg, hashed_eval, cfg.train.batch_size)
+    writer.write("eval_final", cfg.train.max_steps, ev)
+    print(f"final eval: recall@1={ev['recall@1']:.3f} "
+          f"ndcg@10={ev['ndcg@10']:.3f} mrr={ev['mrr']:.3f}", file=sys.stderr)
     writer.close()
 
 

@@ -337,9 +337,8 @@ def validate(cfg: RunConfig) -> RunConfig:
                    "must BE every later epoch's stream)"))
     if d.dedup_lookup:
         # Row-group alignment: 8 rows for f32 tables, 16 bf16, 32 int8.
-        group = {4: 8, 2: 16, 1: 32}[
-            __import__("numpy").dtype(t.table_dtype_resolved).itemsize
-        ]
+        group = {"float32": 8, "bfloat16": 16, "int8": 32}.get(
+            t.table_dtype_resolved, 8)
         checks.append((t.vocab_size % group == 0,
                        f"tower.vocab_size {t.vocab_size} must be a multiple "
                        f"of {group} with dedup_lookup (DMA row-group "

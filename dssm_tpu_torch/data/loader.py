@@ -125,13 +125,20 @@ def eval_batches(
     dedup_unique: Optional[int] = None, dedup_group: int = 8,
     dedup_unique_rows: Optional[int] = None,
     dedup_joint: bool = False,
+    wire_compress: bool = False,
 ) -> Iterator[Batch]:
-    """One pass over the corpus in order, including the ragged tail."""
+    """One pass over the corpus in order, including the ragged tail.
+    wire_compress shrinks the host->device fields exactly as in training
+    (the embed path reads inv/wgt, so idx is dead weight), with one dtype
+    plan for the whole pass."""
     n = len(hashed)
+    plan = (wire_dtype_plan(hashed, dedup_unique or 0, dedup_unique_rows)
+            if wire_compress else None)
     for start in range(0, n, batch):
         rows = np.arange(start, min(start + batch, n))
-        yield select_batch(hashed, rows, dedup_unique, dedup_group,
+        out = select_batch(hashed, rows, dedup_unique, dedup_group,
                            dedup_unique_rows, dedup_joint)
+        yield compress_wire(out, plan) if wire_compress else out
 
 
 def pad_batch(batch: Batch, to_rows: int) -> Batch:

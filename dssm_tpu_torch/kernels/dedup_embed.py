@@ -4,6 +4,8 @@ Device half of dssm_tpu/kernels/dedup_embed.py (the host half is
 data/dedupe.py):
 
   compact  = gather_row_groups(table, uniq_groups)       (kernel)
+             (an int8 table's compact is dequantized against the per-row
+             scale here: dequant_compact)
   compact2 = compact[row_sel], cast to the compute dtype (exact selection)
   out      = count_lookup(compact2, inv, wgt)            (kernel)
 
@@ -85,6 +87,25 @@ def joint_lookup_from_compact(
     return lq.to(compute_dtype), ld.to(compute_dtype)
 
 
+def gather_scale_rows(scale: torch.Tensor, uniq_groups: torch.Tensor,
+                      group: int) -> torch.Tensor:
+    """Per-row scales of the compact block, [G*group, 1] f32, from the
+    [V, 1] scale parameter; out-of-range slots take scale 0."""
+    v = scale.shape[0]
+    sg = scale.reshape(v // group, group)
+    gids = uniq_groups.long()
+    valid = (gids >= 0) & (gids < v // group)
+    sc = sg.index_select(0, torch.where(valid, gids, 0))
+    return (sc * valid[:, None].to(sc.dtype)).reshape(-1, 1)
+
+
+def dequant_compact(compact: torch.Tensor, scale: torch.Tensor,
+                    uniq_groups: torch.Tensor, group: int) -> torch.Tensor:
+    """int8 compact rows -> f32 against the [V, 1] per-row scale parameter
+    (sentinel rows take scale 0: exact zero rows)."""
+    return compact.float() * gather_scale_rows(scale, uniq_groups, group)
+
+
 def dedup_embedding_bag(
     table: torch.Tensor,
     uniq_groups: torch.Tensor,
@@ -94,8 +115,12 @@ def dedup_embedding_bag(
     group: int = 8,
     impl: str = "auto",
     row_sel: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Full forward: gather the compact row groups, then the count lookup."""
+    """Full forward: gather the compact row groups (dequantized for an int8
+    table), then the count lookup."""
     compact = gather_row_groups(table, uniq_groups, group, impl=impl)
+    if scale is not None:
+        compact = dequant_compact(compact, scale, uniq_groups, group)
     return lookup_from_compact(compact, inv, wgt, compute_dtype, row_sel,
                                impl=impl)

@@ -8,9 +8,10 @@ dedupe's SKIP_SENTINEL_GID padding) read nothing and come back as zero rows.
 scatter_add_row_groups: the table rows of each group id += the slot's rows
 of vals, IN PLACE on the table tensor (the reference returns a new array
 aliased onto its donated input). Counterpart of pallas_gather.py::
-scatter_add_row_groups; the CUDA kernel is csrc/scatter.cu. Out-of-range
-slots are skipped. Real group ids must be distinct wherever vals is
-nonzero, as the dedupe makes them.
+scatter_add_row_groups; the CUDA kernels are in csrc/scatter.cu: f32, and
+bf16 rounded to nearest for a bf16 table trained without stochastic
+rounding. Out-of-range slots are skipped. Real group ids must be distinct
+wherever vals is nonzero, as the dedupe makes them.
 """
 
 from __future__ import annotations
@@ -95,16 +96,19 @@ def scatter_add_row_groups_plain(table: torch.Tensor, gids: torch.Tensor,
 def scatter_add_row_groups(table: torch.Tensor, gids: torch.Tensor,
                            vals: torch.Tensor, group: int, *,
                            impl: str = "auto") -> torch.Tensor:
-    """table [V, H] f32 updated in place and returned; gids [G] int32;
-    vals [G*group, H] f32."""
+    """table [V, H] f32 or bf16 updated in place and returned; gids [G]
+    int32; vals [G*group, H] of the table's dtype (a bf16 sum is rounded to
+    nearest, as a bf16 add is)."""
     if _build.resolve_impl(impl, table, _SCATTER) == "plain":
         return scatter_add_row_groups_plain(table, gids, vals, group)
     v, h = table.shape
     if v % group:
         raise ValueError(f"vocab {v} not divisible by group {group}")
-    if table.dtype != torch.float32 or vals.dtype != torch.float32:
+    if (table.dtype not in (torch.float32, torch.bfloat16)
+            or vals.dtype != table.dtype):
         raise ValueError(f"{_SCATTER}: the kernel adds f32 into an f32 "
-                         f"table, got {table.dtype} and {vals.dtype}")
+                         f"table or bf16 into a bf16 table, got "
+                         f"{table.dtype} and {vals.dtype}")
     if gids.dtype != torch.int32 or gids.dim() != 1:
         raise ValueError(f"{_SCATTER}: gids must be 1-D int32, got "
                          f"{gids.dtype} {tuple(gids.shape)}")
@@ -113,12 +117,16 @@ def scatter_add_row_groups(table: torch.Tensor, gids: torch.Tensor,
         raise ValueError(f"{_SCATTER}: vals {tuple(vals.shape)}, expected "
                          f"{(g * group, h)}")
     _build.check_cuda(_SCATTER, table.device, table, gids, vals)
-    if (group * h) % 4 or table.data_ptr() % 16 or vals.data_ptr() % 16:
+    bf16 = table.dtype == torch.bfloat16
+    if ((group * h) % (8 if bf16 else 4) or table.data_ptr() % 16
+            or vals.data_ptr() % 16):
         raise ValueError(f"{_SCATTER}: a row group must be a whole number "
-                         f"of 16-byte vectors ({group * h} floats)")
+                         f"of 16-byte vectors ({group * h} elements)")
     if g == 0:
         return table
-    _build.launch(_SCATTER, "dssm_scatter_add_row_groups", table.device,
+    fn = ("dssm_scatter_add_bf16_row_groups" if bf16
+          else "dssm_scatter_add_row_groups")
+    _build.launch(_SCATTER, fn, table.device,
                   table.data_ptr(), gids.data_ptr(), vals.data_ptr(), g,
                   v // group, group * h)
     return table

@@ -7,9 +7,11 @@ selection (the union-dedupe batch layout of shared-table towers).
 Counterpart of dssm_tpu/kernels/pallas_count.py::joint_lookup_pallas with
 its custom VJP; the CUDA kernels are in csrc/joint.cu. The arithmetic is the
 Pallas kernel's: selection and products in compact's own dtype (f32 for an
-f32 table) with f32 accumulation, f32 outputs, weights as given. The plain
-version repeats the reference's formulation: the selected rows, then
-count_matrix @ rows per side; its gradient is autograd's.
+f32 table) with f32 accumulation, f32 outputs, weights as given; the
+gradient in compact is summed in f32 over both sides and rounded once to
+compact's dtype. The plain version repeats the reference's formulation: the
+selected rows, then count_matrix @ rows per side; its gradient is
+autograd's.
 """
 
 from __future__ import annotations
@@ -40,7 +42,9 @@ def joint_lookup_plain(compact: torch.Tensor, sel: torch.Tensor,
                        q_inv: torch.Tensor, q_wgt: torch.Tensor,
                        d_inv: torch.Tensor, d_wgt: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    compact2 = select_rows_plain(compact, sel)
+    # In f32 whatever compact's dtype, as the kernel: autograd then sums both
+    # sides' gradients in f32 and rounds once to compact's dtype.
+    compact2 = select_rows_plain(compact.float(), sel)
     return (count_lookup_plain(compact2, q_inv, q_wgt),
             count_lookup_plain(compact2, d_inv, d_wgt))
 

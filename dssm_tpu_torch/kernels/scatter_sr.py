@@ -1,0 +1,114 @@
+"""Row-group scatter updates with stochastic rounding, IN PLACE on a bf16 or
+an int8 table.
+
+scatter_sr_row_groups: the bf16 table rows of each real group id become
+stochastic_round_bf16(f32(rows) + f32(vals)). Counterpart of
+dssm_tpu/kernels/pallas_gather.py::scatter_sr_row_groups.
+
+scatter_sr_int8_row_groups: the int8 table rows become
+int8(clip(floor(f32(q) + vals_grid + u), -127, 127)); vals_grid is ALREADY
+in grid units (the update divided by the row's scale, 0 where the scale is
+0), as the reference's kernel takes it. Counterpart of pallas_gather.py::
+scatter_sr_int8_row_groups.
+
+The CUDA kernels are in csrc/scatter_sr.cu. SET semantics: the real group
+ids of one call must be distinct, as the dedupe makes them. Out-of-range
+slots (the dedupe's SKIP_SENTINEL_GID padding) are skipped: nothing is read
+or written through them. The random bits are kernels/stochastic.py's Philox
+stream under `seed`, indexed by the element's position in the compact
+block; the plain versions draw the same stream with philox_bits, so kernel
+and plain version are bit-equal.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dssm_tpu_torch.kernels import _build
+from dssm_tpu_torch.kernels.gather import expand_group_rows
+from dssm_tpu_torch.kernels.stochastic import (
+    philox_bits, stochastic_round_bf16, stochastic_round_int8)
+
+_BF16 = "scatter_sr_row_groups"
+_INT8 = "scatter_sr_int8_row_groups"
+
+
+def _c_int(seed: int) -> int:
+    """The seed as the int32 the kernel takes (its bits are the key)."""
+    seed = int(seed) & 0xFFFFFFFF
+    return seed - (1 << 32) if seed >= 1 << 31 else seed
+
+
+def _plain(table, gids, vals, group, seed, round_fn):
+    v, h = table.shape
+    if v % group:
+        raise ValueError(f"vocab {v} not divisible by group {group}")
+    gids = gids.long()
+    valid = (gids >= 0) & (gids < v // group)
+    rows = expand_group_rows(torch.where(valid, gids, 0), group)
+    bits = philox_bits(seed, rows.numel() * h, table.device).view(-1, h)
+    new = round_fn(table.index_select(0, rows).float() + vals.float(), bits)
+    keep = valid.repeat_interleave(group)
+    return table.index_copy_(0, rows[keep], new[keep])
+
+
+def scatter_sr_row_groups_plain(table: torch.Tensor, gids: torch.Tensor,
+                                vals: torch.Tensor, group: int,
+                                seed: int) -> torch.Tensor:
+    """Plain PyTorch version: philox_bits, the bit-trick rounding and an
+    index_copy_ of the real slots' rows."""
+    return _plain(table, gids, vals, group, seed, stochastic_round_bf16)
+
+
+def scatter_sr_int8_row_groups_plain(table: torch.Tensor, gids: torch.Tensor,
+                                     vals_grid: torch.Tensor, group: int,
+                                     seed: int) -> torch.Tensor:
+    return _plain(table, gids, vals_grid, group, seed, stochastic_round_int8)
+
+
+def _launch(name, fn, table, gids, vals, group, seed, dtype, vec_elems):
+    v, h = table.shape
+    if v % group:
+        raise ValueError(f"vocab {v} not divisible by group {group}")
+    if table.dtype != dtype or vals.dtype != torch.float32:
+        raise ValueError(f"{name}: the kernel adds f32 into a {dtype} "
+                         f"table, got {table.dtype} and {vals.dtype}")
+    if gids.dtype != torch.int32 or gids.dim() != 1:
+        raise ValueError(f"{name}: gids must be 1-D int32, got "
+                         f"{gids.dtype} {tuple(gids.shape)}")
+    g = gids.shape[0]
+    if tuple(vals.shape) != (g * group, h):
+        raise ValueError(f"{name}: vals {tuple(vals.shape)}, expected "
+                         f"{(g * group, h)}")
+    _build.check_cuda(name, table.device, table, gids, vals)
+    if (group * h) % vec_elems or table.data_ptr() % 16 or vals.data_ptr() % 16:
+        raise ValueError(f"{name}: a row group must be a whole number of "
+                         f"16-byte vectors ({group * h} elements)")
+    if g == 0:
+        return table
+    _build.launch(name, fn, table.device, table.data_ptr(), gids.data_ptr(),
+                  vals.data_ptr(), g, v // group, group * h, _c_int(seed))
+    return table
+
+
+def scatter_sr_row_groups(table: torch.Tensor, gids: torch.Tensor,
+                          vals: torch.Tensor, group: int, seed: int, *,
+                          impl: str = "auto") -> torch.Tensor:
+    """table [V, H] bf16 updated in place and returned; gids [G] int32; vals
+    [G*group, H] f32; seed: vary it per step and scatter."""
+    if _build.resolve_impl(impl, table, _BF16) == "plain":
+        return scatter_sr_row_groups_plain(table, gids, vals, group, seed)
+    return _launch(_BF16, "dssm_scatter_sr_bf16_row_groups", table, gids,
+                   vals, group, seed, torch.bfloat16, 8)
+
+
+def scatter_sr_int8_row_groups(table: torch.Tensor, gids: torch.Tensor,
+                               vals_grid: torch.Tensor, group: int, seed: int,
+                               *, impl: str = "auto") -> torch.Tensor:
+    """table [V, H] int8 updated in place and returned; vals_grid [G*group,
+    H] f32 in grid units."""
+    if _build.resolve_impl(impl, table, _INT8) == "plain":
+        return scatter_sr_int8_row_groups_plain(table, gids, vals_grid, group,
+                                                seed)
+    return _launch(_INT8, "dssm_scatter_sr_int8_row_groups", table, gids,
+                   vals_grid, group, seed, torch.int8, 16)

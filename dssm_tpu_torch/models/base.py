@@ -11,7 +11,7 @@ carry across (bridge.params_from_jax).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -28,14 +28,13 @@ TABLE_KEY = {"mlp": "W0", "cnn": "Wc", "lstm": "Win"}
 
 LANE = 128  # table columns are padded to a multiple of this
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "int8": torch.int8}
 
 
 def torch_dtype(name: str) -> torch.dtype:
     if name not in _DTYPES:
-        raise NotImplementedError(
-            f"dtype {name!r} is not ported yet (ROADMAP.md, Queue 1: the "
-            "bf16 and int8 tables)")
+        raise ValueError(f"unknown dtype {name!r} (one of {sorted(_DTYPES)})")
     return _DTYPES[name]
 
 
@@ -55,10 +54,6 @@ def _check_ported(cfg: TowerConfig) -> None:
         raise NotImplementedError(
             f"{cfg.arch} towers are not ported yet (ROADMAP.md, Queue 1: "
             "cnn/lstm)")
-    if cfg.table_dtype_resolved != cfg.param_dtype:
-        raise NotImplementedError(
-            f"table_dtype {cfg.table_dtype_resolved!r} is not ported yet "
-            "(ROADMAP.md, Queue 1: the bf16 and int8 tables)")
 
 
 def tower_params(params: Params, side: str) -> Dict[str, torch.Tensor]:
@@ -70,16 +65,34 @@ def tower_params(params: Params, side: str) -> Dict[str, torch.Tensor]:
 def init_params(cfg: TowerConfig, seed: int = 0,
                 device: DeviceLike = "cuda") -> Params:
     """Seeded fresh parameters on `device`, bit-identical to dssm_tpu's
-    init_params for the same config and seed."""
+    init_params for the same config and seed. The table may have a storage
+    dtype of its own (tower.table_dtype): bf16 is a cast; int8 is
+    round-to-nearest onto a per-row grid, scale = row absmax * headroom /
+    127 kept as the f32 [V, 1] parameter `<table>_scale` (a zero row gets
+    scale 0 and dequantizes to exact zero). Training then updates the table
+    with stochastic rounding."""
     from dssm_tpu_torch.models import mlp
 
     _check_ported(cfg)
     dev = as_device(device)
     dtype = torch_dtype(cfg.param_dtype)
+    key = TABLE_KEY[cfg.arch]
+    table_dtype = torch_dtype(cfg.table_dtype_resolved)
 
     def one(s):
-        return {k: torch.from_numpy(v).to(device=dev, dtype=dtype)
-                for k, v in mlp.init_tower(cfg, s).items()}
+        tp = {k: torch.from_numpy(v).to(device=dev, dtype=dtype)
+              for k, v in mlp.init_tower(cfg, s).items()}
+        if table_dtype == torch.int8:
+            w = tp[key].float()
+            absmax = w.abs().amax(dim=1, keepdim=True)
+            scale = absmax * (cfg.table_int8_headroom / 127.0)
+            q = torch.where(scale > 0,
+                            torch.round(w / scale.clamp_min(1e-30)), 0.0)
+            tp[key] = q.clamp(-127, 127).to(torch.int8)
+            tp[f"{key}_scale"] = scale
+        elif table_dtype != dtype:
+            tp[key] = tp[key].to(table_dtype)
+        return tp
 
     if cfg.shared_weights:
         return {"shared": one(seed)}
@@ -96,9 +109,10 @@ def tower_module(params: Params, cfg: TowerConfig, side: str):
 
 def bag_lookup(table: torch.Tensor, cfg: TowerConfig,
                batch: Dict[str, torch.Tensor], prefix: str,
-               impl: str = "auto") -> torch.Tensor:
+               impl: str = "auto",
+               scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """First-layer lookup through the dedup compact gather + count lookup,
-    output in the compute dtype."""
+    output in the compute dtype. `scale`: an int8 table's per-row scale."""
     compute_dtype = torch_dtype(cfg.compute_dtype)
     if "uniq" not in batch and f"{prefix}_uniq" not in batch:
         raise NotImplementedError(
@@ -115,6 +129,7 @@ def bag_lookup(table: torch.Tensor, cfg: TowerConfig,
         group=sublane_group(table.dtype),
         impl=impl,
         row_sel=batch["sel"] if joint else batch.get(f"{prefix}_sel"),
+        scale=scale,
     )
     return out.to(compute_dtype)
 

@@ -36,7 +36,8 @@ def table_lookup(params: Dict[str, torch.Tensor], cfg: TowerConfig,
     """First-layer embedding bag: [B, K] sparse text -> [B, H_pad] in the
     compute dtype. The table is gathered at its storage dtype and only the
     small result is cast."""
-    return bag_lookup(params["W0"], cfg, batch, prefix, impl=impl)
+    return bag_lookup(params["W0"], cfg, batch, prefix, impl=impl,
+                      scale=params.get("W0_scale"))
 
 
 def tower_from_lookup(params: Dict[str, torch.Tensor], cfg: TowerConfig,

@@ -8,9 +8,20 @@ table out of the differentiated function:
      (gather kernel); the compact block is the differentiation boundary
   2. lookups, towers and loss run under autograd over the compact block and
      the dense parameters, giving g_compact [U, H] plus the dense gradients
-  3. the table update is one row-group scatter-add of the compact update
-     values, IN PLACE on the table tensor (scatter kernel); the dense
-     parameters take an sgd / momentum / adam step.
+  3. the table update is one row-group scatter of the compact update
+     values, IN PLACE on the table tensor: an add for an f32 table, a
+     stochastically rounded read-modify-write for a bf16 or an int8 table
+     (scatter kernels); the dense parameters take an sgd / momentum / adam
+     step.
+
+A bf16 table's compact block is bf16, so autograd hands back a bf16 compact
+gradient (the f32 sum rounded to nearest) and, under the sgd table
+optimizer, -lr * g is formed in bf16 with lr rounded to bf16, as the
+reference forms it; only then is the update widened to f32 for the scatter.
+An int8 table's compact block is dequantized to f32 against the per-row
+scale parameter `<table>_scale`, which passes through the step unchanged.
+The scatters' random streams are seeded with step * 4 (+ the scatter's
+index within the step).
 
 Mathematically identical to dense SGD (modulo float summation order).
 Counterpart of dssm_tpu/train/sparse_update.py for one device; the step is
@@ -20,15 +31,18 @@ and its plain version on CPU tensors.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from dssm_tpu_torch.config import RunConfig
 from dssm_tpu_torch.kernels.dedup_embed import (
-    gather_compact, joint_lookup_from_compact, lookup_from_compact)
+    dequant_compact, gather_compact, gather_scale_rows,
+    joint_lookup_from_compact, lookup_from_compact)
 from dssm_tpu_torch.kernels.gather import (
     scatter_add_row_groups, sublane_group)
+from dssm_tpu_torch.kernels.scatter_sr import (
+    scatter_sr_int8_row_groups, scatter_sr_row_groups)
 from dssm_tpu_torch.loss.cosine_softmax import in_batch_loss, rotate_loss
 from dssm_tpu_torch.models import base as model_base
 from dssm_tpu_torch.models.base import TABLE_KEY, torch_dtype
@@ -69,7 +83,8 @@ def table_update_vals(cfg: RunConfig, g_compact: torch.Tensor,
     """
     lr = cfg.train.learning_rate
     if cfg.train.table_optimizer == "sgd":
-        return (-lr) * g_compact
+        # -lr meets g in g's dtype (bf16 for a bf16 table), as in dssm_tpu.
+        return float(torch.tensor(-lr, dtype=g_compact.dtype)) * g_compact
     if cfg.train.table_optimizer != "adagrad":
         raise ValueError(cfg.train.table_optimizer)
     width = logical_table_width(cfg)
@@ -101,15 +116,27 @@ def _dense_subtree(params: Dict, table_key: str) -> Dict:
 
 
 def apply_table_update(table: torch.Tensor, uniq: torch.Tensor,
-                       vals: torch.Tensor, impl: str = "auto") -> torch.Tensor:
-    """One row-group scatter-add into the table, in place; sentinel slots
-    are skipped."""
-    if table.dtype != torch.float32:
-        raise NotImplementedError(
-            f"a {table.dtype} table's stochastic-rounding scatter is not "
-            "ported yet (ROADMAP.md, Queue 1: the bf16 and int8 tables)")
-    return scatter_add_row_groups(table, uniq, vals.to(table.dtype),
-                                  sublane_group(table.dtype), impl=impl)
+                       vals: torch.Tensor, seed: int,
+                       scale: Optional[torch.Tensor] = None,
+                       stochastic_round: bool = True,
+                       impl: str = "auto") -> torch.Tensor:
+    """One row-group scatter update of the table, in place: stochastic
+    rounding onto each row's grid for an int8 table (`scale` is its [V, 1]
+    parameter), stochastic rounding for a bf16 table (a rounded-to-nearest
+    bf16 add with stochastic_round=False), a plain add otherwise. Sentinel
+    slots are skipped."""
+    group = sublane_group(table.dtype)
+    if table.dtype == torch.int8:
+        sc = gather_scale_rows(scale, uniq, group)
+        vals_grid = torch.where(sc > 0, vals.float() / sc.clamp_min(1e-30),
+                                0.0)
+        return scatter_sr_int8_row_groups(table, uniq, vals_grid, group, seed,
+                                          impl=impl)
+    if table.dtype == torch.bfloat16 and stochastic_round:
+        return scatter_sr_row_groups(table, uniq, vals.float(), group, seed,
+                                     impl=impl)
+    return scatter_add_row_groups(table, uniq, vals.to(table.dtype), group,
+                                  impl=impl)
 
 
 def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
@@ -191,9 +218,12 @@ def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
                     "per-shard slot spaces (`sel_local`) belong to the "
                     "multi-device path (ROADMAP.md, Queue 1: multi-device)")
             table = params["shared"][table_key]
+            scale = params["shared"].get(f"{table_key}_scale")
             group = sublane_group(table.dtype)
             with torch.no_grad():
                 c = gather_compact(table, batch["uniq"], group, impl=impl)
+                if scale is not None:
+                    c = dequant_compact(c, scale, batch["uniq"], group)
             aux, g_dense, (g_c,) = grads_of(loss_from_compact_joint, dense,
                                             [c], batch)
             with torch.no_grad():
@@ -201,9 +231,13 @@ def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
                                                     state.opt_state)
                 new_dense = apply_updates(dense, updates)
                 vals = table_update_vals(cfg, g_c, c)
-                table = apply_table_update(table, batch["uniq"], vals, impl)
+                table = apply_table_update(
+                    table, batch["uniq"], vals, state.step * 4, scale,
+                    cfg.train.table_stochastic_round, impl)
             tp = dict(new_dense["shared"])
             tp[table_key] = table
+            if scale is not None:
+                tp[f"{table_key}_scale"] = scale
             return TrainState(step=state.step + 1, params={"shared": tp},
                               opt_state=new_opt), aux
 
@@ -215,15 +249,19 @@ def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
 
         # Per-side dedupe: differentiate at each side's compact block; the
         # table update is then a U-row scatter per side.
-        def tab(side):
-            tower = "shared" if "shared" in params else (
-                "query" if side == "q" else "doc")
-            return params[tower][table_key]
+        def gather_side(side):
+            tp_side = params["shared" if "shared" in params else (
+                "query" if side == "q" else "doc")]
+            table = tp_side[table_key]
+            group = sublane_group(table.dtype)
+            c = gather_compact(table, batch[f"{side}_uniq"], group, impl=impl)
+            scale = tp_side.get(f"{table_key}_scale")
+            if scale is not None:
+                c = dequant_compact(c, scale, batch[f"{side}_uniq"], group)
+            return c
 
         with torch.no_grad():
-            cq, cd = (gather_compact(tab(s), batch[f"{s}_uniq"],
-                                     sublane_group(tab(s).dtype), impl=impl)
-                      for s in ("q", "d"))
+            cq, cd = gather_side("q"), gather_side("d")
         aux, g_dense, (g_cq, g_cd) = grads_of(loss_from_compacts, dense,
                                               [cq, cd], batch)
         with torch.no_grad():
@@ -231,17 +269,24 @@ def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
                                                 state.opt_state)
             new_dense = apply_updates(dense, updates)
             new_params = {}
+            scatter_ix = 0  # the scatter's seed offset within the step
             for tower in params:
                 tp = dict(new_dense[tower])
                 table = params[tower][table_key]
+                scale = params[tower].get(f"{table_key}_scale")
                 sides = {"shared": ("q", "d"), "query": ("q",),
                          "doc": ("d",)}[tower]
                 for side in sides:
                     g_c, compact = (g_cq, cq) if side == "q" else (g_cd, cd)
                     vals = table_update_vals(cfg, g_c, compact)
-                    table = apply_table_update(table, batch[f"{side}_uniq"],
-                                               vals, impl)
+                    table = apply_table_update(
+                        table, batch[f"{side}_uniq"], vals,
+                        state.step * 4 + scatter_ix, scale,
+                        cfg.train.table_stochastic_round, impl)
+                    scatter_ix += 1
                 tp[table_key] = table
+                if scale is not None:
+                    tp[f"{table_key}_scale"] = scale
                 new_params[tower] = tp
         return TrainState(step=state.step + 1, params=new_params,
                           opt_state=new_opt), aux

@@ -9,6 +9,10 @@ the lookups, their backward kernels (f32 atomics), the loss kernels and the
 f32 tower only sum in another order (rtol 1e-5 of the largest value; the loss
 kernels 1e-4, their exp differs from the library's in the last bits); the
 bf16 tower may round one intermediate to the neighbouring bf16 value (2e-2).
+The stochastic-rounding scatters draw the same Philox stream in the kernel
+and in the plain version and do the same f32 arithmetic (bit-equal); the
+rank count is an integer, equal wherever no score lies within an f32
+rounding of the true score.
 """
 
 import numpy as np
@@ -32,9 +36,15 @@ from dssm_tpu_torch.kernels.joint import (
 from dssm_tpu_torch.kernels.loss import (
     in_batch_loss_dd, in_batch_loss_dq, in_batch_loss_grads_plain,
     in_batch_nll, in_batch_nll_plain)
+from dssm_tpu_torch.kernels.rank import (
+    rank_counts, rank_counts_plain, true_scores)
+from dssm_tpu_torch.kernels.scatter_sr import (
+    scatter_sr_int8_row_groups, scatter_sr_int8_row_groups_plain,
+    scatter_sr_row_groups, scatter_sr_row_groups_plain)
 from dssm_tpu_torch.kernels.tower import dense_tower, dense_tower_plain
 from dssm_tpu_torch.models import base as model_base
 from dssm_tpu_torch.serve import build_doc_index
+from dssm_tpu_torch.train.eval import evaluate
 from dssm_tpu_torch.train.loop import make_train_step
 from dssm_tpu_torch.train.state import create_run_state
 
@@ -322,3 +332,133 @@ def test_train_steps_kernels_match_plain(dev, shared):
         for k, want in tp.items():
             torch.testing.assert_close(states["auto"].params[tower][k], want,
                                        rtol=0, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_scatter_sr_kernels_bit_equal_to_plain(dev, kind):
+    rng = np.random.default_rng(29)
+    if kind == "bf16":
+        group, fn, plain = 16, scatter_sr_row_groups, scatter_sr_row_groups_plain
+        table = torch.from_numpy((rng.normal(size=(V, 384)) * 0.05).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        vals = (rng.normal(size=(SLOTS * group, 384)) * 1e-4).astype(np.float32)
+    else:
+        group, fn, plain = (32, scatter_sr_int8_row_groups,
+                            scatter_sr_int8_row_groups_plain)
+        table = torch.from_numpy(rng.integers(
+            -127, 128, size=(V, 384)).astype(np.int8)).to(dev)
+        vals = rng.uniform(-3, 3, size=(SLOTS * group, 384)).astype(np.float32)
+    vals = torch.from_numpy(vals).to(dev)
+    gids = np.full((SLOTS,), SKIP_SENTINEL_GID, np.int32)
+    gids[:23] = np.sort(rng.choice(V // group, 23, replace=False))
+    gids[30] = -1
+    gids = torch.from_numpy(gids).to(dev)
+    for seed in (0, 12345, -7):
+        want = plain(table.clone(), gids, vals, group, seed)
+        got = table.clone()
+        out = fn(got, gids, vals, group, seed, impl="kernel")
+        assert out is got and torch.equal(got, want)
+        assert not torch.equal(got, table)
+    same = fn(table.clone(), gids, torch.zeros_like(vals), group, 3,
+              impl="kernel")
+    assert torch.equal(same, table)  # a zero update moves nothing
+    a = fn(table.clone(), gids, vals, group, 1, impl="kernel")
+    b = fn(table.clone(), gids, vals, group, 2, impl="kernel")
+    assert not torch.equal(a, b)     # the seed is the stream's key
+
+
+@pytest.mark.cuda
+def test_scatter_add_bf16_kernel_matches_plain(dev):
+    rng = np.random.default_rng(30)
+    table = torch.from_numpy((rng.normal(size=(V, 384)) * 0.05).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    gids = np.full((SLOTS,), SKIP_SENTINEL_GID, np.int32)
+    gids[:23] = np.sort(rng.choice(V // 16, 23, replace=False))
+    gids = torch.from_numpy(gids).to(dev)
+    vals = torch.from_numpy((rng.normal(size=(SLOTS * 16, 384)) * 1e-3).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    want = scatter_add_row_groups_plain(table.clone(), gids, vals, 16)
+    got = scatter_add_row_groups(table.clone(), gids, vals, 16, impl="kernel")
+    assert torch.equal(got, want) and not torch.equal(got, table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nd,dim", [(600, 600, 128), (70, 203, 36),
+                                      (1000, 1777, 128)])
+def test_rank_kernel_matches_plain(dev, n, nd, dim):
+    rng = np.random.default_rng(31)
+    q = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(n, dim)).astype(np.float32)), dim=1).to(dev)
+    d = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(nd, dim)).astype(np.float32)), dim=1).to(dev)
+    d[:n] = torch.nn.functional.normalize(d[:n] + 0.4 * q, dim=1)
+    got = rank_counts(q, d, impl="kernel")
+    want = rank_counts_plain(q, d)
+    gap = (q @ d.T - true_scores(q, d)[:, None]).abs()
+    gap[torch.arange(n), torch.arange(n)] = 1.0
+    near = (gap < 1e-5).sum(dim=1).to(torch.int32)
+    assert got.dtype == torch.int32 and int(got.min()) >= 1
+    assert bool(((got - want).abs() <= near).all())
+    assert int(near.sum()) > 0 or torch.equal(got, want)
+    # exact ties do not count: one-hot embeddings, a duplicate of a true doc
+    q1 = torch.eye(8, 16, device=dev)
+    d1 = torch.cat([torch.eye(8, 16, device=dev), torch.eye(8, 16, device=dev)[3:4]])
+    assert rank_counts(q1, d1, impl="kernel").tolist() == [1] * 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", ["bfloat16", "int8"])
+def test_low_precision_train_and_eval_kernels_match_plain(dev, table_dtype):
+    """3 steps on a bf16 / int8 table through the kernels and through the
+    plain versions (same Philox stream), then evaluate both ways."""
+    cfg = RunConfig(
+        tower=TowerConfig(vocab_size=V, embed_width=100, hidden_dims=(64,),
+                          semantic_dim=32, compute_dtype="bfloat16",
+                          table_dtype=table_dtype),
+        data=DataConfig(max_trigrams=16, max_trigrams_query=8,
+                        max_unique=1024, max_unique_rows=128),
+        loss=LossConfig(), train=TrainConfig(batch_size=128))
+    group = {"bfloat16": 16, "int8": 32}[table_dtype]
+    hashed = hash_pairs(make_toy_pairs(640, 96, 7), cfg.tower, cfg.data)
+    it = batch_iterator(hashed, 128, seed=3, dedup_unique=1024,
+                        dedup_group=group, dedup_unique_rows=128,
+                        dedup_joint=True, wire_compress=True, sort_rows=True)
+    batches = [batch_to_torch(next(it), dev) for _ in range(3)]
+    states = {impl: create_run_state(cfg, model_base.init_params(
+        cfg.tower, seed=0, device=dev)) for impl in ("auto", "plain")}
+    losses = {}
+    _build.reset_launch_counts()
+    for impl in states:
+        step = make_train_step(cfg, impl)
+        losses[impl] = []
+        for batch in batches:
+            states[impl], aux = step(states[impl], batch)
+            losses[impl].append(float(aux["loss"]))
+    counts = _build.launch_counts()
+    name = ("scatter_sr_row_groups" if table_dtype == "bfloat16"
+            else "scatter_sr_int8_row_groups")
+    assert counts[name] == 3 and counts["scatter_add_row_groups"] == 0
+    assert counts["joint_lookup"] == counts["joint_lookup_bwd"] == 3
+    np.testing.assert_allclose(losses["auto"], losses["plain"], rtol=0,
+                               atol=1e-2)
+    ta = states["auto"].params["shared"]["W0"]
+    tp = states["plain"].params["shared"]["W0"]
+    assert ta.dtype == tp.dtype == model_base.torch_dtype(table_dtype)
+    # The same stream on accumulators that differ in their last bits (the
+    # backward's atomics, a bf16 activation of the tower): after 3 steps few
+    # elements differ at all, next to none by more than a grid step (an
+    # update that nearly cancels a weight leaves a finer grid behind), and
+    # none by more than the f32 test's 2e-3.
+    diff = (ta.float() - tp.float()).abs()
+    far = diff > (1.0 if table_dtype == "int8"
+                  else 2.0 ** -7 * tp.float().abs() + 1e-30)
+    assert float(far.float().mean()) < 1e-3
+    assert float((ta != tp).float().mean()) < 0.01
+    scale = states["plain"].params["shared"].get("W0_scale", 1.0)
+    assert float((diff * scale).max()) <= 2e-3
+    metrics = {impl: evaluate(states[impl].params, cfg, hashed, 128, impl,
+                              cache=False) for impl in ("auto", "plain")}
+    assert _build.launch_counts()["rank_counts"] == 1
+    for k, v in metrics["plain"].items():
+        assert abs(metrics["auto"][k] - v) <= 2e-2, (k, metrics)

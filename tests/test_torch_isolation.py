@@ -36,7 +36,9 @@ def test_port_has_modules():
     mods = _modules()
     for name in ("kernels.gather", "kernels.joint", "kernels.loss",
                  "loss.cosine_softmax", "train.state", "train.sparse_update",
-                 "train.loop", "io.checkpoint", "io.metrics", "cli.train"):
+                 "train.loop", "io.checkpoint", "io.metrics", "cli.train",
+                 "kernels.stochastic", "kernels.scatter_sr", "kernels.rank",
+                 "train.eval", "cli.eval"):
         assert f"dssm_tpu_torch.{name}" in mods
     assert len(_port_files()) > 30
 
@@ -85,14 +87,17 @@ def test_not_ported_messages_name_roadmap_items():
                               re.S):
         titles[n] = [re.sub(r"\s+", " ", t).lower() for t in
                      re.findall(r"^\s*\d+\. \*\*(.+?)\*\*", body, re.S | re.M)]
-    assert len(titles["1"]) >= 8 and len(titles["2"]) >= 4
     refs = []
     for path in _port_files():
         with open(path) as f:
             text = re.sub(r'"\s*\n\s*#?\s*f?"?', "", f.read())
         refs += [(path, n, name) for n, name in re.findall(
             r"ROADMAP\.md, Queue (\d): ?([^)\"]+)\)", text)]
-    assert len(refs) >= 12
+    # Every queue the port refers to still holds items, and the messages
+    # that named the items ported since (the low-precision tables, eval)
+    # are gone with them.
+    assert refs and all(titles.get(n) for _, n, _ in refs)
+    assert not [r for r in refs if "int8" in r[2] or "eval" in r[2].lower()]
     for path, n, name in refs:
         name = re.sub(r"\s+", " ", name).strip().lower()
         assert any(name in t for t in titles[n]), (

@@ -35,6 +35,9 @@ from dssm_tpu_torch.kernels.gather import (
     gather_row_groups as t_gather, gather_row_groups_plain,
     scatter_add_row_groups as t_scatter)
 from dssm_tpu_torch.kernels.joint import joint_lookup, joint_lookup_bwd
+from dssm_tpu_torch.kernels.rank import rank_counts
+from dssm_tpu_torch.kernels.scatter_sr import (
+    scatter_sr_int8_row_groups, scatter_sr_row_groups)
 from dssm_tpu_torch.kernels.loss import (
     in_batch_loss_dd, in_batch_loss_dq, in_batch_loss_grads_plain,
     in_batch_nll, in_batch_nll_plain)
@@ -447,6 +450,11 @@ def _kernel_calls(dev):
             q, q, lab, 20.0, row, row, impl=impl),
         "scatter_add_row_groups": lambda impl: t_scatter(
             table, gids, vals, GROUP, impl=impl),
+        "scatter_sr_row_groups": lambda impl: scatter_sr_row_groups(
+            table.to(torch.bfloat16), gids[:32], vals, 16, 0, impl=impl),
+        "scatter_sr_int8_row_groups": lambda impl: scatter_sr_int8_row_groups(
+            table.to(torch.int8), gids[:16], vals, 32, 0, impl=impl),
+        "rank_counts": lambda impl: rank_counts(q, q, impl=impl),
     }
 
 

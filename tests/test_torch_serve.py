@@ -261,12 +261,13 @@ def test_train_cli_then_export_serves_the_trained_weights(tmp_path):
                "--data.freq_remap=true")
     assert r.returncode == 0, r.stderr[-2000:]
     assert "step 0: loss=" in r.stderr and "step 1: loss=" in r.stderr
-    assert "evaluation is not ported yet" in r.stderr
+    assert "final eval: recall@1=" in r.stderr
     records = [json.loads(line)
                for line in (tmp_path / "run" / "metrics.jsonl").open()]
-    assert [rec["step"] for rec in records] == [0, 1]
-    assert all(rec["tag"] == "train" and np.isfinite(rec["loss"])
-               for rec in records)
+    assert [(rec["tag"], rec["step"]) for rec in records] == [
+        ("train", 0), ("train", 1), ("eval_final", 2)]
+    assert all(np.isfinite(rec["loss"]) for rec in records[:2])
+    assert 0 <= records[2]["recall@1"] <= 1
     from dssm_tpu_torch.data.remap import load_remap
     from dssm_tpu_torch.io.checkpoint import Checkpointer
 

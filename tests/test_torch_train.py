@@ -222,10 +222,14 @@ def test_sparse_update_predicates_and_refusals():
            "d_wgt": torch.zeros((4, 16))}
     with pytest.raises(NotImplementedError, match="embedding_bag_pallas"):
         make_train_step(tc)(state, raw)
-    with pytest.raises(NotImplementedError, match="bf16 and int8 tables"):
-        tsparse.apply_table_update(torch.zeros((16, 128), dtype=torch.bfloat16),
-                                   torch.zeros((1,), dtype=torch.int32),
-                                   torch.zeros((16, 128)))
+    # A bf16 table takes the stochastic-rounding scatter: a zero update
+    # leaves it bit-identical, a sentinel slot touches nothing.
+    bf16 = torch.full((32, 128), 0.3, dtype=torch.bfloat16)
+    out = tsparse.apply_table_update(
+        bf16, torch.tensor([1, 1 << 25], dtype=torch.int32),
+        torch.zeros((32, 128)), seed=0)
+    assert out is bf16 and torch.equal(
+        bf16, torch.full((32, 128), 0.3, dtype=torch.bfloat16))
 
 
 def test_rotation_offsets_are_dssm_tpus():
