@@ -3,9 +3,10 @@
 params_from_jax takes dssm_tpu's parameter pytree as numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)`` on the JAX side) and returns the port's
 parameters with the same keys, dtypes (an f32, bf16 or int8 table; an int8
-table with its `W0_scale`) and padded shapes; state_from_jax does the
-same for a whole TrainState (step, params, the optax state of the dense
-subtree), and params_to_numpy is the way back. batch_to_torch moves a numpy
+table with its `<table>_scale`) and padded shapes, for the mlp, cnn and
+lstm towers; state_from_jax does the same for a whole TrainState (step,
+params, the optax state of the dense subtree), and params_to_numpy is the
+way back. batch_to_torch moves a numpy
 batch from the loader onto a device, widening the compressed wire fields
 there as dssm_tpu's lookup does.
 """
@@ -19,13 +20,15 @@ import torch
 
 from dssm_tpu_torch.config import TowerConfig
 from dssm_tpu_torch.device import DeviceLike, as_device
-from dssm_tpu_torch.models.base import Params, pad_table_cols
+from dssm_tpu_torch.models.base import TABLE_KEY, Params, arch_module
 from dssm_tpu_torch.train.state import TrainState
 
 # Batch fields that are lookup slots or indices (widened to int32) and
 # lookup weights (widened to f32).
 _INDEX_SUFFIXES = ("_inv", "_idx", "_uniq", "_sel")
 _INDEX_FIELDS = ("uniq", "sel")
+# Lookup weights and the sequence towers' word masks (widened to f32).
+_F32_SUFFIXES = ("_wgt", "_mask")
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
@@ -35,34 +38,22 @@ def _to_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-def _expected_shapes(cfg: TowerConfig) -> Dict[str, tuple]:
-    dims = (cfg.embed_width, *cfg.hidden_dims, cfg.semantic_dim)
-    width = pad_table_cols(np.zeros((1, cfg.embed_width), np.float32)).shape[1]
-    shapes = {"W0": (cfg.vocab_size, width), "b0": (cfg.embed_width,)}
-    for l in range(1, len(dims)):
-        shapes[f"W{l}"] = (dims[l - 1], dims[l])
-        shapes[f"b{l}"] = (dims[l],)
-    return shapes
-
-
 def params_from_jax(np_params: Mapping[str, Mapping[str, np.ndarray]],
                     cfg: TowerConfig, device: DeviceLike = "cuda") -> Params:
-    """{"shared"|"query"|"doc": {"W0", "b0", "W1", ...}} numpy -> tensors
-    on `device`, checked against the MLP config's padded shapes."""
+    """{"shared"|"query"|"doc": {<table>, ...}} numpy -> tensors on
+    `device`, checked against the config's keys and padded shapes (mlp: W0,
+    b0, W1, ...; cnn: Wc, bc, Ws, bs; lstm: Win, bin, Wx, Wh, bh, Ws, bs)."""
     dev = as_device(device)
-    if cfg.arch != "mlp":
-        raise NotImplementedError(
-            f"{cfg.arch} towers are not ported yet (ROADMAP.md, Queue 1: "
-            "cnn/lstm)")
-    want = _expected_shapes(cfg)
+    key = TABLE_KEY[cfg.arch]
+    want = arch_module(cfg).param_shapes(cfg)
     out: Params = {}
     for tower, tp in np_params.items():
         if tower not in ("shared", "query", "doc"):
             raise KeyError(f"unexpected tower {tower!r}")
         want_t = dict(want)
-        if "W0" in tp and np.asarray(tp["W0"]).dtype == np.int8:
+        if key in tp and np.asarray(tp[key]).dtype == np.int8:
             # An int8 table comes with its per-row scale.
-            want_t["W0_scale"] = (cfg.vocab_size, 1)
+            want_t[f"{key}_scale"] = (cfg.vocab_size, 1)
         if set(tp) != set(want_t):
             raise KeyError(f"tower {tower!r} has keys {sorted(tp)}, "
                            f"expected {sorted(want_t)}")
@@ -78,7 +69,8 @@ def params_from_jax(np_params: Mapping[str, Mapping[str, np.ndarray]],
 def batch_to_torch(batch: Mapping[str, np.ndarray],
                    device: DeviceLike) -> Dict[str, torch.Tensor]:
     """Numpy batch -> tensors on `device`. Index fields (int16 on the
-    compressed wire) become int32 and weights (uint8 counts) f32."""
+    compressed wire) become int32; weights (uint8 counts) and word masks
+    f32."""
     dev = as_device(device)
     out = {}
     for k, v in batch.items():
@@ -86,7 +78,7 @@ def batch_to_torch(batch: Mapping[str, np.ndarray],
         t = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
         if k in _INDEX_FIELDS or k.endswith(_INDEX_SUFFIXES):
             t = t.to(torch.int32)
-        elif k.endswith("_wgt"):
+        elif k.endswith(_F32_SUFFIXES):
             t = t.to(torch.float32)
         out[k] = t
     return out

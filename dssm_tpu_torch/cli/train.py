@@ -6,9 +6,11 @@
 The flags are dssm_tpu.cli.train's: any config field is overridable with
 --section.field=value. It runs on the GPU unless --cpu is given, and fails
 when there is no GPU; on the GPU every kernel of the step is the port's CUDA
-kernel. It trains on the toy corpus with an f32, bf16 or int8 table
-(--tower.table_dtype), evaluates the held-out split every train.eval_every
-steps and at the end (records `eval` / `eval_final`), writes JSONL metrics
+kernel. It trains the mlp (tiny, full), cnn and lstm presets on the toy
+corpus with an f32, bf16 or int8 table (--tower.table_dtype), on dedupe
+batches or, with --data.dedup_lookup=False, raw-index batches; evaluates
+the held-out split every train.eval_every steps and at the end (records
+`eval` / `eval_final`), writes JSONL metrics
 and checkpoints (io/checkpoint.py) under --io.workdir, and saves the
 frequency remap there when data.freq_remap is set;
 `python -m dssm_tpu_torch.cli.eval` and `cli.export` then read the same
@@ -117,18 +119,21 @@ def main(argv: Optional[List[str]] = None) -> None:
     start_step = state.step
     # Every step consumes one batch, so the restored step count is the data
     # cursor (loader.batch_iterator).
+    sequence = cfg.tower.is_sequence_model
     batches = prefetch(batch_iterator(
         hashed_train,
         cfg.train.batch_size,
+        sequence,
         seed=cfg.train.seed,
         dedup_unique=cfg.data.max_unique if dedup else None,
         dedup_group=sublane_group(table.dtype),
         dedup_unique_rows=cfg.data.max_unique_rows,
         dedup_joint=cfg.tower.shared_weights,
-        wire_compress=dedup,
+        # Sequence batches keep their full layout and their row order.
+        wire_compress=dedup and not sequence,
         # Rotate mode keeps corpus order: its offsets address rows by
         # position.
-        sort_rows=dedup and cfg.loss.mode != "rotate",
+        sort_rows=dedup and not sequence and cfg.loss.mode != "rotate",
         pipeline_workers=cfg.data.pipeline_workers,
         local_sel_cap=cfg.data.max_unique_rows_local if dedup else 0,
         start_batch=start_step,

@@ -2,11 +2,14 @@
 
 The corpus is hashed once into fixed-length numpy arrays (data/trigram.py);
 a batch is a slice of them plus the per-batch dedupe fields the lookup
-kernels take (data/dedupe.py). Batches stay numpy here; bridge.batch_to_torch
-moves them to the device. A copy of the single-process, serial path of
-dssm_tpu/data/loader.py, bit-identical to it (tests/test_torch_data.py): the
-multi-host shards, the thread-pool pipeline, the epoch batch cache and the
-per-shard slot spaces come with the multi-device path and the host plane.
+kernels take (data/dedupe.py). The sequence towers (cnn, lstm) take the
+per-word fields [N, T, Kw] plus a word mask [N, T] in place of the bag
+fields (select_batch(sequence=True)). Batches stay numpy here;
+bridge.batch_to_torch moves them to the device. A copy of the
+single-process, serial path of dssm_tpu/data/loader.py, bit-identical to it
+(tests/test_torch_data.py): the multi-host shards, the thread-pool pipeline,
+the epoch batch cache and the per-shard slot spaces come with the
+multi-device path and the host plane.
 """
 
 from __future__ import annotations
@@ -29,22 +32,27 @@ _BATCH_WIDE = ("uniq", "sel")
 
 @dataclass
 class HashedPairs:
-    """Whole corpus, pre-hashed (bag-of-trigrams fields)."""
+    """Whole corpus, pre-hashed. Bag fields always present; sequence fields
+    only for cnn/lstm towers."""
 
     q_idx: np.ndarray  # [N, K] int32
     q_wgt: np.ndarray  # [N, K] f32
     d_idx: np.ndarray
     d_wgt: np.ndarray
+    q_seq_idx: Optional[np.ndarray] = None  # [N, T, Kw]
+    q_seq_wgt: Optional[np.ndarray] = None
+    q_mask: Optional[np.ndarray] = None  # [N, T]
+    d_seq_idx: Optional[np.ndarray] = None
+    d_seq_wgt: Optional[np.ndarray] = None
+    d_mask: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return self.q_idx.shape[0]
 
 
 def hash_pairs(pairs: ToyPairs, tower: TowerConfig, data: DataConfig) -> HashedPairs:
-    if tower.is_sequence_model:
-        raise NotImplementedError(
-            f"{tower.arch} towers are not ported yet (ROADMAP.md, Queue 1: "
-            "cnn/lstm)")
+    """Both sides of every pair as bag fields and, for a sequence tower,
+    as per-word fields too (each text is hashed twice, as in dssm_tpu)."""
     kq = data.max_trigrams_query or data.max_trigrams
     q_idx, q_wgt = trigram.hash_batch(
         pairs.queries, tower.vocab_size, kq, data.normalize_counts
@@ -52,7 +60,15 @@ def hash_pairs(pairs: ToyPairs, tower: TowerConfig, data: DataConfig) -> HashedP
     d_idx, d_wgt = trigram.hash_batch(
         pairs.titles, tower.vocab_size, data.max_trigrams, data.normalize_counts
     )
-    return HashedPairs(q_idx=q_idx, q_wgt=q_wgt, d_idx=d_idx, d_wgt=d_wgt)
+    out = HashedPairs(q_idx=q_idx, q_wgt=q_wgt, d_idx=d_idx, d_wgt=d_wgt)
+    if tower.is_sequence_model:
+        out.q_seq_idx, out.q_seq_wgt, out.q_mask = trigram.hash_batch_sequence(
+            pairs.queries, tower.vocab_size, data.max_words,
+            data.max_trigrams_per_word, data.normalize_counts)
+        out.d_seq_idx, out.d_seq_wgt, out.d_mask = trigram.hash_batch_sequence(
+            pairs.titles, tower.vocab_size, data.max_words,
+            data.max_trigrams_per_word, data.normalize_counts)
+    return out
 
 
 def add_dedup_fields(batch: Batch, max_unique: int, group: int = 8,
@@ -107,13 +123,28 @@ def select_batch(
     dedup_group: int = 8,
     dedup_unique_rows: Optional[int] = None,
     dedup_joint: bool = False,
+    *,
+    sequence: bool = False,
 ) -> Batch:
-    batch = {
-        "q_idx": hashed.q_idx[rows],
-        "q_wgt": hashed.q_wgt[rows],
-        "d_idx": hashed.d_idx[rows],
-        "d_wgt": hashed.d_wgt[rows],
-    }
+    """The batch of corpus rows `rows`: the bag fields, or with sequence
+    the per-word fields and word masks under the same names ({q,d}_idx /
+    _wgt [B, T, Kw], {q,d}_mask [B, T]); then the dedupe fields."""
+    if sequence:
+        batch = {
+            "q_idx": hashed.q_seq_idx[rows],
+            "q_wgt": hashed.q_seq_wgt[rows],
+            "q_mask": hashed.q_mask[rows],
+            "d_idx": hashed.d_seq_idx[rows],
+            "d_wgt": hashed.d_seq_wgt[rows],
+            "d_mask": hashed.d_mask[rows],
+        }
+    else:
+        batch = {
+            "q_idx": hashed.q_idx[rows],
+            "q_wgt": hashed.q_wgt[rows],
+            "d_idx": hashed.d_idx[rows],
+            "d_wgt": hashed.d_wgt[rows],
+        }
     if dedup_unique:
         batch = add_dedup_fields(batch, dedup_unique, dedup_group,
                                  dedup_unique_rows, dedup_joint)
@@ -126,8 +157,11 @@ def eval_batches(
     dedup_unique_rows: Optional[int] = None,
     dedup_joint: bool = False,
     wire_compress: bool = False,
+    *,
+    sequence: bool = False,
 ) -> Iterator[Batch]:
-    """One pass over the corpus in order, including the ragged tail.
+    """One pass over the corpus in order, including the ragged tail
+    (sequence: the per-word fields, as select_batch).
     wire_compress shrinks the host->device fields exactly as in training
     (the embed path reads inv/wgt, so idx is dead weight), with one dtype
     plan for the whole pass."""
@@ -137,13 +171,14 @@ def eval_batches(
     for start in range(0, n, batch):
         rows = np.arange(start, min(start + batch, n))
         out = select_batch(hashed, rows, dedup_unique, dedup_group,
-                           dedup_unique_rows, dedup_joint)
+                           dedup_unique_rows, dedup_joint, sequence=sequence)
         yield compress_wire(out, plan) if wire_compress else out
 
 
 def pad_batch(batch: Batch, to_rows: int) -> Batch:
-    """Pad every per-row field to `to_rows` rows by repeating row 0 (the
-    padded rows' outputs are sliced off afterwards). The batch-wide dedupe
+    """Pad every per-row field ({q,d}_mask too) to `to_rows` rows by
+    repeating row 0 (the padded rows' outputs are sliced off afterwards).
+    The batch-wide dedupe
     fields (uniq/sel, {q,d}_uniq/_sel) pass through."""
     out = {}
     for k, v in batch.items():
@@ -275,10 +310,6 @@ def batch_iterator(
     so a resumed run continues the data stream where the checkpoint left it.
     Every train step consumes one batch, so the cursor is TrainState.step.
     """
-    if sequence:
-        raise NotImplementedError(
-            "sequence batches are not ported yet (ROADMAP.md, Queue 1: "
-            "cnn/lstm)")
     if process_count != 1 or process_index != 0:
         raise NotImplementedError(
             "multi-host batch shards are not ported yet (ROADMAP.md, "
@@ -306,7 +337,7 @@ def batch_iterator(
                            global_batch):
             out = select_batch(hashed, perm[start:start + global_batch],
                                dedup_unique, dedup_group, dedup_unique_rows,
-                               dedup_joint)
+                               dedup_joint, sequence=sequence)
             if sort_rows:
                 out = sort_batch_rows(out)
             yield compress_wire(out, plan) if wire_compress else out

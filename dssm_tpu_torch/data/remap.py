@@ -79,10 +79,21 @@ def build_freq_remap(
 
 
 def apply_remap(hashed: HashedPairs, remap: np.ndarray) -> HashedPairs:
-    """New HashedPairs with every index field mapped through `remap`."""
+    """New HashedPairs with every index field (the sequence fields too)
+    mapped through `remap`."""
+
+    def m(a):
+        return None if a is None else remap[a]
+
     return HashedPairs(
         q_idx=remap[hashed.q_idx],
         q_wgt=hashed.q_wgt,
         d_idx=remap[hashed.d_idx],
         d_wgt=hashed.d_wgt,
+        q_seq_idx=m(hashed.q_seq_idx),
+        q_seq_wgt=hashed.q_seq_wgt,
+        q_mask=hashed.q_mask,
+        d_seq_idx=m(hashed.d_seq_idx),
+        d_seq_wgt=hashed.d_seq_wgt,
+        d_mask=hashed.d_mask,
     )

@@ -6,7 +6,8 @@ vector, emitted in the fixed-length form the lookups take:
 
   indices[K] int32, weights[K] float32
 
-Index 0 is RESERVED for padding (weight 0); real trigrams hash into
+and, for the sequence towers (cnn, lstm), per word: indices[T, Kw],
+weights[T, Kw] and a word mask[T]. Index 0 is RESERVED for padding (weight 0); real trigrams hash into
 [1, vocab_size). A copy of the pure-Python path of dssm_tpu/data/trigram.py,
 bit-identical to it (tests/test_torch_data.py).
 """
@@ -90,6 +91,30 @@ def hash_text(
     )
 
 
+def hash_text_sequence(
+    text: str,
+    vocab_size: int,
+    max_words: int,
+    max_trigrams_per_word: int,
+    normalize: bool = False,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-word trigram encoding for the CNN / LSTM towers:
+    (indices[T, Kw], weights[T, Kw], mask[T]) with T = max_words."""
+    words = tokenize(text)[:max_words]
+    t, kw = max_words, max_trigrams_per_word
+    idx = np.full((t, kw), PAD_INDEX, dtype=np.int32)
+    wgt = np.zeros((t, kw), dtype=np.float32)
+    mask = np.zeros((t,), dtype=np.float32)
+    for wi, word in enumerate(words):
+        counts: Dict[int, float] = {}
+        for tri in word_trigrams(word):
+            i = trigram_id(tri, vocab_size)
+            counts[i] = counts.get(i, 0.0) + 1.0
+        idx[wi], wgt[wi] = _counts_to_fixed(counts, kw, normalize)
+        mask[wi] = 1.0
+    return idx, wgt, mask
+
+
 def hash_batch(
     texts: Sequence[str], vocab_size: int, max_trigrams: int, normalize: bool = False
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -100,3 +125,23 @@ def hash_batch(
     for b, text in enumerate(texts):
         idx[b], wgt[b] = hash_text(text, vocab_size, max_trigrams, normalize)
     return idx, wgt
+
+
+def hash_batch_sequence(
+    texts: Sequence[str],
+    vocab_size: int,
+    max_words: int,
+    max_trigrams_per_word: int,
+    normalize: bool = False,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Over a batch of texts -> (indices[B, T, Kw], weights[B, T, Kw],
+    mask[B, T])."""
+    n = len(texts)
+    idx = np.full((n, max_words, max_trigrams_per_word), PAD_INDEX,
+                  dtype=np.int32)
+    wgt = np.zeros((n, max_words, max_trigrams_per_word), dtype=np.float32)
+    mask = np.zeros((n, max_words), dtype=np.float32)
+    for b, text in enumerate(texts):
+        idx[b], wgt[b], mask[b] = hash_text_sequence(
+            text, vocab_size, max_words, max_trigrams_per_word, normalize)
+    return idx, wgt, mask

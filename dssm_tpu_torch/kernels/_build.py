@@ -27,8 +27,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("gather.cu", "count.cu", "tower.cu", "joint.cu", "loss.cu",
-           "scatter.cu", "scatter_sr.cu", "rank.cu")
-HEADERS = ("lookup.cuh",)  # included by count.cu and joint.cu
+           "scatter.cu", "scatter_sr.cu", "rank.cu", "embed.cu")
+HEADERS = ("lookup.cuh",)  # included by count.cu, joint.cu and embed.cu
 LIB_NAME = "libdssm_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -62,6 +62,9 @@ _SIGNATURES = {
     "dssm_scatter_sr_int8_row_groups": [_P, _P, _P, _I64, _I64, _I64, _INT,
                                         _P],
     "dssm_rank_counts": [_P, _P, _P, _P, _I64, _I64, _INT, _P],
+    "dssm_embedding_bag": [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _P],
+    "dssm_embedding_bag_dwgt": [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT,
+                                _INT, _P],
 }
 
 # One name per counted entry point. dense_tower_residuals is the tower's
@@ -71,7 +74,7 @@ KERNELS = ("gather_row_groups", "count_lookup", "dense_tower",
            "dense_tower_residuals", "in_batch_loss", "in_batch_loss_dq",
            "in_batch_loss_dd", "scatter_add_row_groups",
            "scatter_sr_row_groups", "scatter_sr_int8_row_groups",
-           "rank_counts")
+           "rank_counts", "embedding_bag", "embedding_bag_bwd")
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()

@@ -11,16 +11,27 @@ from typing import Dict
 
 import numpy as np
 import torch
-from torch import nn
 
 from dssm_tpu_torch.config import TowerConfig
 from dssm_tpu_torch.kernels.tower import activate, dense_tower, l2_normalize
 from dssm_tpu_torch.models import init
-from dssm_tpu_torch.models.base import bag_lookup, pad_table_cols, torch_dtype
+from dssm_tpu_torch.models.base import (
+    LANE, Tower, bag_lookup, pad_table_cols, torch_dtype)
 
 
 def layer_dims(cfg: TowerConfig):
     return (cfg.embed_width, *cfg.hidden_dims, cfg.semantic_dim)
+
+
+def param_shapes(cfg: TowerConfig) -> Dict[str, tuple]:
+    """Keys and (padded) shapes of one tower's parameters."""
+    dims = layer_dims(cfg)
+    shapes = {"W0": (cfg.vocab_size, -(-dims[0] // LANE) * LANE),
+              "b0": (dims[0],)}
+    for l in range(1, len(dims)):
+        shapes[f"W{l}"] = (dims[l - 1], dims[l])
+        shapes[f"b{l}"] = (dims[l],)
+    return shapes
 
 
 def init_tower(cfg: TowerConfig, seed: int = 0) -> Dict[str, np.ndarray]:
@@ -65,34 +76,9 @@ def tower_from_lookup(params: Dict[str, torch.Tensor], cfg: TowerConfig,
     return l2_normalize(y.float())
 
 
-class MLPTower(nn.Module):
-    """One tower over a parameter dict {W0 (table), b0, W1, b1, ...}, for
-    serving: the tensors are held as frozen parameters without a copy.
-    Training calls table_lookup / tower_from_lookup on plain dicts, whose
-    tensors may require grad."""
+class MLPTower(Tower):
+    """One MLP tower over {W0 (table), b0, W1, b1, ...} for serving
+    (models/base.Tower)."""
 
-    def __init__(self, cfg: TowerConfig, params: Dict[str, torch.Tensor]):
-        super().__init__()
-        self.cfg = cfg
-        for name, t in params.items():
-            self.register_parameter(
-                name, nn.Parameter(t.detach(), requires_grad=False))
-
-    def _params(self) -> Dict[str, torch.Tensor]:
-        return dict(self.named_parameters())
-
-    def table_lookup(self, batch: Dict[str, torch.Tensor], prefix: str, *,
-                     impl: str = "auto") -> torch.Tensor:
-        return table_lookup(self._params(), self.cfg, batch, prefix,
-                            impl=impl)
-
-    def tower_from_lookup(self, batch: Dict[str, torch.Tensor], prefix: str,
-                          lookup: torch.Tensor, *,
-                          impl: str = "auto") -> torch.Tensor:
-        return tower_from_lookup(self._params(), self.cfg, batch, prefix,
-                                 lookup, impl=impl)
-
-    def forward(self, batch: Dict[str, torch.Tensor], prefix: str, *,
-                impl: str = "auto") -> torch.Tensor:
-        lookup = self.table_lookup(batch, prefix, impl=impl)
-        return self.tower_from_lookup(batch, prefix, lookup, impl=impl)
+    lookup_fn = staticmethod(table_lookup)
+    rest_fn = staticmethod(tower_from_lookup)

@@ -45,7 +45,7 @@ def _embed_side(
     rows live at remapped positions, so serving inputs go through it too."""
     dev = as_device(device)
     tower = model_base.tower_module(params, cfg.tower, side)
-    table = tower.W0
+    table = tower.table
     if table.device.type != dev.type:
         raise ValueError(f"parameters are on {table.device}, not {dev}")
     # Hash through the standard pipeline, so the batches (and their union
@@ -64,6 +64,7 @@ def _embed_side(
             dedup_group=sublane_group(table.dtype),
             dedup_unique_rows=cfg.data.max_unique_rows if dedup else None,
             dedup_joint=cfg.tower.shared_weights,
+            sequence=cfg.tower.is_sequence_model,
         ):
             n = batch["q_wgt"].shape[0]
             tb = batch_to_torch(pad_batch(batch, batch_size), dev)

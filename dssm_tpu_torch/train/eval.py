@@ -39,15 +39,18 @@ def _host_batches(cfg: RunConfig, hashed: HashedPairs, batch_size: int,
                   group: int, device: torch.device,
                   ) -> Iterator[Tuple[DeviceBatch, int]]:
     """(batch on `device` padded to batch_size rows, live rows) through the
-    whole host pipeline: slicing, two-level dedupe, wire compression."""
+    whole host pipeline: slicing, two-level dedupe, wire compression
+    (sequence batches keep their full layout, as in dssm_tpu)."""
     dedup = cfg.data.dedup_lookup
+    sequence = cfg.tower.is_sequence_model
     for batch in eval_batches(
         hashed, batch_size,
         dedup_unique=cfg.data.max_unique if dedup else None,
         dedup_group=group,
         dedup_unique_rows=cfg.data.max_unique_rows if dedup else None,
         dedup_joint=cfg.tower.shared_weights,
-        wire_compress=dedup,
+        wire_compress=dedup and not sequence,
+        sequence=sequence,
     ):
         n = batch["q_wgt"].shape[0]
         yield batch_to_torch(pad_batch(batch, batch_size), device), n
@@ -82,7 +85,8 @@ def _cache_key(cfg: RunConfig, hashed: HashedPairs, batch_size: int,
     batch's content; the weakref beside it guards against id() reuse."""
     return (id(hashed), batch_size, group, str(device),
             cfg.data.dedup_lookup, cfg.data.max_unique,
-            cfg.data.max_unique_rows, cfg.tower.shared_weights)
+            cfg.data.max_unique_rows, cfg.tower.shared_weights,
+            cfg.tower.is_sequence_model)
 
 
 def _registry_get(key, hashed) -> Optional[EvalCache]:

@@ -14,6 +14,12 @@ table out of the differentiated function:
      (scatter kernels); the dense parameters take an sgd / momentum / adam
      step.
 
+A batch without dedupe fields (data.dedup_lookup=False, f32 tables) takes
+the raw-index branch: both sides' lookups run outside autograd through the
+embedding-bag kernel, the lookup outputs are the differentiation boundary,
+and the table takes -lr * wgt * g rows by one index_add_ per side
+(scatter_table_update), in place.
+
 A bf16 table's compact block is bf16, so autograd hands back a bf16 compact
 gradient (the f32 sum rounded to nearest) and, under the sgd table
 optimizer, -lr * g is formed in bf16 with lr rounded to bf16, as the
@@ -115,6 +121,20 @@ def _dense_subtree(params: Dict, table_key: str) -> Dict:
     }
 
 
+def scatter_table_update(table: torch.Tensor, idx: torch.Tensor,
+                         wgt: torch.Tensor, g_lookup: torch.Tensor,
+                         lr: float) -> torch.Tensor:
+    """table[idx[..., k]] -= lr * wgt[..., k] * g_lookup[...], one f32
+    index_add_ IN PLACE (dssm_tpu's .at[].add). idx / wgt [..., K],
+    g_lookup [..., H]. Padding entries carry weight 0 and add zero into
+    row 0. On the card the adds of a row are atomics: the last bits depend
+    on their order."""
+    h = g_lookup.shape[-1]
+    vals = wgt.float()[..., None] * g_lookup.float()[..., None, :]
+    flat_vals = ((-lr) * vals).reshape(-1, h).to(table.dtype)
+    return table.index_add_(0, idx.reshape(-1).long(), flat_vals)
+
+
 def apply_table_update(table: torch.Tensor, uniq: torch.Tensor,
                        vals: torch.Tensor, seed: int,
                        scale: Optional[torch.Tensor] = None,
@@ -144,18 +164,15 @@ def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
     updates. The batch is on the parameters' device (bridge.batch_to_torch).
     The table is updated in place: the returned state holds the same table
     tensor as the state passed in."""
-    if cfg.tower.arch != "mlp":
-        raise NotImplementedError(
-            f"{cfg.tower.arch} towers are not ported yet (ROADMAP.md, "
-            "Queue 1: cnn/lstm)")
     table_key = TABLE_KEY[cfg.tower.arch]
     compute_dtype = torch_dtype(cfg.tower.compute_dtype)
 
     def loss_from_lookups(dense, lq, ld, batch):
-        if cfg.tower.shared_weights:
+        if cfg.tower.shared_weights and cfg.tower.arch == "mlp":
             # Shared MLP towers: both sides go through one stacked tower
             # call, one fused tower kernel on [2B] rows instead of two on
-            # [B]. The MLP tower ignores batch/prefix, so stacking is exact.
+            # [B]. The MLP tower ignores batch/prefix, so stacking is exact;
+            # the sequence towers read each side's word mask.
             b = lq.shape[0]
             qd = model_base.embed_from_lookup(
                 dense, cfg.tower, "q", batch, torch.cat([lq, ld], dim=0),
@@ -190,7 +207,7 @@ def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
 
     def grads_of(loss_fn, dense, compacts, batch):
         """loss_fn(dense, *compacts, batch) differentiated in the dense
-        parameters and the compact blocks."""
+        parameters and the compact blocks (the raw branch: the lookups)."""
         dense = {tower: {k: v.detach().requires_grad_(True)
                          for k, v in tp.items()}
                  for tower, tp in dense.items()}
@@ -242,10 +259,7 @@ def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
                               opt_state=new_opt), aux
 
         if "q_uniq" not in batch:
-            raise NotImplementedError(
-                "the raw-index train step (batches without dedup fields) "
-                "needs the embedding-bag kernel, not ported yet (ROADMAP.md, "
-                "Queue 2: embedding_bag_pallas); use data.dedup_lookup=True")
+            return raw_step(state, batch)
 
         # Per-side dedupe: differentiate at each side's compact block; the
         # table update is then a U-row scatter per side.
@@ -287,6 +301,39 @@ def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
                 tp[table_key] = table
                 if scale is not None:
                     tp[f"{table_key}_scale"] = scale
+                new_params[tower] = tp
+        return TrainState(step=state.step + 1, params=new_params,
+                          opt_state=new_opt), aux
+
+    def raw_step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict]:
+        # Raw indices: the lookups are the differentiation boundary; each
+        # side's table update is a B*K-row index_add_.
+        if cfg.train.table_optimizer == "adagrad":
+            raise ValueError("table_optimizer='adagrad' requires dedup "
+                             "batches (data.dedup_lookup)")
+        params = state.params
+        dense = _dense_subtree(params, table_key)
+        with torch.no_grad():
+            lq, ld = (model_base.embed_table_lookup(params, cfg.tower, s,
+                                                    batch, impl=impl)
+                      for s in "qd")
+        aux, g_dense, (g_lq, g_ld) = grads_of(loss_from_lookups, dense,
+                                              [lq, ld], batch)
+        lr = cfg.train.learning_rate
+        with torch.no_grad():
+            updates, new_opt = optimizer_update(cfg.train, g_dense,
+                                                state.opt_state)
+            new_dense = apply_updates(dense, updates)
+            new_params = {}
+            for tower in params:
+                tp = dict(new_dense[tower])
+                table = params[tower][table_key]
+                sides = {"shared": "qd", "query": "q", "doc": "d"}[tower]
+                for side in sides:
+                    table = scatter_table_update(
+                        table, batch[f"{side}_idx"], batch[f"{side}_wgt"],
+                        g_lq if side == "q" else g_ld, lr)
+                tp[table_key] = table
                 new_params[tower] = tp
         return TrainState(step=state.step + 1, params=new_params,
                           opt_state=new_opt), aux

@@ -12,7 +12,9 @@ bf16 tower may round one intermediate to the neighbouring bf16 value (2e-2).
 The stochastic-rounding scatters draw the same Philox stream in the kernel
 and in the plain version and do the same f32 arithmetic (bit-equal); the
 rank count is an integer, equal wherever no score lies within an f32
-rounding of the true score.
+rounding of the true score. The raw-index embedding bag and its weight
+gradient sum in another order than their plain versions (rtol 1e-5; on a
+bf16 table the same bf16 values are summed in f32, so the same tolerance).
 """
 
 import numpy as np
@@ -26,6 +28,9 @@ from dssm_tpu_torch.data.dedupe import SKIP_SENTINEL_GID
 from dssm_tpu_torch.data.loader import batch_iterator, hash_pairs
 from dssm_tpu_torch.data.toy import make_toy_pairs
 from dssm_tpu_torch.kernels import _build
+from dssm_tpu_torch.kernels.embed import (
+    embedding_bag, embedding_bag_dwgt, embedding_bag_dwgt_plain,
+    embedding_bag_plain)
 from dssm_tpu_torch.kernels.count import (
     count_lookup, count_lookup_bwd, count_lookup_bwd_plain, count_lookup_plain)
 from dssm_tpu_torch.kernels.gather import (
@@ -460,5 +465,122 @@ def test_low_precision_train_and_eval_kernels_match_plain(dev, table_dtype):
     metrics = {impl: evaluate(states[impl].params, cfg, hashed, 128, impl,
                               cache=False) for impl in ("auto", "plain")}
     assert _build.launch_counts()["rank_counts"] == 1
+    for k, v in metrics["plain"].items():
+        assert abs(metrics["auto"][k] - v) <= 2e-2, (k, metrics)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 32), (16, 4, 8), (7, 70)])
+def test_embedding_bag_kernels_match_plain(dev, dtype, shape):
+    """The forward and the weight gradient, ragged rows (dead lookups carry
+    junk indices, some outside the table) and a zero row."""
+    rng = np.random.default_rng(31)
+    table = torch.from_numpy(rng.normal(size=(V, 256)).astype(
+        np.float32)).to(dev, dtype)
+    k = shape[-1]
+    idx = rng.integers(0, V, size=shape).astype(np.int32)
+    wgt = rng.integers(1, 4, size=shape).astype(np.float32)
+    nnz = rng.integers(0, k + 1, size=shape[:-1])
+    dead = np.arange(k) >= nnz[..., None]
+    wgt[dead] = 0.0
+    idx[dead & (rng.random(shape) < 0.5)] = V + 7
+    idx, wgt = torch.from_numpy(idx).to(dev), torch.from_numpy(wgt).to(dev)
+    got = embedding_bag(table, idx, wgt, impl="kernel")
+    want = embedding_bag_plain(table, idx, wgt)
+    assert got.dtype == torch.float32 and got.shape == (*shape[:-1], 256)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    for g_dtype in (torch.float32, torch.bfloat16):
+        g = torch.from_numpy(rng.normal(size=(*shape[:-1], 256)).astype(
+            np.float32)).to(dev, g_dtype)
+        dw = embedding_bag_dwgt(table, idx, g, impl="kernel")
+        dw_p = embedding_bag_dwgt_plain(table, idx, g)
+        torch.testing.assert_close(dw, dw_p, rtol=1e-5,
+                                   atol=1e-5 * float(dw_p.abs().max()))
+    # A live lookup outside the table is an error, not a clamp.
+    idx_bad, wgt_bad = idx.clone(), wgt.clone()
+    idx_bad.view(-1)[0], wgt_bad.view(-1)[0] = V + 7, 1.0
+    with pytest.raises(IndexError):
+        embedding_bag(table, idx_bad, wgt_bad, impl="kernel")
+
+
+@pytest.mark.cuda
+def test_embedding_bag_autograd_matches_plain(dev):
+    """d_table (the plain segment sum) and d_wgt (the kernel) through the
+    autograd Function against autograd of the plain version; the d_wgt
+    kernel is launched only when the weights need a gradient."""
+    rng = np.random.default_rng(32)
+    table0 = torch.from_numpy(rng.normal(size=(V, 128)).astype(
+        np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, V, size=(32, 6, 8)).astype(
+        np.int32)).to(dev)
+    wgt0 = torch.from_numpy(rng.integers(0, 3, size=(32, 6, 8)).astype(
+        np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(32, 6, 128)).astype(
+        np.float32)).to(dev)
+    grads = {}
+    for impl in ("kernel", "plain"):
+        table = table0.clone().requires_grad_(True)
+        wgt = wgt0.clone().requires_grad_(True)
+        (embedding_bag(table, idx, wgt, impl=impl) * g).sum().backward()
+        grads[impl] = (table.grad, wgt.grad)
+    for a, b in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))
+    _build.reset_launch_counts()
+    table = table0.clone().requires_grad_(True)
+    (embedding_bag(table, idx, wgt0, impl="kernel") * g).sum().backward()
+    counts = _build.launch_counts()
+    assert counts["embedding_bag"] == 1 and counts["embedding_bag_bwd"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,dedup", [("cnn", True), ("cnn", False),
+                                        ("lstm", True), ("lstm", False),
+                                        ("mlp", False)])
+def test_sequence_and_raw_train_steps_kernels_match_plain(dev, arch, dedup):
+    """3 steps of the cnn / lstm towers (union-dedupe or raw-index batches)
+    and of the mlp on raw batches through the kernels and through the plain
+    versions from the same state, then both evaluated."""
+    cfg = RunConfig(
+        tower=TowerConfig(arch=arch, vocab_size=V, embed_width=100,
+                          hidden_dims=(64,), conv_channels=40, lstm_hidden=32,
+                          semantic_dim=32, compute_dtype="bfloat16"),
+        data=DataConfig(max_trigrams=16, max_words=6,
+                        max_trigrams_per_word=8, max_unique=2048,
+                        max_unique_rows=256, dedup_lookup=dedup),
+        loss=LossConfig(), train=TrainConfig(batch_size=128))
+    seq = cfg.tower.is_sequence_model
+    hashed = hash_pairs(make_toy_pairs(640, 96, 7), cfg.tower, cfg.data)
+    it = batch_iterator(hashed, 128, seq, seed=3,
+                        dedup_unique=2048 if dedup else None,
+                        dedup_unique_rows=256, dedup_joint=True)
+    batches = [batch_to_torch(next(it), dev) for _ in range(3)]
+    states = {impl: create_run_state(cfg, model_base.init_params(
+        cfg.tower, seed=0, device=dev)) for impl in ("auto", "plain")}
+    losses = {}
+    _build.reset_launch_counts()
+    for impl in states:
+        step = make_train_step(cfg, impl)
+        losses[impl] = []
+        for batch in batches:
+            states[impl], aux = step(states[impl], batch)
+            losses[impl].append(float(aux["loss"]))
+    counts = _build.launch_counts()
+    if dedup:
+        assert counts["joint_lookup"] == counts["joint_lookup_bwd"] == 3
+        assert counts["embedding_bag"] == 0
+    else:
+        assert counts["embedding_bag"] == 6 and counts["gather_row_groups"] == 0
+    assert counts["embedding_bag_bwd"] == 0
+    np.testing.assert_allclose(losses["auto"], losses["plain"], rtol=0,
+                               atol=1e-2)
+    for tower, tp in states["plain"].params.items():
+        for k, want in tp.items():
+            torch.testing.assert_close(states["auto"].params[tower][k], want,
+                                       rtol=0, atol=2e-3)
+    metrics = {impl: evaluate(states[impl].params, cfg, hashed, 128, impl,
+                              cache=False) for impl in ("auto", "plain")}
     for k, v in metrics["plain"].items():
         assert abs(metrics["auto"][k] - v) <= 2e-2, (k, metrics)

@@ -201,9 +201,28 @@ def test_freq_remap_identical(tmp_path):
 
 
 def test_sequence_towers_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloader.hash_pairs(ttoy.ToyPairs(["a"], ["b"]),
-                           tcfg.TowerConfig(arch="cnn"), tcfg.DataConfig())
+    """The sequence towers' corpus, once refused, is now hashed: the bag
+    fields and the per-word fields with their word masks, bit-identical to
+    dssm_tpu's, and through the vocab remap."""
+    pairs = jtoy.make_toy_pairs(60, 64, 4)
+    tower = jcfg.TowerConfig(arch="cnn", vocab_size=VOCAB)
+    data = jcfg.DataConfig(max_words=5, max_trigrams_per_word=6)
+    jh = jloader.hash_pairs(pairs, tower, data)
+    th = tloader.hash_pairs(ttoy.ToyPairs(pairs.queries, pairs.titles),
+                            tcfg.TowerConfig(arch="cnn", vocab_size=VOCAB),
+                            tcfg.DataConfig(max_words=5,
+                                            max_trigrams_per_word=6))
+    remap = tremap.build_freq_remap(th, VOCAB)
+    fields = [f.name for f in dataclasses.fields(jh)]
+    for a, b in ((th, jh), (tremap.apply_remap(th, remap),
+                            jremap.apply_remap(jh, remap))):
+        for f in fields:
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), f)
+    assert th.q_seq_idx.shape == (60, 5, 6) and th.d_mask.shape == (60, 5)
+    idx, wgt, mask = ttrigram.hash_text_sequence("the hiking boots", VOCAB,
+                                                 4, 3)
+    assert mask.tolist() == [1, 1, 1, 0] and (wgt[3] == 0).all()
+    assert (idx[:3] > 0).all() and (wgt[:3] > 0).all()
 
 
 def _hashed_pair(n=330):
@@ -253,10 +272,29 @@ def test_batch_iterator_fixed_epoch_order_and_refusals():
         _assert_batches_equal(a, next(ji))
     _assert_batches_equal(got[0], got[5])  # epoch 2 replays epoch 1
     for bad in (dict(process_count=2), dict(pipeline_workers=4),
-                dict(cache_epoch_batches=True), dict(local_sel_cap=64),
-                dict(sequence=True)):
+                dict(cache_epoch_batches=True), dict(local_sel_cap=64)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             next(tloader.batch_iterator(th, 64, **bad))
+    # Sequence batches, once refused: dssm_tpu's stream, word masks padded
+    # like every per-row field.
+    tower = jcfg.TowerConfig(arch="lstm", vocab_size=VOCAB)
+    data = jcfg.DataConfig(max_words=5, max_trigrams_per_word=6)
+    pairs = jtoy.make_toy_pairs(200, 96, 2)
+    js = jloader.hash_pairs(pairs, tower, data)
+    ts = tloader.hash_pairs(ttoy.ToyPairs(pairs.queries, pairs.titles),
+                            tcfg.TowerConfig(arch="lstm", vocab_size=VOCAB),
+                            tcfg.DataConfig(max_words=5,
+                                            max_trigrams_per_word=6))
+    skw = dict(seed=2, dedup_unique=512, dedup_unique_rows=128,
+               dedup_joint=True)
+    ti = tloader.batch_iterator(ts, 64, True, **skw)
+    ji = jloader.batch_iterator(js, 64, True, **skw)
+    for _ in range(4):
+        _assert_batches_equal(next(ti), next(ji))
+    tail = tloader.select_batch(ts, np.arange(40), sequence=True)
+    padded = tloader.pad_batch(tail, 64)
+    assert padded["q_mask"].shape == (64, 5)
+    _assert_batches_equal(padded, j_pad_batch(tail, 64))
     with pytest.raises(ValueError, match="corpus size"):
         next(tloader.batch_iterator(th, 1024))
 

@@ -31,6 +31,7 @@ from dssm_tpu_torch.kernels import _build
 from dssm_tpu_torch.kernels import dedup_embed as tdedup
 from dssm_tpu_torch.kernels.count import (
     count_lookup, count_lookup_bwd, count_lookup_bwd_plain, count_lookup_plain)
+from dssm_tpu_torch.kernels.embed import embedding_bag, embedding_bag_dwgt
 from dssm_tpu_torch.kernels.gather import (
     gather_row_groups as t_gather, gather_row_groups_plain,
     scatter_add_row_groups as t_scatter)
@@ -455,6 +456,10 @@ def _kernel_calls(dev):
         "scatter_sr_int8_row_groups": lambda impl: scatter_sr_int8_row_groups(
             table.to(torch.int8), gids[:16], vals, 32, 0, impl=impl),
         "rank_counts": lambda impl: rank_counts(q, q, impl=impl),
+        "embedding_bag": lambda impl: embedding_bag(table, inv, wgt,
+                                                    impl=impl),
+        "embedding_bag_bwd": lambda impl: embedding_bag_dwgt(table, inv, g,
+                                                             impl=impl),
     }
 
 

@@ -149,12 +149,19 @@ def test_serving_with_remap_matches_dssm_tpu_pallas(pairs):
 
 
 def test_raw_index_batch_not_ported():
+    """A raw-index batch (no dedupe fields), once refused, embeds through
+    the embedding bag as dssm_tpu's XLA path does."""
     jc, tc = _cfgs()
-    _, tp = _params(jc, tc)
-    batch = {"d_idx": torch.ones((2, 16), dtype=torch.int32),
-             "d_wgt": torch.ones((2, 16))}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbase.embed(tp, tc.tower, "d", batch)
+    jp, tp = _params(jc, tc)
+    rng = np.random.default_rng(9)
+    idx = rng.integers(0, 4096, size=(5, 16)).astype(np.int32)
+    wgt = rng.integers(0, 3, size=(5, 16)).astype(np.float32)
+    batch = {"d_idx": torch.from_numpy(idx), "d_wgt": torch.from_numpy(wgt)}
+    got = tbase.embed(tp, tc.tower, "d", batch)
+    want = jbase.embed(jp, jc.tower, "d", {"d_idx": idx, "d_wgt": wgt},
+                       impl="xla")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
 
 
 def test_top_k_matches_dssm_tpu():

@@ -220,8 +220,15 @@ def test_sparse_update_predicates_and_refusals():
            "q_wgt": torch.zeros((4, 8)),
            "d_idx": torch.zeros((4, 16), dtype=torch.int32),
            "d_wgt": torch.zeros((4, 16))}
-    with pytest.raises(NotImplementedError, match="embedding_bag_pallas"):
-        make_train_step(tc)(state, raw)
+    # A raw-index batch, once refused, takes the raw branch: the table
+    # moves nowhere for all-zero weights; AdaGrad still needs dedupe.
+    w0 = state.params["shared"]["W0"].clone()
+    raw_state, aux = make_train_step(tc)(state, raw)
+    assert raw_state.step == 1 and np.isfinite(float(aux["loss"]))
+    assert torch.equal(raw_state.params["shared"]["W0"], w0)
+    ada = tc.replace(train=tc.train.replace(table_optimizer="adagrad"))
+    with pytest.raises(ValueError, match="adagrad"):
+        make_train_step(ada)(raw_state, raw)
     # A bf16 table takes the stochastic-rounding scatter: a zero update
     # leaves it bit-identical, a sentinel slot touches nothing.
     bf16 = torch.full((32, 128), 0.3, dtype=torch.bfloat16)
