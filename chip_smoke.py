@@ -10,8 +10,11 @@ then drives the `full` preset end to end (500k x 384 table, towers
 
   - trains it from seeded fresh weights on the toy corpus's batch stream,
     12 steps through the kernels and the same steps from the same state
-    through the plain versions, which must agree, with the loss falling;
-    then 3 steps of the per-side branch (separate towers) the same way;
+    through the plain versions, which must agree, with the loss falling
+    (the joint step's lookup on an f32 or bf16 table is the fused gather +
+    joint lookup kernel, bit-equal to the gather and joint lookup kernels
+    it replaces there, which an int8 table's step still runs); then 3
+    steps of the per-side branch (separate towers) the same way;
   - trains it the same way on a bf16 table and on an int8 table (12 steps
     each, the stochastic-rounding scatters, kernels against plain versions);
   - evaluates the f32, bf16 and int8 models on the held-out split (recall@1,
@@ -113,6 +116,7 @@ def main() -> int:
         gather_row_groups, scatter_add_row_groups,
         scatter_add_row_groups_plain)
     from dssm_tpu_torch.kernels.joint import (
+        fused_gather_joint_lookup, fused_gather_joint_lookup_plain,
         joint_lookup, joint_lookup_bwd, joint_lookup_bwd_plain,
         joint_lookup_plain)
     from dssm_tpu_torch.kernels.rank import (
@@ -408,6 +412,7 @@ def main() -> int:
     compact = gather_row_groups(table, uniq, group, impl="kernel")
 
     nnz_q, nnz_d = int((q_wgt != 0).sum()), int((d_wgt != 0).sum())
+    real_slots_first = int((uniq < num_groups).sum())
     both_rows = torch.unique(torch.cat([
         sel.long()[q_inv.long()[q_wgt != 0]],
         sel.long()[d_inv.long()[d_wgt != 0]]])).numel()
@@ -446,6 +451,74 @@ def main() -> int:
               f"{kq}) d ({rows_n}, {kd}), {nnz_q + nnz_d} live lookups on "
               f"{both_rows} rows",
     )
+
+    # Fused gather + joint lookup: the same batch straight from the table.
+    def fused_case(tbl, uniq_, fields_, grp, what):
+        """The fused kernel against its plain version (1e-5 x max |out|) and
+        bit-equal, output by output, to the gather kernel followed by the
+        joint lookup kernel; its times beside the split pair's (one graph
+        of both launches), the plain version's and the library chain's
+        (index_select of the group rows, then row 5's count products), and
+        its bound: inv, wgt, sel and uniq read once, the real groups' table
+        rows read once, compact and both outputs written once; one f32
+        multiply-add per live lookup and column. Returns the numbers."""
+        got = fused_gather_joint_lookup(tbl, uniq_, *fields_, grp,
+                                        impl="kernel")
+        want = fused_gather_joint_lookup_plain(tbl, uniq_, *fields_, grp)
+        c_s = gather_row_groups(tbl, uniq_, grp, impl="kernel")
+        split = (*joint_lookup(c_s, *fields_, impl="kernel"), c_s)
+        torch.cuda.synchronize()
+        for part, a_, b_ in zip(("q_out", "d_out", "compact"), got, split):
+            check(torch.equal(a_, b_), f"fused_gather_joint_lookup ({what}):"
+                  f" {part} differs from gather_row_groups + joint_lookup "
+                  "(bit-equal expected)")
+        check(torch.equal(got[2], want[2]), f"fused_gather_joint_lookup "
+              f"({what}): compact differs from its plain version")
+        err_ = max(float((a_ - b_).abs().max())
+                   for a_, b_ in zip(got[:2], want[:2]))
+        scale_ = max(float(b_.abs().max()) for b_ in want[:2])
+        check(err_ <= 1e-5 * scale_, f"fused_gather_joint_lookup ({what}): "
+              f"max err {err_} over 1e-5 x max |out| {scale_}")
+        ng = tbl.shape[0] // grp
+        rows_ = (torch.where((uniq_ >= 0) & (uniq_ < ng), uniq_, 0).long()
+                 [:, None] * grp + torch.arange(grp, device=dev)).reshape(-1)
+        sel_ = fields_[0].long()
+        cq_, cd_ = (count_matrix(fields_[i], fields_[i + 1], sel_.numel())
+                    .to(tbl.dtype) for i in (1, 3))
+
+        def library():
+            c2_ = tbl.index_select(0, rows_).index_select(0, sel_)
+            return cq_ @ c2_, cd_ @ c2_
+
+        real_ = int(((uniq_ >= 0) & (uniq_ < ng)).sum())
+        h_ = tbl.shape[1]
+        nbytes_ = ((fields_[1].numel() + fields_[3].numel()) * 8
+                   + fields_[0].numel() * 4 + uniq_.numel() * 4
+                   + (real_ + uniq_.numel()) * grp * h_ * tbl.element_size()
+                   + sum(o.numel() * 4 for o in got[:2]))
+        nnz_ = int((fields_[2] != 0).sum() + (fields_[4] != 0).sum())
+        b_ms_, b_by_ = bound_ms(nbytes_, 2.0 * nnz_ * h_, "f32")
+        return dict(
+            bound_ms=b_ms_, bound_by=b_by_, max_abs_err=err_, tolerance=f"1e-5 x max |out| ({scale_:.3g}); "
+            "bit-equal to gather_row_groups + joint_lookup",
+            ms=graph_ms(lambda: fused_gather_joint_lookup(
+                tbl, uniq_, *fields_, grp, impl="kernel")),
+            split_ms=graph_ms(lambda: joint_lookup(gather_row_groups(
+                tbl, uniq_, grp, impl="kernel"), *fields_, impl="kernel")),
+            plain_ms=graph_ms(lambda: fused_gather_joint_lookup_plain(
+                tbl, uniq_, *fields_, grp)),
+            library_ms=graph_ms(library))
+
+    fused_full = fused_case(table, uniq, [sel, q_inv, q_wgt, d_inv, d_wgt],
+                            group, "full, f32")
+    results["fused_gather_joint_lookup"] = dict(
+        source="dssm_tpu_torch/csrc/joint.cu",
+        replaces="dssm_tpu/kernels/pallas_count.py:494",
+        ms_split=fused_full.pop("split_ms"),
+        shape=f"table {tuple(table.shape)} f32, {uniq.numel()} slots "
+              f"({real_slots_first} real), sel ({sel.numel()}), q ({rows_n}, "
+              f"{kq}) d ({rows_n}, {kd}), {nnz_q + nnz_d} live lookups",
+        **fused_full)
 
     # Joint lookup backward (f32 atomics): bf16 gradients, as the step's.
     g_q = torch.from_numpy(rng.normal(size=(rows_n, h)).astype(
@@ -816,13 +889,20 @@ def main() -> int:
         scatter_add_row_groups_plain(tbl16.clone(), g16, v16, 16)),
         "scatter_add_row_groups differs on a bf16 table")
 
-    # The joint lookup's bf16-compact branch, forward and backward, on the
-    # bf16 stream's first batch.
+    # The joint lookup's bf16-compact branch, forward and backward, and the
+    # fused lookup on the bf16 table, on the bf16 stream's first batch.
     tb16 = batch_to_torch(lowprec["bfloat16"]["batches"][0], dev)
     f16 = [tb16[k].contiguous() for k in ("sel", "q_inv", "q_wgt", "d_inv",
                                           "d_wgt")]
-    compact16 = gather_row_groups(table.to(torch.bfloat16), tb16["uniq"], 16,
-                                  impl="kernel")
+    table16 = table.to(torch.bfloat16)
+    compact16 = gather_row_groups(table16, tb16["uniq"], 16, impl="kernel")
+    fused16 = fused_case(table16, tb16["uniq"], f16, 16, "full, bf16 table")
+    rf = results["fused_gather_joint_lookup"]
+    rf["max_abs_err"] = max(rf["max_abs_err"], fused16["max_abs_err"])
+    rf.update(ms_bfloat16=fused16["ms"], ms_split_bfloat16=fused16["split_ms"],
+              ms_plain_bfloat16=fused16["plain_ms"],
+              ms_library_bfloat16=fused16["library_ms"],
+              ms_bound_bfloat16=fused16["bound_ms"])
     gr16 = compact16.shape[0]
     lk = joint_lookup(compact16, *f16, impl="kernel")
     lp_ = joint_lookup_plain(compact16, *f16)
@@ -839,7 +919,7 @@ def main() -> int:
         lambda: joint_lookup(compact16, *f16, impl="kernel"))
     results["joint_lookup_bwd"]["ms_bfloat16"] = graph_ms(
         lambda: joint_lookup_bwd(*f16, g_q, g_d, gr16, impl="kernel"))
-    del compact16, tb16, lk, lp_, dck, dcp
+    del compact16, tb16, lk, lp_, dck, dcp, table16
 
     # Rank count: unit vectors with ranks spread from 1 into the hundreds,
     # redrawn until no score lies within 1e-5 of its row's true score, so
@@ -908,8 +988,9 @@ def main() -> int:
                  "dense_tower_residuals", "in_batch_loss", "in_batch_loss_dq",
                  "in_batch_loss_dd", "scatter_add_row_groups",
                  "scatter_sr_row_groups", "scatter_sr_int8_row_groups",
-                 "rank_counts")
-    for extra in ("gather_row_groups", "joint_lookup", "joint_lookup_bwd"):
+                 "rank_counts", "fused_gather_joint_lookup")
+    for extra in ("gather_row_groups", "joint_lookup", "joint_lookup_bwd",
+                  "fused_gather_joint_lookup"):
         r = results[extra]
         print(f"{extra} at the low-precision tables' shapes: "
               + ", ".join(f"{k[3:]} {r[k]:.4f} ms" for k in r
@@ -1062,9 +1143,10 @@ def main() -> int:
             if dname == "bfloat16":
                 del tbl
         del g_b
-    # The gather and the joint lookup at the cnn shapes: 1024 group slots of
-    # 8 rows x 1024 columns (a 32 MB compact block), 16384 word rows a side,
-    # the first union-dedupe batch of the cnn stream; bf16 gradients.
+    # The gather, the joint lookup and the fused lookup at the cnn shapes:
+    # 1024 group slots of 8 rows x 1024 columns (a 32 MB compact block),
+    # 16384 word rows a side, the first union-dedupe batch of the cnn
+    # stream; bf16 gradients.
     tb_c = batch_to_torch(next(seq_stream("cnn", True)), dev)
     wc = seq_params["cnn"]["shared"]["Wc"]
     uniq_c = tb_c["uniq"]
@@ -1098,7 +1180,15 @@ def main() -> int:
         jf[0].long()[jf[1].long()[jf[2] != 0]],
         jf[0].long()[jf[3].long()[jf[4] != 0]]])).numel()
     idx_bytes_c = (jf[1].numel() + jf[3].numel()) * 8 + jf[0].numel() * 4
+    fused_c = fused_case(wc, uniq_c, jf, 8, "cnn shapes")
+    rf = results["fused_gather_joint_lookup"]
+    rf["max_abs_err"] = max(rf["max_abs_err"], fused_c["max_abs_err"])
+    rf.update(ms_split_cnn=fused_c["split_ms"],
+              ms_plain_cnn=fused_c["plain_ms"],
+              ms_library_cnn=fused_c["library_ms"],
+              ms_bound_cnn=fused_c["bound_ms"])
     cnn_shapes = {
+        "fused_gather_joint_lookup": fused_c,
         "gather_row_groups": dict(
             ms=graph_ms(lambda: gather_row_groups(wc, uniq_c, 8,
                                                   impl="kernel")),
@@ -1125,7 +1215,7 @@ def main() -> int:
     }
     for name, r_ in cnn_shapes.items():
         results[name]["ms_cnn"] = r_["ms"]
-    print("gather and joint lookup at the cnn shapes (compact "
+    print("gather, joint and fused lookups at the cnn shapes (compact "
           f"{tuple(comp_c.shape)} f32, {real_c} real slots, word rows "
           f"{rows_c} a side, {nnz_c} live lookups on {both_c} rows): "
           + json.dumps(cnn_shapes) + f" on {card}")
@@ -1334,9 +1424,10 @@ def main() -> int:
             "loss_gap", "first_step_param_gap", "first_step_update_gap",
             "dense_gap", "dense_update_gap", "table_gap", "table_update_gap")}
 
-    joint_kernels = ("gather_row_groups", "joint_lookup",
-                     "dense_tower_residuals", "in_batch_loss",
-                     "in_batch_loss_dq", "in_batch_loss_dd",
+    # An f32 or bf16 table's joint step: one fused lookup (no gather, no
+    # joint lookup forward); an int8 table's keeps the split path.
+    joint_kernels = ("fused_gather_joint_lookup", "dense_tower_residuals",
+                     "in_batch_loss", "in_batch_loss_dq", "in_batch_loss_dd",
                      "joint_lookup_bwd", "scatter_add_row_groups")
     tr = compare_training(cfg, params, host_batches_t[:TRAIN_STEPS],
                           "training (joint branch)",
@@ -1345,7 +1436,7 @@ def main() -> int:
                    statistics.mean(tr["loss"][-4:]))
     check(last < 0.9 * first, f"training: the loss did not fall (first 4 "
           f"steps {first:.4f}, last 4 {last:.4f})")
-    for name in joint_kernels[1:]:
+    for name in joint_kernels:
         results[name]["launches"] = tr["counts"][name]
     print(f"trained {TRAIN_STEPS} steps of the full preset: loss "
           f"{tr['loss'][0]:.4f} -> {tr['loss'][-1]:.4f} (first 4 mean "
@@ -1433,6 +1524,9 @@ def main() -> int:
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         kernels_lp = joint_kernels[:-1] + (sr_name,)
+        if tname == "int8":
+            kernels_lp = (("gather_row_groups", "joint_lookup")
+                          + kernels_lp[1:])
         # An int8 level is 1/16 of a row's largest weight (headroom 8), so a
         # rounding that tips the other way moves a weight 15x further than
         # on the bf16 table and the two runs drift faster: 5e-2 on the loss
@@ -1461,6 +1555,8 @@ def main() -> int:
               "the touched elements differ (same random stream: expected at "
               f"most {gap_limit} steps and 10%)")
         results[sr_name]["launches"] = run["counts"][sr_name]
+        if tname == "int8":
+            results["joint_lookup"]["launches"] = run["counts"]["joint_lookup"]
         table_lp = run["state"].params["shared"]["W0"]
         table_mb = (table_lp.numel() * table_lp.element_size()
                     + (table_lp.shape[0] * 4 if tname == "int8" else 0)) / 1e6
@@ -1729,10 +1825,9 @@ def main() -> int:
     # dedupe branch and 0.034-0.041 on the raw branch (whose index_add_
     # atomics move the reading from call to call), 0.6% of the loss; they
     # are held to 0.1, the parameters' updates as every branch's.
-    seq_joint_kernels = ("gather_row_groups", "joint_lookup",
-                         "joint_lookup_bwd", "in_batch_loss",
-                         "in_batch_loss_dq", "in_batch_loss_dd",
-                         "scatter_add_row_groups")
+    seq_joint_kernels = ("fused_gather_joint_lookup", "joint_lookup_bwd",
+                         "in_batch_loss", "in_batch_loss_dq",
+                         "in_batch_loss_dd", "scatter_add_row_groups")
     seq_raw_kernels = {"embedding_bag": 2, "in_batch_loss": 1,
                        "in_batch_loss_dq": 1, "in_batch_loss_dd": 1}
     seq_runs = {}
@@ -1981,7 +2076,8 @@ def main() -> int:
 
     def cli_expected(steps, evals, scatter):
         want = {k: steps for k in joint_kernels[:-1] + (scatter,)}
-        want["gather_row_groups"] += 2 * cli_eval_batches * evals
+        want["joint_lookup"] = 0
+        want["gather_row_groups"] = 2 * cli_eval_batches * evals
         want["count_lookup"] = want["dense_tower"] = (
             2 * cli_eval_batches * evals)
         want["rank_counts"] = evals
@@ -2113,7 +2209,7 @@ def main() -> int:
         t1 = time.perf_counter()
         if dedup:
             want = {k: SEQ_CLI_STEPS for k in seq_joint_kernels}
-            want["gather_row_groups"] += 2 * n_eval_b * 2
+            want["gather_row_groups"] = 2 * n_eval_b * 2
             want["count_lookup"] = 2 * n_eval_b * 2
         else:
             want = {k: v * SEQ_CLI_STEPS for k, v in seq_raw_kernels.items()}

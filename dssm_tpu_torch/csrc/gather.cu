@@ -22,6 +22,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookup.cuh"
+
 namespace {
 
 __global__ void gather_row_groups_kernel(const int4* __restrict__ table,
@@ -30,19 +32,8 @@ __global__ void gather_row_groups_kernel(const int4* __restrict__ table,
                                          int64_t num_groups,
                                          int64_t vecs_per_group) {
   const int64_t slot = blockIdx.x;
-  const int64_t gid = gids[slot];
-  int4* dst = out + slot * vecs_per_group;
-  if (gid >= 0 && gid < num_groups) {
-    const int4* src = table + gid * vecs_per_group;
-    for (int64_t i = threadIdx.x; i < vecs_per_group; i += blockDim.x) {
-      dst[i] = src[i];
-    }
-  } else {
-    const int4 zero = make_int4(0, 0, 0, 0);
-    for (int64_t i = threadIdx.x; i < vecs_per_group; i += blockDim.x) {
-      dst[i] = zero;
-    }
-  }
+  dssm::copy_row_group(table, gids[slot], num_groups, vecs_per_group,
+                       out + slot * vecs_per_group);
 }
 
 }  // namespace

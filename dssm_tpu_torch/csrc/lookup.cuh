@@ -1,4 +1,5 @@
-// Device functions shared by the lookup kernels (count.cu, joint.cu).
+// Device functions shared by the lookup kernels (count.cu, joint.cu) and
+// the row-group gather (gather.cu, joint.cu).
 //
 // A lookup row is K (slot, weight) pairs. A pair is live when its weight is
 // not zero and its slot resolves to a row of the source block: slot in
@@ -59,8 +60,25 @@ __device__ __forceinline__ int compact_live_pairs(
   return live;
 }
 
+// One slot of a row-group gather, by the block's threads: dst = the
+// table's row group gid (vecs 16-byte vectors), or zeros when gid is not in
+// [0, num_groups) (an empty slot, such as the dedupe's sentinel). gid is
+// tested before any table address is formed; offsets are 64-bit.
+__device__ __forceinline__ void copy_row_group(
+    const int4* __restrict__ table, int64_t gid, int64_t num_groups,
+    int64_t vecs, int4* __restrict__ dst) {
+  if (gid >= 0 && gid < num_groups) {
+    const int4* src = table + gid * vecs;
+    for (int64_t i = threadIdx.x; i < vecs; i += blockDim.x) dst[i] = src[i];
+  } else {
+    const int4 zero = make_int4(0, 0, 0, 0);
+    for (int64_t i = threadIdx.x; i < vecs; i += blockDim.x) dst[i] = zero;
+  }
+}
+
 // out[c] = sum_j s_wgt[j] * src[s_row[j], c] for the block's columns, f32
-// accumulation in k order.
+// accumulation in k order. A negative s_row[j] reads as a zero row: its
+// term stays in the sum, as an empty slot's zeroed compact row would.
 template <typename T>
 __device__ __forceinline__ void accumulate_row(
     const T* __restrict__ src, const int32_t* s_row, const float* s_wgt,
@@ -69,7 +87,9 @@ __device__ __forceinline__ void accumulate_row(
     float acc = 0.f;
 #pragma unroll 4
     for (int j = 0; j < n; ++j) {
-      acc = fmaf(s_wgt[j], to_f32(src[(int64_t)s_row[j] * h + c]), acc);
+      const int32_t row = s_row[j];
+      const float v = row >= 0 ? to_f32(src[(int64_t)row * h + c]) : 0.f;
+      acc = fmaf(s_wgt[j], v, acc);
     }
     out_row[c] = acc;
   }

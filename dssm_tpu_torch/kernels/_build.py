@@ -49,6 +49,9 @@ _SIGNATURES = {
                           _INT, _INT, _INT, _INT, _P],
     "dssm_joint_lookup_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT,
                               _INT, _INT, _INT, _INT, _INT, _P],
+    "dssm_fused_gather_joint_lookup": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _I64, _INT, _INT, _INT, _INT, _INT,
+                                       _I64, _INT, _INT, _P],
     "dssm_in_batch_loss_fwd": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _INT,
                                ctypes.c_float, _P],
     "dssm_in_batch_loss_dq": [_P, _P, _P, _P, _P, _P, _I64, _I64, _INT,
@@ -74,7 +77,8 @@ KERNELS = ("gather_row_groups", "count_lookup", "dense_tower",
            "dense_tower_residuals", "in_batch_loss", "in_batch_loss_dq",
            "in_batch_loss_dd", "scatter_add_row_groups",
            "scatter_sr_row_groups", "scatter_sr_int8_row_groups",
-           "rank_counts", "embedding_bag", "embedding_bag_bwd")
+           "rank_counts", "embedding_bag", "embedding_bag_bwd",
+           "fused_gather_joint_lookup")
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()

@@ -11,8 +11,11 @@ data/dedupe.py):
 
 With the joint batch layout (`uniq`/`sel`, shared table) both towers read
 one compact block; with the per-side layout each side has its own
-`{q,d}_uniq`/`_sel`. Training differentiates at the compact block: each
-lookup here is differentiable in `compact` (the kernels' backward kernels).
+`{q,d}_uniq`/`_sel`. Each lookup here is differentiable in `compact` (the
+kernels' backward kernels): the per-side training step differentiates at
+the compact blocks. The joint step differentiates at the lookup outputs
+instead, and on an f32 or bf16 table runs the gather and the joint lookup
+as one fused kernel (kernels/joint.py::fused_gather_joint_lookup).
 """
 
 from __future__ import annotations

@@ -12,6 +12,15 @@ gradient in compact is summed in f32 over both sides and rounded once to
 compact's dtype. The plain version repeats the reference's formulation: the
 selected rows, then count_matrix @ rows per side; its gradient is
 autograd's.
+
+fused_gather_joint_lookup: the row-group gather and the joint lookup in one
+launch, straight from the table (f32 or bf16), returning both sides' outputs
+and the compact block. Counterpart of pallas_count.py::
+fused_gather_joint_lookup; its plain version is gather_row_groups_plain
+followed by joint_lookup_plain, and the kernel's outputs are bit-equal to the
+two kernels run one after the other. Not differentiable, as the reference's:
+a caller differentiates at the outputs and forms the compact gradient with
+joint_lookup_bwd.
 """
 
 from __future__ import annotations
@@ -22,9 +31,11 @@ import torch
 
 from dssm_tpu_torch.kernels import _build
 from dssm_tpu_torch.kernels.count import count_lookup_plain, count_matrix
+from dssm_tpu_torch.kernels.gather import gather_row_groups_plain
 
 _NAME = "joint_lookup"
 _BWD = "joint_lookup_bwd"
+_FUSED = "fused_gather_joint_lookup"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -171,3 +182,64 @@ def joint_lookup(compact: torch.Tensor, sel: torch.Tensor,
     if compact.requires_grad and torch.is_grad_enabled():
         return _JointLookup.apply(compact, sel, q_inv, q_wgt, d_inv, d_wgt)
     return _forward_kernel(compact, sel, q_inv, q_wgt, d_inv, d_wgt)
+
+
+def fused_gather_joint_lookup_plain(
+        table: torch.Tensor, uniq: torch.Tensor, sel: torch.Tensor,
+        q_inv: torch.Tensor, q_wgt: torch.Tensor, d_inv: torch.Tensor,
+        d_wgt: torch.Tensor, group: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    compact = gather_row_groups_plain(table, uniq, group)
+    return (*joint_lookup_plain(compact, sel, q_inv, q_wgt, d_inv, d_wgt),
+            compact)
+
+
+@torch.no_grad()
+def fused_gather_joint_lookup(
+        table: torch.Tensor, uniq: torch.Tensor, sel: torch.Tensor,
+        q_inv: torch.Tensor, q_wgt: torch.Tensor, d_inv: torch.Tensor,
+        d_wgt: torch.Tensor, group: int, *, impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """table [V, H] f32 or bf16, uniq [G] int32 group ids (ids outside
+    [0, V / group), such as the dedupe's sentinel, are empty slots), sel [U2]
+    int32, {q,d}_inv [..., K] int32, {q,d}_wgt [..., K] f32 ->
+    (q_out, d_out [..., H] f32, compact [G * group, H] of the table's dtype,
+    empty slots' rows zero). An int8 table is refused: its compact block is
+    dequantized against the row scales before the lookup (the split path)."""
+    if table.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{_FUSED}: the table must be f32 or bf16, got "
+                         f"{table.dtype} (an int8 table takes the gather, "
+                         "dequant_compact and joint_lookup)")
+    if _build.resolve_impl(impl, table, _FUSED) == "plain":
+        return fused_gather_joint_lookup_plain(table, uniq, sel, q_inv, q_wgt,
+                                               d_inv, d_wgt, group)
+    v, h = table.shape
+    if v % group:
+        raise ValueError(f"{_FUSED}: vocab {v} not divisible by group {group}")
+    if uniq.dtype != torch.int32 or uniq.dim() != 1:
+        raise ValueError(f"{_FUSED}: uniq must be 1-D int32, got "
+                         f"{uniq.dtype} {tuple(uniq.shape)}")
+    _check(_FUSED, sel, q_inv, q_wgt, d_inv, d_wgt)
+    _build.check_cuda(_FUSED, table.device, table, uniq, sel, q_inv, q_wgt,
+                      d_inv, d_wgt)
+    group_bytes = group * h * table.element_size()
+    if group_bytes % 16 or table.data_ptr() % 16:
+        raise ValueError(f"{_FUSED}: a row group must be a whole number of "
+                         f"16-byte vectors ({group_bytes} bytes)")
+    g = uniq.shape[0]
+    rows = q_inv.numel() // q_inv.shape[-1]
+    compact = torch.empty((g * group, h), dtype=table.dtype,
+                          device=table.device)
+    q_out = torch.empty((*q_inv.shape[:-1], h), dtype=torch.float32,
+                        device=table.device)
+    d_out = torch.empty_like(q_out)
+    if h == 0 or rows + g == 0:
+        return q_out, d_out, compact
+    _build.launch(_FUSED, "dssm_fused_gather_joint_lookup", table.device,
+                  table.data_ptr(), uniq.data_ptr(), sel.data_ptr(),
+                  q_inv.data_ptr(), q_wgt.data_ptr(), d_inv.data_ptr(),
+                  d_wgt.data_ptr(), q_out.data_ptr(), d_out.data_ptr(),
+                  compact.data_ptr(), rows, q_inv.shape[-1], d_inv.shape[-1],
+                  sel.shape[0], g, group, v // group, h,
+                  _DTYPE_CODE[table.dtype])
+    return q_out, d_out, compact

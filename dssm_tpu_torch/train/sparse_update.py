@@ -8,6 +8,10 @@ table out of the differentiated function:
      (gather kernel); the compact block is the differentiation boundary
   2. lookups, towers and loss run under autograd over the compact block and
      the dense parameters, giving g_compact [U, H] plus the dense gradients
+     (a joint-dedupe batch instead runs both sides' lookups outside
+     autograd too, as one fused gather + lookup kernel on an f32 or bf16
+     table, differentiates at the two lookup outputs, and forms g_compact
+     with the joint lookup's backward kernel)
   3. the table update is one row-group scatter of the compact update
      values, IN PLACE on the table tensor: an add for an f32 table, a
      stochastically rounded read-modify-write for a bf16 or an int8 table
@@ -20,8 +24,8 @@ embedding-bag kernel, the lookup outputs are the differentiation boundary,
 and the table takes -lr * wgt * g rows by one index_add_ per side
 (scatter_table_update), in place.
 
-A bf16 table's compact block is bf16, so autograd hands back a bf16 compact
-gradient (the f32 sum rounded to nearest) and, under the sgd table
+A bf16 table's compact block is bf16, so its compact gradient is rounded to
+bf16 (the f32 sum rounded to nearest) and, under the sgd table
 optimizer, -lr * g is formed in bf16 with lr rounded to bf16, as the
 reference forms it; only then is the update widened to f32 for the scatter.
 An int8 table's compact block is dequantized to f32 against the per-row
@@ -43,10 +47,11 @@ import torch
 
 from dssm_tpu_torch.config import RunConfig
 from dssm_tpu_torch.kernels.dedup_embed import (
-    dequant_compact, gather_compact, gather_scale_rows,
-    joint_lookup_from_compact, lookup_from_compact)
+    dequant_compact, gather_compact, gather_scale_rows, lookup_from_compact)
 from dssm_tpu_torch.kernels.gather import (
     scatter_add_row_groups, sublane_group)
+from dssm_tpu_torch.kernels.joint import (
+    fused_gather_joint_lookup, joint_lookup, joint_lookup_bwd)
 from dssm_tpu_torch.kernels.scatter_sr import (
     scatter_sr_int8_row_groups, scatter_sr_row_groups)
 from dssm_tpu_torch.loss.cosine_softmax import in_batch_loss, rotate_loss
@@ -196,18 +201,16 @@ def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
                                  impl=impl).to(compute_dtype)
         return loss_from_lookups(dense, lq, ld, batch)
 
-    def loss_from_compact_joint(dense, c, batch):
-        # Shared table, union dedupe: one row selection serves both towers,
-        # and autograd gives the COMBINED compact gradient (both sides) in
-        # one array, so one scatter updates the table for both.
-        lq, ld = joint_lookup_from_compact(
-            c, batch["sel"], batch["q_inv"], batch["q_wgt"], batch["d_inv"],
-            batch["d_wgt"], compute_dtype, impl=impl)
-        return loss_from_lookups(dense, lq, ld, batch)
+    def loss_from_joint_lookups(dense, lq, ld, batch):
+        # The joint lookup's f32 outputs, cast to the compute dtype inside
+        # the differentiated function, as joint_lookup_from_compact casts.
+        return loss_from_lookups(dense, lq.to(compute_dtype),
+                                 ld.to(compute_dtype), batch)
 
     def grads_of(loss_fn, dense, compacts, batch):
         """loss_fn(dense, *compacts, batch) differentiated in the dense
-        parameters and the compact blocks (the raw branch: the lookups)."""
+        parameters and the compact blocks (the raw and joint-dedupe
+        branches: the lookups)."""
         dense = {tower: {k: v.detach().requires_grad_(True)
                          for k, v in tp.items()}
                  for tower, tp in dense.items()}
@@ -237,12 +240,28 @@ def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
             table = params["shared"][table_key]
             scale = params["shared"].get(f"{table_key}_scale")
             group = sublane_group(table.dtype)
+            fields = (batch["sel"].to(torch.int32).contiguous(),
+                      batch["q_inv"].to(torch.int32).contiguous(),
+                      batch["q_wgt"].float().contiguous(),
+                      batch["d_inv"].to(torch.int32).contiguous(),
+                      batch["d_wgt"].float().contiguous())
             with torch.no_grad():
-                c = gather_compact(table, batch["uniq"], group, impl=impl)
-                if scale is not None:
+                if table.dtype == torch.int8:
+                    # int8: the compact block is dequantized before the
+                    # lookup, so the gather and the lookup stay apart.
+                    c = gather_compact(table, batch["uniq"], group, impl=impl)
                     c = dequant_compact(c, scale, batch["uniq"], group)
-            aux, g_dense, (g_c,) = grads_of(loss_from_compact_joint, dense,
-                                            [c], batch)
+                    lq, ld = joint_lookup(c, *fields, impl=impl)
+                else:
+                    lq, ld, c = fused_gather_joint_lookup(
+                        table, batch["uniq"], *fields, group, impl=impl)
+            aux, g_dense, (g_lq, g_ld) = grads_of(
+                loss_from_joint_lookups, dense, [lq, ld], batch)
+            # Both sides' gradients in one compact gradient: one scatter
+            # updates the table for both towers.
+            g_c = joint_lookup_bwd(*fields, g_lq.contiguous(),
+                                   g_ld.contiguous(), c.shape[0],
+                                   impl=impl).to(c.dtype)
             with torch.no_grad():
                 updates, new_opt = optimizer_update(cfg.train, g_dense,
                                                     state.opt_state)

@@ -15,6 +15,9 @@ rank count is an integer, equal wherever no score lies within an f32
 rounding of the true score. The raw-index embedding bag and its weight
 gradient sum in another order than their plain versions (rtol 1e-5; on a
 bf16 table the same bf16 values are summed in f32, so the same tolerance).
+The fused gather + joint lookup sums the same terms in the same order as the
+joint lookup kernel after the gather kernel (bit-equal to the two), and in
+another order than its plain version (rtol 1e-5).
 """
 
 import numpy as np
@@ -37,7 +40,8 @@ from dssm_tpu_torch.kernels.gather import (
     gather_row_groups, gather_row_groups_plain, scatter_add_row_groups,
     scatter_add_row_groups_plain)
 from dssm_tpu_torch.kernels.joint import (
-    joint_lookup, joint_lookup_bwd, joint_lookup_bwd_plain, joint_lookup_plain)
+    fused_gather_joint_lookup, fused_gather_joint_lookup_plain, joint_lookup,
+    joint_lookup_bwd, joint_lookup_bwd_plain, joint_lookup_plain)
 from dssm_tpu_torch.kernels.loss import (
     in_batch_loss_dd, in_batch_loss_dq, in_batch_loss_grads_plain,
     in_batch_nll, in_batch_nll_plain)
@@ -204,6 +208,49 @@ def test_joint_lookup_kernels_match_plain(dev, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_gather_joint_lookup_matches_plain_and_split(dev, dtype):
+    """Bit-equal to the gather kernel followed by the joint lookup kernel,
+    and within rtol 1e-5 of the plain version; empty slots (the sentinel,
+    -1, an id past the table) among the real ones, slot 0 empty in the
+    second case (sel's padding then names a zero row), and the sequence
+    towers' 3-D lookup rows."""
+    rng = np.random.default_rng(27)
+    group = 8 if dtype == torch.float32 else 16
+    table = torch.from_numpy(rng.normal(size=(V, 384)).astype(
+        np.float32)).to(dev, dtype)
+    for slots, real, rows, kq, kd, u2 in ((64, 23, 128, 8, 16, 128),
+                                          (40, 30, 64, 5, 70, 96)):
+        uniq = np.full((slots,), SKIP_SENTINEL_GID, np.int32)
+        uniq[:real] = np.sort(rng.choice(V // group, real, replace=False))
+        if slots == 40:
+            uniq[[0, 7, 31]] = (SKIP_SENTINEL_GID, -1, V // group + 3)
+        uniq = torch.from_numpy(uniq).to(dev)
+        fields = _joint_case(rng, dev, rows, kq, kd, u2, slots * group, 384,
+                             u2 - 6)
+        _build.reset_launch_counts()
+        q, d, c = fused_gather_joint_lookup(table, uniq, *fields, group,
+                                            impl="kernel")
+        assert _build.launch_counts()["fused_gather_joint_lookup"] == 1
+        c_split = gather_row_groups(table, uniq, group, impl="kernel")
+        q_split, d_split = joint_lookup(c_split, *fields, impl="kernel")
+        assert torch.equal(c, c_split)
+        assert torch.equal(q, q_split) and torch.equal(d, d_split)
+        q_p, d_p, c_p = fused_gather_joint_lookup_plain(table, uniq, *fields,
+                                                        group)
+        assert torch.equal(c, c_p)
+        _close(q, q_p)
+        _close(d, d_p)
+        fields3 = [fields[0]] + [f.reshape(rows // 4, 4, -1)
+                                 for f in fields[1:]]
+        q3, d3, _ = fused_gather_joint_lookup(table, uniq, *fields3, group,
+                                              impl="kernel")
+        assert q3.shape == (rows // 4, 4, 384)
+        assert torch.equal(q3.reshape(rows, -1), q)
+        assert torch.equal(d3.reshape(rows, -1), d)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 def test_tower_residual_kernel_backward_matches_plain(dev, dtype, tol):
@@ -321,11 +368,12 @@ def test_train_steps_kernels_match_plain(dev, shared):
             losses[impl].append(float(aux["loss"]))
     counts = _build.launch_counts()
     if shared:
-        per_step = ("gather_row_groups", "joint_lookup", "joint_lookup_bwd",
+        per_step = ("fused_gather_joint_lookup", "joint_lookup_bwd",
                     "dense_tower_residuals", "in_batch_loss",
                     "in_batch_loss_dq", "in_batch_loss_dd",
                     "scatter_add_row_groups")
         assert all(counts[k] == 3 for k in per_step), counts
+        assert counts["gather_row_groups"] == counts["joint_lookup"] == 0
     else:
         assert counts["count_lookup"] == counts["count_lookup_bwd"] == 6
         assert counts["gather_row_groups"] == 6
@@ -444,7 +492,12 @@ def test_low_precision_train_and_eval_kernels_match_plain(dev, table_dtype):
     name = ("scatter_sr_row_groups" if table_dtype == "bfloat16"
             else "scatter_sr_int8_row_groups")
     assert counts[name] == 3 and counts["scatter_add_row_groups"] == 0
-    assert counts["joint_lookup"] == counts["joint_lookup_bwd"] == 3
+    assert counts["joint_lookup_bwd"] == 3
+    # A bf16 table's step is one fused lookup; an int8 table keeps the
+    # gather, the dequantization and the joint lookup.
+    split = 3 if table_dtype == "int8" else 0
+    assert counts["gather_row_groups"] == counts["joint_lookup"] == split
+    assert counts["fused_gather_joint_lookup"] == 3 - split
     np.testing.assert_allclose(losses["auto"], losses["plain"], rtol=0,
                                atol=1e-2)
     ta = states["auto"].params["shared"]["W0"]
@@ -569,7 +622,9 @@ def test_sequence_and_raw_train_steps_kernels_match_plain(dev, arch, dedup):
             losses[impl].append(float(aux["loss"]))
     counts = _build.launch_counts()
     if dedup:
-        assert counts["joint_lookup"] == counts["joint_lookup_bwd"] == 3
+        assert counts["fused_gather_joint_lookup"] == 3
+        assert counts["joint_lookup_bwd"] == 3
+        assert counts["gather_row_groups"] == counts["joint_lookup"] == 0
         assert counts["embedding_bag"] == 0
     else:
         assert counts["embedding_bag"] == 6 and counts["gather_row_groups"] == 0

@@ -35,7 +35,8 @@ from dssm_tpu_torch.kernels.embed import embedding_bag, embedding_bag_dwgt
 from dssm_tpu_torch.kernels.gather import (
     gather_row_groups as t_gather, gather_row_groups_plain,
     scatter_add_row_groups as t_scatter)
-from dssm_tpu_torch.kernels.joint import joint_lookup, joint_lookup_bwd
+from dssm_tpu_torch.kernels.joint import (
+    fused_gather_joint_lookup, joint_lookup, joint_lookup_bwd)
 from dssm_tpu_torch.kernels.rank import rank_counts
 from dssm_tpu_torch.kernels.scatter_sr import (
     scatter_sr_int8_row_groups, scatter_sr_row_groups)
@@ -460,6 +461,8 @@ def _kernel_calls(dev):
                                                     impl=impl),
         "embedding_bag_bwd": lambda impl: embedding_bag_dwgt(table, inv, g,
                                                              impl=impl),
+        "fused_gather_joint_lookup": lambda impl: fused_gather_joint_lookup(
+            table, gids, sel, inv, wgt, inv, wgt, GROUP, impl=impl),
     }
 
 
