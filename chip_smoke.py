@@ -337,11 +337,46 @@ def main() -> int:
                                   for w, b in layers) + y_k.numel() * 4)
     b_ms, b_by = bound_ms(nbytes, flops, "bf16")
 
-    def torch_chain():
-        hh = x
-        for w, b in layers:
+    def torch_chain(xx=x, ll=layers):
+        hh = xx
+        for w, b in ll:
             hh = torch.tanh(torch.addmm(b, hh, w))
         return hh
+
+    # The `tiny` preset's call: x [256, 300] f32 through its f32 layers,
+    # tanh, no norm; exact f32 FMAs, held to 1e-5 and timed.
+    tcfg = validate(get_preset("tiny"))
+    tparams = model_base.init_params(tcfg.tower, seed=cfg.train.seed,
+                                     device=dev)["shared"]
+    tdims = [tcfg.tower.embed_width, *tcfg.tower.hidden_dims,
+             tcfg.tower.semantic_dim]
+    tlayers = [(tparams[f"W{l}"], tparams[f"b{l}"])
+               for l in range(1, len(tdims))]
+    trng = np.random.default_rng(SEED + 1)  # leaves `rng`'s stream as it was
+    tx = torch.from_numpy(trng.uniform(-1, 1, size=(
+        tcfg.train.batch_size, tdims[0])).astype(np.float32)).to(dev)
+    ty_k = dense_tower(tx, tlayers, "tanh", normalize=False, impl="kernel")
+    ty_p = dense_tower(tx, tlayers, "tanh", normalize=False, impl="plain")
+    torch.cuda.synchronize()
+    tiny_err = float((ty_k - ty_p).abs().max())
+    check(tiny_err <= 1e-5, f"dense_tower f32 at the tiny shapes: max err "
+          f"{tiny_err} > 1e-5")
+    tflops = 2.0 * tx.shape[0] * sum(w.numel() for w, _ in tlayers)
+    tb_ms, tb_by = bound_ms(tx.numel() * 4 + ty_k.numel() * 4 + sum(
+        w.numel() * 4 + b.numel() * 4 for w, b in tlayers), tflops, "f32")
+    tiny_case = dict(
+        shape=f"x {tuple(tx.shape)} f32, widths {tdims}",
+        max_abs_err=tiny_err,
+        ms=graph_ms(lambda: dense_tower(tx, tlayers, "tanh", normalize=False,
+                                        impl="kernel")),
+        plain_ms=graph_ms(lambda: dense_tower(tx, tlayers, "tanh",
+                                              normalize=False, impl="plain")),
+        library_ms=graph_ms(lambda: torch_chain(tx, tlayers)),
+        bound_ms=tb_ms, bound_by=tb_by)
+    print("dense_tower, tiny preset f32: " + json.dumps(tiny_case)
+          + f" on {card}")
+    print("ptxas, csrc/tower.cu:")
+    print(_build.ptxas_report(("tower.cu",)))
 
     results["dense_tower"] = dict(
         source="dssm_tpu_torch/csrc/tower.cu",
@@ -357,7 +392,9 @@ def main() -> int:
                                               impl="kernel")),
         bound_ms=b_ms, bound_by=b_by,
         shape=f"x ({rows_n}, {dims[0]}) bf16, widths {dims}",
-        errors={"bf16 tanh": tower_err, "f32 relu normalized": f32_err},
+        errors={"bf16 tanh": tower_err, "f32 relu normalized": f32_err,
+                "f32 tiny tanh": tiny_err},
+        tiny_f32=tiny_case, ms_tiny_f32=tiny_case["ms"],
     )
     for name, r in results.items():
         print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "

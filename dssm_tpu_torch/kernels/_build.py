@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -122,6 +122,28 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, LIB_NAME)
 
 
+def compile_library(srcs: Sequence[str], lib: str) -> str:
+    """Compile the CUDA sources `srcs` (one nvcc each, all started together)
+    and link them into the shared library `lib`; nvcc's output goes to
+    nvcc_<source>.log beside it. Returns `lib`."""
+    out = os.path.dirname(lib)
+    os.makedirs(out, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}"
+    names = [os.path.splitext(os.path.basename(s))[0] for s in srcs]
+    objs = [os.path.join(out, f"{n}.{tag}.o") for n in names]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+              for src, obj in zip(srcs, objs)],
+             [os.path.join(out, f"nvcc_{n}.log") for n in names])
+    tmp = f"{lib}.{tag}.tmp"
+    _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", tmp, *objs]], [os.path.join(out, "nvcc_link.log")])
+    os.replace(tmp, lib)
+    for obj in objs:
+        os.remove(obj)
+    return lib
+
+
 def build(force: bool = False) -> str:
     """Compile csrc/*.cu into the shared library if it is missing or older
     than a source; returns its path."""
@@ -131,28 +153,14 @@ def build(force: bool = False) -> str:
                  srcs + [os.path.join(CSRC, h) for h in HEADERS])
     if not force and os.path.exists(lib) and os.path.getmtime(lib) >= newest:
         return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
-    tag = f"{os.getpid()}"
-    objs = [os.path.join(BUILD_DIR, f"{os.path.splitext(s)[0]}.{tag}.o")
-            for s in SOURCES]
-    logs = [os.path.join(BUILD_DIR, f"nvcc_{os.path.splitext(s)[0]}.log")
-            for s in SOURCES]
-    _run_all([[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
-              for src, obj in zip(srcs, objs)], logs)
-    tmp = f"{lib}.{tag}.tmp"
-    _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-               "-o", tmp, *objs]], [os.path.join(BUILD_DIR, "nvcc_link.log")])
-    os.replace(tmp, lib)
-    for obj in objs:
-        os.remove(obj)
-    return lib
+    return compile_library(srcs, lib)
 
 
-def ptxas_report() -> str:
-    """The register / shared-memory / spill lines nvcc printed per kernel."""
+def ptxas_report(sources=SOURCES) -> str:
+    """The register / shared-memory / spill lines nvcc printed per kernel
+    of `sources` (file names under csrc/)."""
     lines = []
-    for s in SOURCES:
+    for s in sources:
         log = os.path.join(BUILD_DIR, f"nvcc_{os.path.splitext(s)[0]}.log")
         if os.path.exists(log):
             with open(log) as f:
@@ -162,15 +170,18 @@ def ptxas_report() -> str:
     return "\n".join(lines)
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
+def load(path: Optional[str] = None) -> ctypes.CDLL:
+    """The library the wrappers launch through: the kernels built from
+    csrc/ on first use, or, given `path`, the shared library there from now
+    on (another build of some of the same C entry points)."""
     global _lib
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
+        if _lib is None or path is not None:
+            lib = ctypes.CDLL(path or build())
             for fn, argtypes in _SIGNATURES.items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                if hasattr(lib, fn):
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
             _lib = lib
         return _lib
 

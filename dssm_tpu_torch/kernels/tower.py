@@ -28,6 +28,10 @@ _RESIDUALS = "dense_tower_residuals"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODE = {"tanh": 0, "relu": 1}
 _MAX_LAYERS = 8  # DSSM_TOWER_MAX_LAYERS in csrc/tower.cu
+# The widest layer input (bytes a row) the kernel keeps in shared memory
+# (kTileBytes in csrc/tower.cu). A wider one is read back from the layers'
+# f32 residuals, so the kernel is then always given them.
+_TILE_BYTES = 6144
 EPS = 1e-12
 
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor]]
@@ -98,20 +102,25 @@ def _forward_kernel(x: torch.Tensor, layers: Layers, activation: str,
     dims = _check(x, layers, activation)
     rows = x.shape[0]
     y = torch.empty((rows, dims[-1]), dtype=torch.float32, device=x.device)
+    wide = max(dims[:-1]) * x.element_size() > _TILE_BYTES
     hs = [torch.empty((rows, d), dtype=torch.float32, device=x.device)
-          for d in dims[1:]] if residuals else []
+          for d in dims[1:]] if residuals or wide else []
     if rows == 0:
-        return y, hs
+        return y, hs if residuals else []
     n = len(layers)
     ws = (ctypes.c_void_p * n)(*[w.data_ptr() for w, _ in layers])
     bs = (ctypes.c_void_p * n)(*[b.data_ptr() for _, b in layers])
     hp = (ctypes.c_void_p * n)(*[t.data_ptr() for t in hs]) if hs else None
     cdims = (ctypes.c_int * (n + 1))(*dims)
-    _build.launch(_RESIDUALS if residuals else _NAME, "dssm_dense_tower",
-                  x.device, x.data_ptr(), y.data_ptr(), ws, bs, hp, cdims, n,
-                  rows, _DTYPE_CODE[x.dtype], _ACT_CODE[activation],
-                  int(normalize), EPS)
-    return y, hs
+    try:
+        _build.launch(_RESIDUALS if residuals else _NAME, "dssm_dense_tower",
+                      x.device, x.data_ptr(), y.data_ptr(), ws, bs, hp, cdims,
+                      n, rows, _DTYPE_CODE[x.dtype], _ACT_CODE[activation],
+                      int(normalize), EPS)
+    except RuntimeError as err:  # a shape the kernel does not take
+        raise RuntimeError(f"{err}: x {tuple(x.shape)} {x.dtype}, widths "
+                           f"{dims}") from None
+    return y, hs if residuals else []
 
 
 def dense_tower_residuals(x: torch.Tensor, layers: Layers,

@@ -50,7 +50,8 @@ from dssm_tpu_torch.kernels.rank import (
 from dssm_tpu_torch.kernels.scatter_sr import (
     scatter_sr_int8_row_groups, scatter_sr_int8_row_groups_plain,
     scatter_sr_row_groups, scatter_sr_row_groups_plain)
-from dssm_tpu_torch.kernels.tower import dense_tower, dense_tower_plain
+from dssm_tpu_torch.kernels.tower import (
+    dense_tower, dense_tower_residuals, dense_tower_residuals_plain)
 from dssm_tpu_torch.models import base as model_base
 from dssm_tpu_torch.serve import build_doc_index
 from dssm_tpu_torch.train.eval import evaluate
@@ -104,24 +105,59 @@ def test_count_kernel_matches_plain(dev, dtype):
                                    atol=1e-5 * float(want.abs().max()))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 2e-2)])
-def test_tower_kernel_matches_plain(dev, dtype, tol):
-    rng = np.random.default_rng(23)
-    dims = (40, 64, 30, 32)  # three layers, widths not multiples of 16
-    x = torch.from_numpy(rng.uniform(-1, 1, size=(70, dims[0])).astype(
+# (widths, rows): small ragged widths; the `full` widths at row counts that
+# leave ragged 16- and 32-row tiles; one layer (its row norms summed across
+# the cluster with no barrier between layers); a layer wider than one
+# 320-column pass and inputs of several weight chunks, so the ring wraps
+# many times; layer inputs wider than the shared-memory tile (f32 2048, f32
+# and bf16 7264, the old kernel's widest), read back from the residuals.
+TOWER_SHAPES = [((40, 64, 30, 32), 70)] + [
+    ((300, 300, 128), rows)
+    for rows in (1, 15, 17, 64, 500, 1000, 2048, 3000)
+] + [((300, 128), 256), ((300, 128), 1024), ((520, 1024, 96), 100),
+     ((300, 2048, 128), 300), ((7264, 96, 64), 40)]
+
+
+def _tower_case(rng, dims, rows, dtype, dev):
+    """x uniform in [-1, 1); W normal x 0.2 at the small widths, normal /
+    sqrt(fan-in) from width 300 (pre-activations stay O(1)); b normal x
+    0.1."""
+    x = torch.from_numpy(rng.uniform(-1, 1, size=(rows, dims[0])).astype(
         np.float32)).to(dev, dtype)
-    layers = [(torch.from_numpy(rng.normal(size=(dims[i], dims[i + 1]))
-                                .astype(np.float32) * 0.2).to(dev, dtype),
+    scale = [0.2 if max(dims) <= 64 else 1 / np.sqrt(d) for d in dims]
+    layers = [(torch.from_numpy((rng.normal(size=(dims[i], dims[i + 1]))
+                                 * scale[i]).astype(np.float32))
+               .to(dev, dtype),
                torch.from_numpy(rng.normal(size=(dims[i + 1],))
                                 .astype(np.float32) * 0.1).to(dev, dtype))
               for i in range(len(dims) - 1)]
+    return x, layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,rows", TOWER_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_tower_kernel_matches_plain(dev, dtype, tol, dims, rows):
+    """y, and with residuals every layer's f32 activation, against the
+    plain version; one counted launch a call."""
+    x, layers = _tower_case(np.random.default_rng(23), dims, rows, dtype, dev)
     for act in ("tanh", "relu"):
         for norm in (True, False):
+            before = _build.launch_counts()
             got = dense_tower(x, layers, act, norm, impl="kernel")
-            want = dense_tower_plain(x, layers, act, norm)
+            y, hs = dense_tower_residuals(x, layers, act, norm,
+                                          impl="kernel")
+            after = _build.launch_counts()
+            assert (after["dense_tower"] - before["dense_tower"],
+                    after["dense_tower_residuals"]
+                    - before["dense_tower_residuals"]) == (1, 1)
+            want, want_hs = dense_tower_residuals_plain(x, layers, act, norm)
             torch.testing.assert_close(got, want, rtol=0, atol=tol)
+            torch.testing.assert_close(y, want, rtol=0, atol=tol)
+            assert len(hs) == len(want_hs)
+            for h, w in zip(hs, want_hs):
+                torch.testing.assert_close(h, w, rtol=0, atol=tol)
 
 
 @pytest.mark.cuda
@@ -250,20 +286,37 @@ def test_fused_gather_joint_lookup_matches_plain_and_split(dev, dtype):
         assert torch.equal(d3.reshape(rows, -1), d)
 
 
+def _tower_grads_from(x, layers, y, hs, gy, act, norm):
+    """[dx, dW1, db1, ...] by the reference's backward (pallas_tower.py's
+    _tower_bwd), in f64 from the residuals given."""
+    g = gy.double()
+    h = [t.double() for t in hs]
+    if norm:
+        yy = y.double()
+        g = (g - (g * yy).sum(-1, keepdim=True) * yy) / h[-1].norm(
+            dim=-1, keepdim=True).clamp_min(1e-12)
+    grads = []
+    for l in reversed(range(len(layers))):
+        dz = g * (1 - h[l] ** 2 if act == "tanh" else (h[l] > 0).double())
+        prev = x.double() if l == 0 else h[l - 1]
+        grads[:0] = [prev.T @ dz, dz.sum(0)]
+        g = dz @ layers[l][0].double().T
+    return [g] + grads
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dims,rows", [((40, 64, 30, 32), 70),
+                                       ((300, 300, 128), 2048),
+                                       ((520, 1024, 96), 100),
+                                       ((300, 2048, 128), 300)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
-def test_tower_residual_kernel_backward_matches_plain(dev, dtype, tol):
+def test_tower_residual_kernel_backward_matches_plain(dev, dtype, tol, dims,
+                                                      rows):
     rng = np.random.default_rng(26)
-    dims = (40, 64, 30, 32)
-    x = torch.from_numpy(rng.uniform(-1, 1, size=(70, dims[0])).astype(
-        np.float32)).to(dev, dtype)
-    layers = [(torch.from_numpy(rng.normal(size=(dims[i], dims[i + 1]))
-                                .astype(np.float32) * 0.2).to(dev, dtype),
-               torch.from_numpy(rng.normal(size=(dims[i + 1],))
-                                .astype(np.float32) * 0.1).to(dev, dtype))
-              for i in range(len(dims) - 1)]
-    gy = torch.from_numpy(rng.normal(size=(70, 32)).astype(np.float32)).to(dev)
+    x, layers = _tower_case(rng, dims, rows, dtype, dev)
+    gy = torch.from_numpy(rng.normal(size=(rows, dims[-1])).astype(
+        np.float32)).to(dev)
     for act in ("tanh", "relu"):
         for norm in (True, False):
             grads = {}
@@ -277,7 +330,18 @@ def test_tower_residual_kernel_backward_matches_plain(dev, dtype, tol):
                         - before) == (impl == "kernel")
                 (y * gy).sum().backward()
                 grads[impl] = [t.grad.float() for t in leaves]
-            for a, b in zip(grads["kernel"], grads["plain"]):
+            want = grads["plain"]
+            if act == "relu":
+                # relu's derivative steps at 0, and a pre-activation within
+                # rounding of 0 may fall on either side in the kernel's and
+                # the plain forward's residuals: hold relu's gradients to
+                # the backward at the kernel's own residuals (which
+                # test_tower_kernel_matches_plain holds to the plain ones).
+                y, hs = dense_tower_residuals(x, layers, act, norm,
+                                              impl="kernel")
+                want = [t.float() for t in _tower_grads_from(
+                    x, layers, y, hs, gy, act, norm)]
+            for a, b in zip(grads["kernel"], want):
                 torch.testing.assert_close(
                     a, b, rtol=0, atol=tol * max(1.0, float(b.abs().max())))
 
