@@ -702,7 +702,11 @@ def main() -> int:
     labels = torch.arange(rows_n, dtype=torch.int32, device=dev)
     nll_k, lse_k, pos_k, hit_k = in_batch_nll_kernel(qn, dn, labels, gamma)
     nll_p, lse_p, pos_p, hit_p = in_batch_nll_plain(qn, dn, labels, gamma)
+    again = in_batch_nll_kernel(qn, dn, labels, gamma)
     torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(
+        (nll_k, lse_k, pos_k, hit_k), again)), "in_batch_loss forward: two "
+          "calls differ (bit-equal expected: no atomics)")
     err = max(float((nll_k - nll_p).abs().max()),
               float((lse_k - lse_p).abs().max()),
               float((pos_k - pos_p).abs().max()))
@@ -716,7 +720,7 @@ def main() -> int:
     labels64 = labels.long()
     results["in_batch_loss"] = dict(
         source="dssm_tpu_torch/csrc/loss.cu",
-        replaces="dssm_tpu/kernels/pallas_loss.py:116",
+        replaces="dssm_tpu/kernels/pallas_loss.py:123",
         max_abs_err=err, tolerance="1e-4 (nll, lse, pos); hit within 2 rows",
         ms=graph_ms(lambda: in_batch_nll_kernel(qn, dn, labels, gamma)),
         plain_ms=graph_ms(lambda: in_batch_nll_plain(qn, dn, labels, gamma)),
@@ -730,13 +734,22 @@ def main() -> int:
                                            g_row)
     q_lib = qn.clone().requires_grad_(True)
     d_lib = dn.clone().requires_grad_(True)
-    lib_loss = F.cross_entropy(gamma * (q_lib @ d_lib.T), labels64,
-                               reduction="mean")
+
+    def with_forward(fn):
+        """The kernels' forward and then `fn`: what the library call does."""
+        def run():
+            lse_f = in_batch_nll_kernel(qn, dn, labels, gamma)[1]
+            return fn(qn, dn, labels, gamma, lse_f, g_row, impl="kernel")
+        return run
+
     for name, fn, want, leaf, line in (
-            ("in_batch_loss_dq", in_batch_loss_dq, dq_p, q_lib, 209),
+            ("in_batch_loss_dq", in_batch_loss_dq, dq_p, q_lib, 216),
             ("in_batch_loss_dd", in_batch_loss_dd, dd_p, d_lib, 233)):
         got = fn(qn, dn, labels, gamma, lse_p, g_row, impl="kernel")
+        again = fn(qn, dn, labels, gamma, lse_p, g_row, impl="kernel")
         torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{name}: two calls differ "
+              "(bit-equal expected: no atomics)")
         err, scale = float((got - want).abs().max()), float(want.abs().max())
         check(err <= 1e-4 * scale, f"{name}: max err {err} over 1e-4 x max "
               f"|grad| {scale}")
@@ -750,10 +763,13 @@ def main() -> int:
                                    impl="kernel")),
             plain_ms=graph_ms(lambda: fn(qn, dn, labels, gamma, lse_p, g_row,
                                          impl="plain")),
-            # autograd of F.cross_entropy(gamma q d^T) in this one input,
-            # launched eagerly (its graph is kept across the calls).
-            library_ms=eager_ms(lambda: torch.autograd.grad(
-                lib_loss, [leaf], retain_graph=True)),
+            # F.cross_entropy(gamma q d^T) and its autograd in this one
+            # input, forward included: beside it, the kernels' forward and
+            # this kernel (ms_with_forward).
+            library_ms=graph_ms(lambda: torch.autograd.grad(
+                F.cross_entropy(gamma * (q_lib @ d_lib.T), labels64,
+                                reduction="mean"), [leaf])),
+            ms_with_forward=graph_ms(with_forward(fn)),
             bound_ms=b_ms, bound_by=b_by,
             shape=f"q, d ({rows_n}, {dims[-1]}) f32 -> {tuple(got.shape)}",
         )
@@ -1035,9 +1051,11 @@ def main() -> int:
     for name in new_names:
         r = results[name]
         r["eager_ms"] = None
-        print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-              f"ms, library {r['library_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), max err "
+        fwd = ("" if "ms_with_forward" not in r else
+               f" ({r['ms_with_forward']:.4f} ms after the kernels' forward)")
+        print(f"{name}: kernel {r['ms']:.4f} ms{fwd}, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), max err "
               f"{r['max_abs_err']:.3g} (tolerance {r['tolerance']}) "
               f"[{r['shape']}] on {card}")
 

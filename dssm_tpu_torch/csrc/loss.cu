@@ -11,314 +11,593 @@
 // never reach device memory: the forward streams column tiles through an
 // online max/sum, the backward kernels recompute each logits tile from q, d
 // and the saved lse. Ties count as hits (positive >= max), as in the
-// reference kernel. No gradient flows through pos or hit. Any B, B' and D
-// (D up to the shared-memory limit) are taken; ragged tiles are masked.
+// reference kernel. No gradient flows through pos or hit. Any B, B' >= 1 and
+// D >= 1 are taken (shared memory does not grow with D); ragged tiles are
+// masked; a label outside [0, B') has pos = 0 and no one-hot.
 //
 // Bound on the H100: operations. At the `full` preset (B = B' = 1024,
 // D = 128, f32) the forward does 0.27 GFLOP and each backward kernel 0.54,
-// against 1 MB moved: 4 us and 8 us at 67 TFLOP/s f32, under 1 us of bytes.
+// against ~1 MB moved: 4.0 us and 8.0 us at 67 TFLOP/s f32, under 1 us of
+// bytes.
 //
-// Design: a block owns 16 rows of one side (q rows for the forward and dq,
-// doc rows for dd) and streams the other side in tiles of 64 rows through
-// shared memory. Rows are zero-padded to a multiple of 4 columns and
-// pitched 4 words further, so every read of the products is a 16-byte
-// shared-memory load and the 8 threads of a load phase fall on distinct
-// banks. The 256 threads form a 16 x 16 grid: thread (ty, tx) computes the
-// logits of own row ty against streamed rows tx + 16 m, m < 4, as an f32
-// product from shared memory. The forward keeps a running (max, sum,
-// positive) per thread over its own columns and merges the 16 threads of a
-// row with shuffles at the end. The backward kernels write the dlog tile
-// to shared memory and accumulate the second product dlog [16, 64] @ tile
-// [64, D] with 8 output columns per thread (columns 4 tx + 64 jj + e; one
-// pass per 128 columns of D). B = 1024 gives 64 blocks of 8 warps: the card
-// is half full and the product runs on CUDA cores, not tensor cores. Tile
-// loads are not overlapped with the products (no double buffer yet); a
-// thread's global loads of one tile are started together.
+// Exact f32, not TF32. The products are f32 fmaf chains in k order on the
+// CUDA cores. Single-pass TF32 keeps 10 mantissa bits: ~1e-3 of error on a
+// logit of up to gamma = 20, ten times the 1e-4 the kernels are held to
+// against their plain versions. The k-order chain also gives a logit
+// computed twice from the same vectors the same bits, so an exact tie
+// counts as a hit, and dd's logits are bit-equal to the forward's.
+//
+// Design. A block owns a tile of 16 kMR rows of one side (queries for the
+// forward and dq, docs for dd) and is rank r of a cluster of 8 blocks that
+// share that tile; rank r walks the other side's tiles of 128 rows r, r + 8,
+// r + 16, ... (any B'). The tile is 64 rows (kMR = 4), or 80 (kMR = 5)
+// where 64-row tiles would take two waves: an H100 holds 15 clusters of 8
+// at once (cudaOccupancyMaxActiveClusters), and B = 1024 makes 16 clusters
+// of 64 rows but 13 of 80 (104 blocks, one wave).
+//  - Products. Thread (ty, tx) of a 16 x 16 grid (a warp is 4 ty x 8 tx)
+//    holds a kMR x 8 register tile: own rows ty + 16 ii, streamed rows
+//    tx + 16 j. Both operands are staged row-major, rows pitched 36 words,
+//    and read as float4 along k: per k a thread reads kMR + 8 words for
+//    8 kMR FMAs (2.7 at kMR = 4, 3.1 at 5; the design before this one 0.8).
+//    A warp's 8 streamed rows fall on 8 distinct bank quads and its 4 own
+//    rows are broadcasts: no bank conflict.
+//  - Staging. A 2-slot ring filled by cp.async (16-byte copies where
+//    D % 4 == 0 and q, d are 16-byte aligned, else 4-byte; zero-filled past
+//    the rows and D), each job's copies issued one job ahead, so they land
+//    during the job before: a logits job is 32 columns of D of the own tile
+//    and of the streamed tile, a dq / dd job 32 streamed rows by 128 output
+//    columns.
+//  - Forward. Each thread keeps an online (max, sum, positive logit) per
+//    own row over its columns (pos is the very value that entered the max;
+//    the label column lies in one rank), merged over the 8 tx lanes by
+//    shuffles into stat[warp column][row]. Rank r then merges its 2 kMR rows
+//    over the 8 ranks (2 entries each) in rank order through distributed
+//    shared memory and writes nll, lse, pos and hit. An empty entry is
+//    (-1e30, 0, 0): finite, so exp(m - max) is 0 and never NaN.
+//  - dq, dd. After a tile's last logits job each thread writes its kMR x 8
+//    dlog (dd: the streamed queries' lse, g and labels staged per tile) into
+//    dlog[16 kMR][136] (pitch 136: the scalar stores and float4 reads meet
+//    no bank conflict), and the tile's dq / dd jobs add dlog @ tile into a
+//    kMR x 8 register tile (output columns 4 tx + 64 h + e) for the rank's
+//    whole walk. A pass covers 128 output columns; D = 128 (every preset) is
+//    one pass, so each logit is computed once; a wider D recomputes the
+//    logits once a pass. At the pass's end each block writes its partial
+//    product into dlog, and rank r sums its 2 kMR rows over the 8 ranks in
+//    rank order through distributed shared memory and writes gamma times
+//    it. No atomics: dq and dd are the same bits from call to call.
+// Barriers. __syncthreads at the top of every job: the job's copies have
+// landed (each thread waited on its own), the slot fetched next is no
+// longer read, and the dlog written at the end of a tile's logits is
+// complete before its dq / dd jobs read it. dd's tile scalars are written
+// after that barrier and read after one more before the tile's dlog. In
+// the forward, cluster_sync (release arrive, acquire wait) orders the stat
+// writes before any rank reads them, and a second one keeps every block's
+// stat alive until its peers have read it. In dq / dd, a __syncthreads
+// ends the pass's reads of dlog, the partials are written, a cluster_sync
+// orders them before the peers' reads, and a second cluster_sync keeps them
+// until every peer has read them (dlog is written again, or the block
+// exits, only after it).
+//
+// What holds it back (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): at the
+// `full` shapes the forward takes 16.2 us, dq 32.6, dd 29.5, 3.7-4.1x their
+// bounds. Per wave of 64-row tiles a launch costs ~1.3 us, the cluster
+// barriers, epilogue and merges ~2.4, and each job's copies ~1.2 where
+// nothing hides them. The products are bound by the shared-memory reads:
+// a thread's kMR + 8 words a k for 8 kMR FMAs need more of the SM's
+// 128 bytes a clock than its FMAs need of the FMA pipes until kMR = 8.
+// dq and dd use 255 registers and spill 120-176 bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kOwn = 16;       // rows a block owns
-constexpr int kStream = 64;    // rows per streamed tile
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kPerThread = kStream / 16;
-constexpr int kChunk = 128;    // output columns per pass of a backward kernel
-constexpr int kOutPerThread = kChunk / 16;  // two float4 a thread
+constexpr int kStr = 128;       // streamed rows a tile
+constexpr int kRanks = 8;       // blocks a cluster, one per column rank
+constexpr int kThreads = 256;   // 16 x 16, a kMR x 8 register tile each
+constexpr int kK = 32;          // columns of D a logits job
+constexpr int kN = 32;          // streamed rows a dq / dd job
+constexpr int kPass = 128;      // output columns a dq / dd pass
+constexpr int kStages = 2;      // ring slots
+constexpr int kP1 = kK + 4;     // row pitch of a logits job (words)
+constexpr int kP2 = kPass;      // row pitch of a dq / dd job
+constexpr int kPD = kStr + 8;   // row pitch of dlog
+constexpr int kGradJobs = kStr / kN;  // dq / dd jobs a tile
 constexpr float kNegInf = -1e30f;
 
-// Columns padded to a multiple of 4, and the shared-memory row pitch.
-__host__ __device__ __forceinline__ int padded(int dim) {
-  return (dim + 3) & ~3;
-}
-__host__ __device__ __forceinline__ int pitch_of(int dim) {
-  return padded(dim) + 4;
+enum Mode { kFwd = 0, kDq = 1, kDd = 2 };
+
+// kMR own rows a thread: a block owns kOwn = 16 kMR rows.
+template <int kMR>
+struct Tile {
+  static constexpr int kOwn = 16 * kMR;
+  static constexpr int kRowsPerRank = kOwn / kRanks;
+  static constexpr int kSlot = (kOwn + kStr) * kP1;  // floats a ring slot
+  static_assert(kN * kP2 <= kSlot, "a dq / dd job fits a slot");
+  static constexpr size_t smem_bytes(int mode) {
+    return sizeof(float) *
+           (kStages * kSlot +
+            (mode == kFwd ? 2 * kOwn * 4                    // stat
+                          : kOwn * kPD + (mode == kDd ? 3 * kStr : 0)));
+  }
+};
+
+struct Args {
+  const float* q;
+  const float* d;
+  const int32_t* labels;
+  const float* lse_in;  // dq, dd
+  const float* g;       // dq, dd
+  float* out;           // dq [b, dim] or dd [bg, dim]
+  float* nll;           // the forward's outputs, [b] each
+  float* lse;
+  float* pos;
+  float* hit;
+  int64_t b, bg;
+  int dim, vec;
+  float gamma;
+};
+
+__device__ __forceinline__ int rows_left(int64_t total, int64_t row0,
+                                         int rows) {
+  const int64_t left = total - row0;
+  return left <= 0 ? 0 : (left < rows ? (int)left : rows);
 }
 
-// dst[r, c] (row pitch pitch_of(dim)) = src[row0 + r, c], zero past `total`
-// rows and in the padding columns [dim, padded(dim)). With dim a multiple
-// of 4 (rows of 16-byte vectors) a thread starts its 16-byte global loads
-// eight at a time before it stores them, so their latencies overlap.
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src,
-                                          int64_t row0, int64_t total,
-                                          int tile_rows, int dim) {
-  const int pitch = pitch_of(dim);
-  if (dim % 4 == 0) {
-    constexpr int kBatch = 8;
-    const int d4 = dim / 4;
-    const int n = tile_rows * d4;
-    for (int base = threadIdx.x; base < n; base += kThreads * kBatch) {
-      float4 v[kBatch];
+__device__ __forceinline__ float part(float4 v, int e) {
+  return e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
+}
+
+// dst[r][c] (pitch kPitch) = src[r][c] (row stride ld) for r < kRows,
+// c < kCols, by kBytes copies; zero-filled (nothing read) where
+// r >= valid_rows or c >= valid_cols. Shapes are compile-time here, so the
+// index arithmetic folds away; sm90.cuh's copy_tile (run-time shapes) cost
+// the forward ~1.8 us more at B = 512 on an H100.
+template <int kRows, int kCols, int kPitch, int kBytes>
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      int64_t ld, int valid_rows,
+                                      int valid_cols) {
+  constexpr int ve = kBytes / 4;
+  constexpr int per_row = kCols / ve;
+  constexpr int n = kRows * per_row;
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = base + u * kThreads;
-        const int r = i / d4;
-        const int64_t row = row0 + r;
-        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (i < n && row < total) {
-          v[u] = *reinterpret_cast<const float4*>(src + row * dim +
-                                                  4 * (i - r * d4));
-        }
-      }
+  for (int u = 0; u < (n + kThreads - 1) / kThreads; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    if (n % kThreads != 0 && i >= n) break;
+    const int r = i / per_row;
+    const int c = (i % per_row) * ve;
+    const bool ok = r < valid_rows && c < valid_cols;
+    dssm::copy_vec<kBytes>(dst + r * kPitch + c, ok ? src + r * ld + c : src,
+                           ok);
+  }
+}
+
+// A block's jobs, in order: passes, each the rank's tiles in order, each kc
+// logits jobs (c < kc) then, for dq / dd, kGradJobs jobs of its rows.
+struct Cursor {
+  int p = 0, ti = 0, c = 0;
+  __device__ __forceinline__ void next(int mt, int jt) {
+    if (++c < jt) return;
+    c = 0;
+    if (++ti < mt) return;
+    ti = 0;
+    ++p;
+  }
+};
+
+template <int kMR, int kBytes>
+__device__ __forceinline__ void fetch_job(float* slot, const float* own,
+                                          const float* str, int64_t n_own,
+                                          int64_t n_str, int64_t own0,
+                                          int rank, int kc, int dim,
+                                          const Cursor& job) {
+  constexpr int kOwn = Tile<kMR>::kOwn;
+  const int64_t t0 = ((int64_t)rank + (int64_t)kRanks * job.ti) * kStr;
+  if (job.c < kc) {
+    const int k0 = job.c * kK;
+    stage<kOwn, kK, kP1, kBytes>(slot, own + own0 * dim + k0, dim,
+                                 rows_left(n_own, own0, kOwn), dim - k0);
+    stage<kStr, kK, kP1, kBytes>(slot + kOwn * kP1, str + t0 * dim + k0, dim,
+                                 rows_left(n_str, t0, kStr), dim - k0);
+  } else {
+    const int64_t r0 = t0 + (int64_t)(job.c - kc) * kN;
+    const int c0 = job.p * kPass;
+    const int valid = rows_left(n_str, r0, kN);
+    // Past the rows (a ragged tile's last jobs): zero-filled, nothing read.
+    stage<kN, kPass, kP2, kBytes>(slot, valid > 0 ? str + r0 * dim + c0 : str,
+                                  dim, valid, dim - c0);
+  }
+}
+
+// acc[ii][j] += own row ty + 16 ii . streamed row tx + 16 j over the job's
+// 32 columns, in k order.
+template <int kMR>
+__device__ __forceinline__ void job_logits(float (&acc)[kMR][8],
+                                           const float* slot, int ty,
+                                           int tx) {
+  const float* a = slot + ty * kP1;
+  const float* s = slot + (Tile<kMR>::kOwn + tx) * kP1;
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = base + u * kThreads;
-        const int r = i / d4;
-        if (i < n) {
-          *reinterpret_cast<float4*>(dst + r * pitch + 4 * (i - r * d4)) =
-              v[u];
+  for (int k4 = 0; k4 < kK / 4; ++k4) {
+    float4 av[kMR];
+#pragma unroll
+    for (int ii = 0; ii < kMR; ++ii) {
+      av[ii] = *reinterpret_cast<const float4*>(a + ii * 16 * kP1 + 4 * k4);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 bv =
+          *reinterpret_cast<const float4*>(s + j * 16 * kP1 + 4 * k4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int ii = 0; ii < kMR; ++ii) {
+          acc[ii][j] = fmaf(part(av[ii], kk), part(bv, kk), acc[ii][j]);
         }
       }
     }
-    return;
-  }
-  const int dpad = padded(dim);
-  for (int i = threadIdx.x; i < tile_rows * dpad; i += kThreads) {
-    const int r = i / dpad;
-    const int c = i - r * dpad;
-    const int64_t row = row0 + r;
-    dst[r * pitch + c] = (row < total && c < dim) ? src[row * dim + c] : 0.f;
   }
 }
 
-// logits of own row ty against streamed rows tx + 16 m of the tile.
-__device__ __forceinline__ void logits_tile(const float* own_s,
-                                            const float* str_s, int dim,
-                                            float gamma, int ty, int tx,
-                                            float (&logit)[kPerThread]) {
-  float acc[kPerThread];
+// oacc[ii][4 h + e] += dlog[ty + 16 ii][n0 + n] * rows[n][4 tx + 64 h + e]
+// over the job's 32 streamed rows n.
+template <int kMR>
+__device__ __forceinline__ void job_grad(float (&oacc)[kMR][8],
+                                         const float* dlog, int n0,
+                                         const float* slot, int ty, int tx) {
+  const float* dl = dlog + ty * kPD + n0;
+  const float* s = slot + 4 * tx;
 #pragma unroll
-  for (int m = 0; m < kPerThread; ++m) acc[m] = 0.f;
-  const int p4 = pitch_of(dim) / 4;
-  const float4* a = reinterpret_cast<const float4*>(own_s) + ty * p4;
-  const float4* b = reinterpret_cast<const float4*>(str_s) + tx * p4;
-  for (int k4 = 0; k4 < padded(dim) / 4; ++k4) {
-    const float4 av = a[k4];
+  for (int n4 = 0; n4 < kN / 4; ++n4) {
+    float4 dv[kMR];
 #pragma unroll
-    for (int m = 0; m < kPerThread; ++m) {
-      const float4 bv = b[m * 16 * p4 + k4];
-      acc[m] = fmaf(av.x, bv.x, acc[m]);
-      acc[m] = fmaf(av.y, bv.y, acc[m]);
-      acc[m] = fmaf(av.z, bv.z, acc[m]);
-      acc[m] = fmaf(av.w, bv.w, acc[m]);
+    for (int ii = 0; ii < kMR; ++ii) {
+      dv[ii] = *reinterpret_cast<const float4*>(dl + ii * 16 * kPD + 4 * n4);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* row = s + (4 * n4 + e) * kP2;
+      const float4 s0 = *reinterpret_cast<const float4*>(row);
+      const float4 s1 = *reinterpret_cast<const float4*>(row + 64);
+#pragma unroll
+      for (int ii = 0; ii < kMR; ++ii) {
+        const float w = part(dv[ii], e);
+        oacc[ii][0] = fmaf(w, s0.x, oacc[ii][0]);
+        oacc[ii][1] = fmaf(w, s0.y, oacc[ii][1]);
+        oacc[ii][2] = fmaf(w, s0.z, oacc[ii][2]);
+        oacc[ii][3] = fmaf(w, s0.w, oacc[ii][3]);
+        oacc[ii][4] = fmaf(w, s1.x, oacc[ii][4]);
+        oacc[ii][5] = fmaf(w, s1.y, oacc[ii][5]);
+        oacc[ii][6] = fmaf(w, s1.z, oacc[ii][6]);
+        oacc[ii][7] = fmaf(w, s1.w, oacc[ii][7]);
+      }
     }
   }
-#pragma unroll
-  for (int m = 0; m < kPerThread; ++m) logit[m] = gamma * acc[m];
 }
 
-__global__ void in_batch_loss_fwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ d,
-    const int32_t* __restrict__ labels, float* __restrict__ nll,
-    float* __restrict__ lse, float* __restrict__ pos_out,
-    float* __restrict__ hit, int64_t b, int64_t bg, int dim, float gamma) {
+// (m, s, p) <- the online softmax state of both (m, s, p) and (mo, so, po).
+__device__ __forceinline__ void merge(float& m, float& s, float& p, float mo,
+                                      float so, float po) {
+  const float mn = fmaxf(m, mo);
+  s = s * expf(m - mn) + so * expf(mo - mn);
+  m = mn;
+  p += po;
+}
+
+template <int kMode, int kMR>
+__global__ void __launch_bounds__(kThreads, 1)
+    in_batch_loss_kernel(const Args A) {
+  using T = Tile<kMR>;
+  constexpr int kOwn = T::kOwn;
   extern __shared__ __align__(16) float smem[];
-  float* own_s = smem;                          // [kOwn, pitch]
-  float* str_s = smem + kOwn * pitch_of(dim);   // [kStream, pitch]
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const int64_t row0 = (int64_t)blockIdx.x * kOwn;
-  const int64_t i = row0 + ty;
-  const int64_t lab = i < b ? (int64_t)labels[i] : -1;
-  load_tile(own_s, q, row0, b, kOwn, dim);
-  float m_run = kNegInf, s_run = 0.f, pos = 0.f;
-  for (int64_t j0 = 0; j0 < bg; j0 += kStream) {
-    __syncthreads();  // the previous tile is consumed (and own_s is loaded)
-    load_tile(str_s, d, j0, bg, kStream, dim);
-    __syncthreads();
-    float logit[kPerThread];
-    logits_tile(own_s, str_s, dim, gamma, ty, tx, logit);
-#pragma unroll
-    for (int m = 0; m < kPerThread; ++m) {
-      const int64_t j = j0 + tx + 16 * m;
-      if (j < bg) {
-        const float l = logit[m];
-        if (l > m_run) {
-          s_run = s_run * expf(m_run - l) + 1.f;
-          m_run = l;
-        } else {
-          s_run += expf(l - m_run);
-        }
-        if (j == lab) pos += l;
-      }
-    }
-  }
-  // Merge the 16 threads of a row (one half-warp).
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) {
-    const float m_o = __shfl_xor_sync(0xffffffffu, m_run, o);
-    const float s_o = __shfl_xor_sync(0xffffffffu, s_run, o);
-    const float p_o = __shfl_xor_sync(0xffffffffu, pos, o);
-    const float m_new = fmaxf(m_run, m_o);
-    s_run = s_run * expf(m_run - m_new) + s_o * expf(m_o - m_new);
-    m_run = m_new;
-    pos += p_o;
-  }
-  if (tx == 0 && i < b) {
-    const float l = m_run + logf(s_run);
-    lse[i] = l;
-    nll[i] = l - pos;
-    pos_out[i] = pos;
-    hit[i] = pos >= m_run ? 1.f : 0.f;
-  }
-}
+  float* ring = smem;                      // [kStages][kSlot]
+  float* dlog = ring + kStages * T::kSlot;  // dq, dd: [kOwn][kPD]
+  float4* stat = reinterpret_cast<float4*>(dlog);  // forward: [2][kOwn]
+  float* lse_s = dlog + kOwn * kPD;        // dd: [kStr] a tile's queries'
+  float* g_s = lse_s + kStr;               // ... g
+  int32_t* lab_s = reinterpret_cast<int32_t*>(g_s + kStr);  // ... labels
 
-// kDd = false: own rows are queries, streamed rows docs, out = dq.
-// kDd = true:  own rows are docs, streamed rows queries, out = dd.
-template <bool kDd>
-__global__ void in_batch_loss_grad_kernel(
-    const float* __restrict__ q, const float* __restrict__ d,
-    const int32_t* __restrict__ labels, const float* __restrict__ lse,
-    const float* __restrict__ g, float* __restrict__ out, int64_t b,
-    int64_t bg, int dim, float gamma) {
-  extern __shared__ __align__(16) float smem[];
-  const int pitch = pitch_of(dim);
-  float* own_s = smem;                                 // [kOwn, pitch]
-  float* str_s = own_s + kOwn * pitch;                 // [kStream, pitch]
-  float* dlog_s = str_s + kStream * pitch;             // [kOwn, kStream + 1]
-  float* lse_s = dlog_s + kOwn * (kStream + 1);        // [kStream] (dd)
-  float* g_s = lse_s + kStream;                        // [kStream] (dd)
-  int32_t* lab_s = reinterpret_cast<int32_t*>(g_s + kStream);  // [kStream]
-  const float* own = kDd ? d : q;
-  const float* str = kDd ? q : d;
-  const int64_t n_own = kDd ? bg : b;
-  const int64_t n_str = kDd ? b : bg;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const int64_t row0 = (int64_t)blockIdx.x * kOwn;
-  const int64_t own_row = row0 + ty;
-  const bool own_ok = own_row < n_own;
-  // dq: the query is the own row, so its scalars live in registers.
-  float lse_i = 0.f, g_i = 0.f;
-  int64_t lab_i = -1;
-  if (!kDd && own_ok) {
-    lse_i = lse[own_row];
-    g_i = g[own_row];
-    lab_i = labels[own_row];
+  constexpr bool kIsDd = kMode == kDd;
+  const float* own = kIsDd ? A.d : A.q;
+  const float* str = kIsDd ? A.q : A.d;
+  const int64_t n_own = kIsDd ? A.bg : A.b;
+  const int64_t n_str = kIsDd ? A.b : A.bg;
+  const int dim = A.dim;
+  const int rank = (int)dssm::cluster_rank();
+  const int64_t own0 = (int64_t)(blockIdx.x / kRanks) * kOwn;
+  const int64_t tiles = (n_str + kStr - 1) / kStr;
+  const int mt = rank < tiles ? (int)((tiles - 1 - rank) / kRanks + 1) : 0;
+  const int kc = (dim + kK - 1) / kK;
+  const int jt = kc + (kMode == kFwd ? 0 : kGradJobs);
+  const int passes = kMode == kFwd ? 1 : (dim + kPass - 1) / kPass;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int ty = (warp / 2) * 4 + lane / 8;  // own rows ty + 16 ii
+  const int tx = (warp % 2) * 8 + lane % 8;  // streamed rows tx + 16 j
+
+  // The own rows' label (forward, dq), lse and g (dq).
+  int32_t lab[kMR];
+  float lse_r[kMR], g_r[kMR];
+#pragma unroll
+  for (int ii = 0; ii < kMR; ++ii) {
+    const int64_t i = own0 + ty + 16 * ii;
+    const bool ok = i < n_own;
+    lab[ii] = !kIsDd && ok ? A.labels[i] : -1;
+    lse_r[ii] = kMode == kDq && ok ? A.lse_in[i] : 0.f;
+    g_r[ii] = kMode == kDq && ok ? A.g[i] : 0.f;
   }
-  load_tile(own_s, own, row0, n_own, kOwn, dim);
-  for (int c0 = 0; c0 < dim; c0 += kChunk) {
-    float acc[kOutPerThread];
-#pragma unroll
-    for (int jj = 0; jj < kOutPerThread; ++jj) acc[jj] = 0.f;
-    for (int64_t t0 = 0; t0 < n_str; t0 += kStream) {
-      __syncthreads();  // the previous tile and dlog_s are consumed
-      load_tile(str_s, str, t0, n_str, kStream, dim);
-      if (kDd && threadIdx.x < kStream) {
-        const int64_t i = t0 + threadIdx.x;
-        lse_s[threadIdx.x] = i < b ? lse[i] : 0.f;
-        g_s[threadIdx.x] = i < b ? g[i] : 0.f;
-        lab_s[threadIdx.x] = i < b ? labels[i] : -1;
+
+  // The jobs' copies, kStages - 1 jobs ahead of the products.
+  Cursor fetch;
+  int fetch_slot = 0;
+  auto fetch_next = [&]() {
+    if (mt > 0 && fetch.p < passes) {
+      float* slot = ring + fetch_slot * T::kSlot;
+      if (A.vec == 16) {
+        fetch_job<kMR, 16>(slot, own, str, n_own, n_str, own0, rank, kc, dim,
+                           fetch);
+      } else {
+        fetch_job<kMR, 4>(slot, own, str, n_own, n_str, own0, rank, kc, dim,
+                          fetch);
       }
-      __syncthreads();
-      float logit[kPerThread];
-      logits_tile(own_s, str_s, dim, gamma, ty, tx, logit);
+      fetch.next(mt, jt);
+    }
+    dssm::cp_async_commit();
+    fetch_slot = fetch_slot + 1 == kStages ? 0 : fetch_slot + 1;
+  };
+  for (int s = 0; s < kStages - 1; ++s) fetch_next();
+
+  float m_run[kMR], s_run[kMR], pos[kMR];
 #pragma unroll
-      for (int m = 0; m < kPerThread; ++m) {
-        const int n = tx + 16 * m;
-        const int64_t str_row = t0 + n;
-        float dl = 0.f;
-        if (own_ok && str_row < n_str) {
-          if (kDd) {
-            const float hot = (int64_t)lab_s[n] == own_row ? 1.f : 0.f;
-            dl = (expf(logit[m] - lse_s[n]) - hot) * g_s[n];
-          } else {
-            const float hot = lab_i == str_row ? 1.f : 0.f;
-            dl = (expf(logit[m] - lse_i) - hot) * g_i;
+  for (int ii = 0; ii < kMR; ++ii) {
+    m_run[ii] = kNegInf;
+    s_run[ii] = 0.f;
+    pos[ii] = 0.f;
+  }
+  float acc[kMR][8];
+  float oacc[kMR][8];
+  int slot_i = 0;
+  for (int p = 0; p < passes; ++p) {
+#pragma unroll
+    for (int ii = 0; ii < kMR; ++ii) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) oacc[ii][e] = 0.f;
+    }
+    for (int ti = 0; ti < mt; ++ti) {
+      const int64_t t0 = ((int64_t)rank + (int64_t)kRanks * ti) * kStr;
+      for (int c = 0; c < jt; ++c) {
+        dssm::cp_async_wait(kStages - 2);  // this job has landed (own copies)
+        __syncthreads();  // ... everyone's; the slot fetched next is free
+        fetch_next();
+        const float* slot = ring + slot_i * T::kSlot;
+        slot_i = slot_i + 1 == kStages ? 0 : slot_i + 1;
+        if (kMode != kFwd && c >= kc) {
+          job_grad<kMR>(oacc, dlog, (c - kc) * kN, slot, ty, tx);
+          continue;
+        }
+        if (c == 0) {
+#pragma unroll
+          for (int ii = 0; ii < kMR; ++ii) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[ii][e] = 0.f;
+          }
+          if (kIsDd && threadIdx.x < kStr) {
+            const int64_t i = t0 + threadIdx.x;
+            lse_s[threadIdx.x] = i < n_str ? A.lse_in[i] : 0.f;
+            g_s[threadIdx.x] = i < n_str ? A.g[i] : 0.f;
+            lab_s[threadIdx.x] = i < n_str ? A.labels[i] : -1;
           }
         }
-        dlog_s[ty * (kStream + 1) + n] = dl;
-      }
-      __syncthreads();
-      // acc[4 jj + e] belongs to column c0 + 4 tx + 64 jj + e.
-      const float* dl_row = dlog_s + ty * (kStream + 1);
-      const float* scol = str_s + c0 + 4 * tx;
-      const bool ok0 = c0 + 4 * tx < padded(dim);
-      const bool ok1 = c0 + 4 * tx + 64 < padded(dim);
-      for (int n = 0; n < kStream; ++n) {
-        const float dv = dl_row[n];
-        if (ok0) {
-          const float4 sv = *reinterpret_cast<const float4*>(scol + n * pitch);
-          acc[0] = fmaf(dv, sv.x, acc[0]);
-          acc[1] = fmaf(dv, sv.y, acc[1]);
-          acc[2] = fmaf(dv, sv.z, acc[2]);
-          acc[3] = fmaf(dv, sv.w, acc[3]);
+        job_logits<kMR>(acc, slot, ty, tx);
+        if (c + 1 < kc) continue;
+        // The tile's logits are complete.
+        if (kMode == kFwd) {
+#pragma unroll
+          for (int ii = 0; ii < kMR; ++ii) {
+            float l[8];
+            float tmax = kNegInf;
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) {
+              const int64_t n = t0 + tx + 16 * jj;
+              l[jj] = A.gamma * acc[ii][jj];
+              if (n < n_str) {
+                tmax = fmaxf(tmax, l[jj]);
+                if (n == lab[ii]) pos[ii] = l[jj];
+              }
+            }
+            const float mn = fmaxf(m_run[ii], tmax);
+            float sum = s_run[ii] * expf(m_run[ii] - mn);
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) {
+              if (t0 + tx + 16 * jj < n_str) sum += expf(l[jj] - mn);
+            }
+            m_run[ii] = mn;
+            s_run[ii] = sum;
+          }
+          continue;
         }
-        if (ok1) {
-          const float4 sv =
-              *reinterpret_cast<const float4*>(scol + n * pitch + 64);
-          acc[4] = fmaf(dv, sv.x, acc[4]);
-          acc[5] = fmaf(dv, sv.y, acc[5]);
-          acc[6] = fmaf(dv, sv.z, acc[6]);
-          acc[7] = fmaf(dv, sv.w, acc[7]);
+        if (kIsDd) __syncthreads();  // the tile's scalars are in
+#pragma unroll
+        for (int ii = 0; ii < kMR; ++ii) {
+          const int r = ty + 16 * ii;
+          const int64_t own_row = own0 + r;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int n = tx + 16 * jj;
+            float dl = 0.f;
+            if (own_row < n_own && t0 + n < n_str) {
+              const float l = A.gamma * acc[ii][jj];
+              if (kIsDd) {
+                const float hot = (int64_t)lab_s[n] == own_row ? 1.f : 0.f;
+                dl = (expf(l - lse_s[n]) - hot) * g_s[n];
+              } else {
+                const float hot = lab[ii] == t0 + n ? 1.f : 0.f;
+                dl = (expf(l - lse_r[ii]) - hot) * g_r[ii];
+              }
+            }
+            dlog[r * kPD + n] = dl;
+          }
         }
       }
     }
-    if (own_ok) {
+    if (kMode == kFwd) break;
+
+    // The pass's partial products, summed over the cluster in rank order.
+    __syncthreads();  // every read of dlog is done: it takes the partials
 #pragma unroll
-      for (int jj = 0; jj < kOutPerThread; ++jj) {
-        const int col = c0 + 4 * tx + 64 * (jj / 4) + jj % 4;
-        if (col < dim) out[own_row * dim + col] = gamma * acc[jj];
+    for (int ii = 0; ii < kMR; ++ii) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        *reinterpret_cast<float4*>(dlog + (ty + 16 * ii) * kPD + 4 * tx +
+                                   64 * h) =
+            make_float4(oacc[ii][4 * h], oacc[ii][4 * h + 1],
+                        oacc[ii][4 * h + 2], oacc[ii][4 * h + 3]);
       }
+    }
+    dssm::cluster_sync();  // every rank's partials are written
+    for (int it = threadIdx.x; it < T::kRowsPerRank * 32; it += kThreads) {
+      const int r = rank * T::kRowsPerRank + it / 32;
+      const int c4 = it % 32;
+      float4 v[kRanks];
+#pragma unroll
+      for (int q = 0; q < kRanks; ++q) {
+        v[q] = dssm::ld_cluster4(dssm::peer_addr(dlog + r * kPD + 4 * c4, q));
+      }
+      float4 t = v[0];
+#pragma unroll
+      for (int q = 1; q < kRanks; ++q) {
+        t.x += v[q].x;
+        t.y += v[q].y;
+        t.z += v[q].z;
+        t.w += v[q].w;
+      }
+      const int64_t row = own0 + r;
+      if (row < n_own) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = p * kPass + 4 * c4 + e;
+          if (col < dim) A.out[row * dim + col] = A.gamma * part(t, e);
+        }
+      }
+    }
+    dssm::cluster_sync();  // every peer has read this block's partials
+  }
+  if (kMode != kFwd) return;
+
+  // The 8 tx lanes of a row, then both warp columns and the 8 ranks.
+#pragma unroll
+  for (int ii = 0; ii < kMR; ++ii) {
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m_run[ii], o);
+      const float so = __shfl_xor_sync(0xffffffffu, s_run[ii], o);
+      const float po = __shfl_xor_sync(0xffffffffu, pos[ii], o);
+      merge(m_run[ii], s_run[ii], pos[ii], mo, so, po);
+    }
+    if (lane % 8 == 0) {
+      stat[(warp % 2) * kOwn + ty + 16 * ii] =
+          make_float4(m_run[ii], s_run[ii], pos[ii], 0.f);
     }
   }
+  dssm::cluster_sync();  // every rank's stat is written
+  if (threadIdx.x < T::kRowsPerRank) {
+    const int r = rank * T::kRowsPerRank + threadIdx.x;
+    float4 e[2 * kRanks];
+#pragma unroll
+    for (int q = 0; q < kRanks; ++q) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        e[2 * q + h] =
+            dssm::ld_cluster4(dssm::peer_addr(&stat[h * kOwn + r], q));
+      }
+    }
+    float m = kNegInf, s = 0.f, p = 0.f;
+#pragma unroll
+    for (int k = 0; k < 2 * kRanks; ++k) {
+      merge(m, s, p, e[k].x, e[k].y, e[k].z);
+    }
+    const int64_t i = own0 + r;
+    if (i < n_own) {
+      const float l = m + logf(s);
+      A.lse[i] = l;
+      A.nll[i] = l - p;
+      A.pos[i] = p;
+      A.hit[i] = p >= m ? 1.f : 0.f;
+    }
+  }
+  dssm::cluster_sync();  // every peer has read this block's stat
 }
 
-size_t fwd_smem(int dim) {
-  return sizeof(float) * (size_t)(kOwn + kStream) * pitch_of(dim);
-}
+constexpr int kNoWave = -2;  // try_rows: the grid would not fit one wave
 
-size_t grad_smem(int dim) {
-  return fwd_smem(dim) + sizeof(float) * kOwn * (kStream + 1) +
-         3 * sizeof(float) * kStream;
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-template <bool kDd>
-int launch_grad(const void* q, const void* d, const void* labels,
-                const void* lse, const void* g, void* out, long long b,
-                long long bg, int dim, float gamma, void* stream) {
-  if (b <= 0 || bg <= 0 || dim <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = grad_smem(dim);
-  cudaError_t err = allow_smem(in_batch_loss_grad_kernel<kDd>, smem);
+// Launch with own tiles of 16 kMR rows; kNoWave (nothing launched) where
+// one_wave and the card cannot hold every cluster at once
+// (cudaOccupancyMaxActiveClusters).
+template <int kMode, int kMR>
+int try_rows(const Args& a, bool one_wave, cudaStream_t stream) {
+  using T = Tile<kMR>;
+  auto kernel = in_batch_loss_kernel<kMode, kMR>;
+  constexpr size_t smem = T::smem_bytes(kMode);
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
-  const long long n_own = kDd ? bg : b;
-  const unsigned int blocks = (unsigned int)((n_own + kOwn - 1) / kOwn);
-  in_batch_loss_grad_kernel<kDd><<<blocks, kThreads, smem,
-                                   (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)d, (const int32_t*)labels,
-      (const float*)lse, (const float*)g, (float*)out, (int64_t)b,
-      (int64_t)bg, dim, gamma);
+  // Kept per kernel: the device its shared-memory attribute was raised
+  // for, and the clusters that device holds at once.
+  static int attr_device = -1, max_clusters = 0;
+  cudaLaunchAttribute attr;
+  if (device != attr_device) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t probe =
+        dssm::cluster_config(kRanks, kThreads, kRanks, smem, stream, &attr);
+    err = cudaOccupancyMaxActiveClusters(&max_clusters, kernel, &probe);
+    if (err != cudaSuccess) return (int)err;
+    attr_device = device;
+  }
+  const long long n_own = kMode == kDd ? a.bg : a.b;
+  const long long clusters = (n_own + T::kOwn - 1) / T::kOwn;
+  if (one_wave && clusters > max_clusters) return kNoWave;
+  if (clusters * kRanks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg =
+      dssm::cluster_config((unsigned int)(clusters * kRanks), kThreads,
+                           kRanks, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Own tiles of 64 rows, or of 80 where that puts a grid the card cannot
+// hold at once into one wave (B = 1024: 16 clusters of 64 rows, 13 of 80,
+// where an H100 holds 15 clusters of 8 blocks).
+template <int kMode>
+int launch(const Args& a, void* stream) {
+  if (a.b <= 0 || a.bg <= 0 || a.dim <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int rc = try_rows<kMode, 4>(a, true, s);
+  if (rc == kNoWave) rc = try_rows<kMode, 5>(a, true, s);
+  if (rc == kNoWave) rc = try_rows<kMode, 4>(a, false, s);
+  return rc;
+}
+
+Args make_args(const void* q, const void* d, const void* labels,
+               long long b, long long bg, int dim, float gamma) {
+  Args a = {};
+  a.q = (const float*)q;
+  a.d = (const float*)d;
+  a.labels = (const int32_t*)labels;
+  a.b = b;
+  a.bg = bg;
+  a.dim = dim;
+  a.gamma = gamma;
+  a.vec = dim % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(d) % 16 == 0
+              ? 16
+              : 4;
+  return a;
 }
 
 }  // namespace
@@ -330,16 +609,12 @@ extern "C" int dssm_in_batch_loss_fwd(const void* q, const void* d,
                                       void* lse, void* pos, void* hit,
                                       long long b, long long bg, int dim,
                                       float gamma, void* stream) {
-  if (b <= 0 || bg <= 0 || dim <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_smem(dim);
-  cudaError_t err = allow_smem(in_batch_loss_fwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned int blocks = (unsigned int)((b + kOwn - 1) / kOwn);
-  in_batch_loss_fwd_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)d, (const int32_t*)labels, (float*)nll,
-      (float*)lse, (float*)pos, (float*)hit, (int64_t)b, (int64_t)bg, dim,
-      gamma);
-  return (int)cudaGetLastError();
+  Args a = make_args(q, d, labels, b, bg, dim, gamma);
+  a.nll = (float*)nll;
+  a.lse = (float*)lse;
+  a.pos = (float*)pos;
+  a.hit = (float*)hit;
+  return launch<kFwd>(a, stream);
 }
 
 // lse: [b] f32 from the forward, g: [b] f32 (the gradient of each row's
@@ -349,8 +624,11 @@ extern "C" int dssm_in_batch_loss_dq(const void* q, const void* d,
                                      const void* g, void* dq, long long b,
                                      long long bg, int dim, float gamma,
                                      void* stream) {
-  return launch_grad<false>(q, d, labels, lse, g, dq, b, bg, dim, gamma,
-                            stream);
+  Args a = make_args(q, d, labels, b, bg, dim, gamma);
+  a.lse_in = (const float*)lse;
+  a.g = (const float*)g;
+  a.out = (float*)dq;
+  return launch<kDq>(a, stream);
 }
 
 // dd: [bg, dim] f32. Returns cudaGetLastError().
@@ -359,6 +637,9 @@ extern "C" int dssm_in_batch_loss_dd(const void* q, const void* d,
                                      const void* g, void* dd, long long b,
                                      long long bg, int dim, float gamma,
                                      void* stream) {
-  return launch_grad<true>(q, d, labels, lse, g, dd, b, bg, dim, gamma,
-                           stream);
+  Args a = make_args(q, d, labels, b, bg, dim, gamma);
+  a.lse_in = (const float*)lse;
+  a.g = (const float*)g;
+  a.out = (float*)dd;
+  return launch<kDd>(a, stream);
 }

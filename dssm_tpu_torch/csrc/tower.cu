@@ -70,6 +70,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"  // the cluster, distributed shared memory, cp.async
+
 #define DSSM_TOWER_MAX_LAYERS 8
 
 namespace {
@@ -107,154 +109,6 @@ __host__ __device__ __forceinline__ int out_tiles(int dout) {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- the cluster --------------------------------------------------------
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t n;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
-  return n;
-}
-
-// Address of the same shared-memory location in block `rank` of the
-// cluster.
-__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"(smem_addr(p)), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-// Every thread of the cluster; orders shared, distributed shared and
-// global memory (release / acquire).
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void st_cluster(uint32_t a, uint4 v) {
-  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
-               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-               : "memory");
-}
-__device__ __forceinline__ float ld_cluster(uint32_t a) {
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a)
-               : "memory");
-  return v;
-}
-
-// ---- copies -------------------------------------------------------------
-
-// f(r, v) for every cell of a [rows][per_row] grid, spread over the block's
-// threads with one division a call (not one a cell).
-template <typename F>
-__device__ __forceinline__ void for_grid(int rows, int per_row, F f) {
-  if (per_row <= 0) return;
-  if (per_row <= kThreads) {
-    const int step = kThreads / per_row;
-    const int r0 = threadIdx.x / per_row;
-    if (r0 >= step) return;
-    const int v = threadIdx.x - r0 * per_row;
-    for (int r = r0; r < rows; r += step) f(r, v);
-  } else {
-    for (int r = 0; r < rows; ++r) {
-      for (int v = threadIdx.x; v < per_row; v += kThreads) f(r, v);
-    }
-  }
-}
-
-// kBytes from global to shared, zero-filled (nothing read) when !valid.
-template <int kBytes>
-__device__ __forceinline__ void copy_vec(void* dst, const void* src,
-                                         bool valid) {
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(valid ? 16 : 0)
-                 : "memory");
-  } else if constexpr (kBytes >= 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "n"(kBytes), "r"(valid ? kBytes : 0)
-                 : "memory");
-  } else {  // a 2-byte pitch: no cp.async that small, copy through registers
-    static_assert(kBytes == 2, "cp.async takes 4, 8 or 16 bytes");
-    *static_cast<uint16_t*>(dst) =
-        valid ? *static_cast<const uint16_t*>(src) : (uint16_t)0;
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most `pending` of this thread's cp.async groups are open.
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  switch (pending) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-  }
-}
-
-// dst[r][c] (row stride dld) = src[r][c] (row stride sld) for r < rows,
-// c < cols (a multiple of 8), zero where r >= valid_rows or c >= valid_cols.
-// kBytes divides valid_cols * sizeof(T), so a vector is all in or all out.
-template <typename T, int kBytes>
-__device__ __forceinline__ void copy_tile_vec(T* dst, int dld, const T* src,
-                                              int64_t sld, int rows, int cols,
-                                              int valid_rows, int valid_cols) {
-  constexpr int ve = kBytes / (int)sizeof(T);
-  for_grid(rows, cols / ve, [&](int r, int v) {
-    const int c = v * ve;
-    const bool valid = r < valid_rows && c < valid_cols;
-    copy_vec<kBytes>(dst + r * dld + c, valid ? src + r * sld + c : src,
-                     valid);
-  });
-}
-
-template <typename T>
-__device__ __noinline__ void copy_tile(T* dst, int dld, const T* src,
-                                          int64_t sld, int rows, int cols,
-                                          int valid_rows, int valid_cols,
-                                          int vec_bytes) {
-  switch (vec_bytes) {
-    case 16:
-      copy_tile_vec<T, 16>(dst, dld, src, sld, rows, cols, valid_rows,
-                           valid_cols);
-      break;
-    case 8:
-      copy_tile_vec<T, 8>(dst, dld, src, sld, rows, cols, valid_rows,
-                          valid_cols);
-      break;
-    case 4:
-      copy_tile_vec<T, 4>(dst, dld, src, sld, rows, cols, valid_rows,
-                          valid_cols);
-      break;
-    default:
-      copy_tile_vec<T, (int)sizeof(T)>(dst, dld, src, sld, rows, cols,
-                                       valid_rows, valid_cols);
-      break;
-  }
 }
 
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
@@ -298,11 +152,11 @@ __device__ __forceinline__ void push_columns(const T* buf, int ld, int rows,
                                              int c0, int cols, int rank,
                                              int nranks) {
   constexpr int ve = 16 / (int)sizeof(T);
-  for_grid(rows, cols / ve, [&](int r, int v) {
+  dssm::for_grid<kThreads>(rows, cols / ve, [&](int r, int v) {
     const T* src = buf + r * ld + c0 + v * ve;
     const uint4 val = *reinterpret_cast<const uint4*>(src);
     for (int q = 1; q < nranks; ++q) {
-      st_cluster(peer_addr(src, (rank + q) % nranks), val);
+      dssm::st_cluster(dssm::peer_addr(src, (rank + q) % nranks), val);
     }
   });
 }
@@ -365,13 +219,14 @@ __device__ __forceinline__ void fetch_job(T* slot, int rld, int kc,
   const int n0 = ps.first * 8;
   const int k0 = cur.c * kc;
   if (ps.count == 0) return;
-  copy_tile<T>(slot, rld,
-               static_cast<const T*>(L.w[cur.l]) + (int64_t)k0 * dout + n0,
-               dout, chunk_rows(din, kc, cur.c), ps.count * 8, din - k0,
-               dout - n0, L.wvec[cur.l]);
+  dssm::copy_tile<kThreads, T>(
+      slot, rld, static_cast<const T*>(L.w[cur.l]) + (int64_t)k0 * dout + n0,
+      dout, chunk_rows(din, kc, cur.c), ps.count * 8, din - k0, dout - n0,
+      L.wvec[cur.l]);
   // The pass's bias, after the chunk's kc rows.
-  copy_tile<T>(slot + kc * rld, 0, static_cast<const T*>(L.b[cur.l]) + n0, 0,
-               1, ps.count * 8, 1, dout - n0, L.bvec[cur.l]);
+  dssm::copy_tile<kThreads, T>(slot + kc * rld, 0,
+                               static_cast<const T*>(L.b[cur.l]) + n0, 0, 1,
+                               ps.count * 8, 1, dout - n0, L.bvec[cur.l]);
 }
 
 // ---- the product of a unit: a policy per input dtype --------------------
@@ -387,7 +242,7 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      : "r"(dssm::smem_addr(p)));
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
@@ -395,7 +250,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      : "r"(dssm::smem_addr(p)));
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -544,14 +399,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int rank = (int)cluster_rank();
-  const int nranks = (int)cluster_size();
+  const int rank = (int)dssm::cluster_rank();
+  const int nranks = (int)dssm::cluster_size();
   const int64_t row0 = (int64_t)(blockIdx.x / nranks) * BM;
   const int rows = batch - row0 < BM ? (int)(batch - row0) : BM;
   const int d0 = L.dims[0];
   // Remote stores wait for every block of the cluster to run (cluster_wait
   // below); they go only where the receiving block writes nothing before.
-  cluster_arrive_relaxed();
+  dssm::cluster_arrive_relaxed();
 
   if (threadIdx.x < L.num_layers) {
     const int l = threadIdx.x;
@@ -567,8 +422,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // The x tile joins the first job's cp.async group.
   if (!kWide) {
-    copy_tile<T>(act0, lda, x + row0 * d0, d0, BM, round16(d0), rows, d0,
-                 xvec);
+    dssm::copy_tile<kThreads, T>(act0, lda, x + row0 * d0, d0, BM,
+                                 round16(d0), rows, d0, xvec);
   }
   Cursor fetch;
   for (int s = 0; s < stages - 1; ++s) {
@@ -577,20 +432,20 @@ __global__ void __launch_bounds__(kThreads, 1)
                    fetch);
       fetch.next(plan);
     }
-    cp_async_commit();
+    dssm::cp_async_commit();
   }
-  cluster_wait();  // every block of the cluster runs: remote stores may go
+  dssm::cluster_wait();  // every block of the cluster runs: remote stores go
 
   Cursor comp;
   for (int j = 0; !comp.done(L.num_layers); ++j) {
-    cp_async_wait(stages - 2);  // job j has landed (this thread's copies)
+    dssm::cp_async_wait(stages - 2);  // job j has landed (this thread's copies)
     __syncthreads();            // ... everyone's; slot j - 1 is free
     if (!fetch.done(L.num_layers)) {
       fetch_job<T>(ring + ((j + stages - 1) % stages) * slot_elems, rld, kc,
                    pass_tiles, L, plan, fetch);
       fetch.next(plan);
     }
-    cp_async_commit();
+    dssm::cp_async_commit();
 
     const int l = comp.l;
     const int dout = L.dims[l + 1];
@@ -684,16 +539,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         push_columns(a_out, lda, BM, plan[l].mine.first * 8,
                      plan[l].mine.count * 8, rank, nranks);
       }
-      cluster_sync();
+      dssm::cluster_sync();
     }
     comp.next(plan);
   }
 
   if (normalize) {  // y = h / max(||h||, eps) on this block's columns
-    cluster_sync();  // every block's row sums are in
+    dssm::cluster_sync();  // every block's row sums are in
     for (int r = threadIdx.x; r < BM; r += kThreads) {
       float t = 0.f;  // the cluster's, in rank order
-      for (int q = 0; q < nranks; ++q) t += ld_cluster(peer_addr(&ss[r], q));
+      for (int q = 0; q < nranks; ++q) {
+        t += dssm::ld_cluster(dssm::peer_addr(&ss[r], q));
+      }
       norm[r] = fmaxf(sqrtf(t), eps);
     }
     __syncthreads();
@@ -701,11 +558,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const Slice s = plan[L.num_layers - 1].mine;
     const int c0 = s.first * 8;
     const int c1 = (s.first + s.count) * 8 < dl ? (s.first + s.count) * 8 : dl;
-    for_grid(rows, c1 - c0, [&](int r, int v) {
+    dssm::for_grid<kThreads>(rows, c1 - c0, [&](int r, int v) {
       float* p = y + (row0 + r) * dl + c0 + v;
       *p = *p / norm[r];
     });
-    cluster_sync();  // the row sums stay until every block has read them
+    dssm::cluster_sync();  // the row sums stay until every block has read them
   }
 }
 
@@ -782,23 +639,6 @@ bool layout_for(const TowerLayers& L, int max_in, bool wide, int nranks,
   return found;
 }
 
-cudaLaunchConfig_t cluster_config(unsigned int blocks, int nranks,
-                                  size_t smem, cudaStream_t stream,
-                                  cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = nranks;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
 constexpr int kTwoWaves = -2;  // try_tower: the grid would not fit one wave
 
 // Launch a tile of 16 kMT rows; kNoRoom where the widths leave it no room,
@@ -834,8 +674,8 @@ int try_tower(const void* x, void* y, const TowerLayers& L, long long batch,
     static int occ_device = -1, occ_ranks = 0, occ_clusters = 0;
     static size_t occ_smem = 0;
     if (device != occ_device || nranks != occ_ranks || g.smem != occ_smem) {
-      cudaLaunchConfig_t probe =
-          cluster_config((unsigned int)nranks, nranks, g.smem, stream, &attr);
+      cudaLaunchConfig_t probe = dssm::cluster_config(
+          (unsigned int)nranks, kThreads, nranks, g.smem, stream, &attr);
       int n = 0;
       err = cudaOccupancyMaxActiveClusters(&n, kernel, &probe);
       if (err != cudaSuccess) return (int)err;
@@ -846,8 +686,9 @@ int try_tower(const void* x, void* y, const TowerLayers& L, long long batch,
     }
     if (clusters > occ_clusters) return kTwoWaves;
   }
-  cudaLaunchConfig_t cfg = cluster_config(
-      (unsigned int)(clusters * nranks), nranks, g.smem, stream, &attr);
+  cudaLaunchConfig_t cfg =
+      dssm::cluster_config((unsigned int)(clusters * nranks), kThreads, nranks,
+                           g.smem, stream, &attr);
   err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(x), static_cast<float*>(y), L,
       (int64_t)batch, g.lda, g.rld, g.kc, g.pass_tiles, g.stages,

@@ -26,8 +26,8 @@ from dssm_tpu_torch.kernels import _build
 _NAME = "in_batch_loss"
 _DQ = "in_batch_loss_dq"
 _DD = "in_batch_loss_dd"
-# (16 own + 64 streamed rows) x (D + 4) floats of shared memory, at most
-# 227 KB with the backward's extra tile: csrc/loss.cu.
+# The widest D taken (csrc/loss.cu's shared memory does not grow with D;
+# the GPU tests hold the kernels to their plain versions up to it).
 _MAX_DIM = 680
 
 

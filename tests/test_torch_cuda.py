@@ -5,10 +5,16 @@ without a card. Imports no JAX, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: the gather and the scatter move or add the same values (exact);
-the lookups, their backward kernels (f32 atomics), the loss kernels and the
-f32 tower only sum in another order (rtol 1e-5 of the largest value; the loss
-kernels 1e-4, their exp differs from the library's in the last bits); the
-bf16 tower may round one intermediate to the neighbouring bf16 value (2e-2).
+the lookups, their backward kernels (f32 atomics) and the f32 tower only sum
+in another order (rtol 1e-5 of the largest value); the bf16 tower may round
+one intermediate to the neighbouring bf16 value (2e-2).
+The loss kernels are held to 1e-4 of the largest value: their logits are
+exact f32 products summed in k order (the plain matmul sums in another
+order), scaled by gamma = 20, and their exp and the merges of the online
+softmax across threads and cluster ranks differ from the library's in the
+last bits; a TF32 product (~1e-3 on such a logit) would fail it. Rows 3 and
+7 hold an exact tie, which must count as a hit; near-ties may flip one row's
+hit. The loss kernels add no atomics, so two calls give the same bits.
 The stochastic-rounding scatters draw the same Philox stream in the kernel
 and in the plain version and do the same f32 arithmetic (bit-equal); the
 rank count is an integer, equal wherever no score lies within an f32
@@ -44,7 +50,7 @@ from dssm_tpu_torch.kernels.joint import (
     joint_lookup_bwd, joint_lookup_bwd_plain, joint_lookup_plain)
 from dssm_tpu_torch.kernels.loss import (
     in_batch_loss_dd, in_batch_loss_dq, in_batch_loss_grads_plain,
-    in_batch_nll, in_batch_nll_plain)
+    in_batch_nll, in_batch_nll_kernel, in_batch_nll_plain)
 from dssm_tpu_torch.kernels.rank import (
     rank_counts, rank_counts_plain, true_scores)
 from dssm_tpu_torch.kernels.scatter_sr import (
@@ -346,11 +352,7 @@ def test_tower_residual_kernel_backward_matches_plain(dev, dtype, tol, dims,
                     a, b, rtol=0, atol=tol * max(1.0, float(b.abs().max())))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,bg,dim,offset", [(128, 128, 128, 0),
-                                             (100, 203, 37, 50),
-                                             (70, 70, 200, 0)])
-def test_loss_kernels_match_plain(dev, b, bg, dim, offset):
+def _loss_inputs(dev, b, bg, dim, offset, bad_labels=False):
     rng = np.random.default_rng(27)
     q = torch.nn.functional.normalize(torch.from_numpy(
         rng.normal(size=(b, dim)).astype(np.float32)), dim=1).to(dev)
@@ -360,6 +362,26 @@ def test_loss_kernels_match_plain(dev, b, bg, dim, offset):
     q[7] = d[offset + 7]
     q[3] = d[offset + 3]
     labels = (offset + torch.arange(b, dtype=torch.int32)).to(dev)
+    if bad_labels:  # outside [0, B'): pos 0, no one-hot
+        labels[-1] = -1
+        labels[-2] = bg
+    return rng, q, d, labels
+
+
+# (B, B', D, label offset, two labels outside [0, B')): the `full` shape; a
+# large pool with offset labels (each of the 8 ranks walks 4 tiles of 128
+# rows); B' below one tile (70: ranks 1-7 have no tile); D % 4 != 0 (4-byte
+# copies); the widest D (6 passes of 128 output columns in dq / dd).
+LOSS_SHAPES = [(128, 128, 128, 0, False), (100, 203, 37, 50, False),
+               (70, 70, 200, 0, False), (1024, 1024, 128, 0, False),
+               (64, 4096, 128, 1000, True), (48, 70, 128, 0, True),
+               (33, 203, 37, 50, True), (16, 40, 680, 0, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,bg,dim,offset,bad_labels", LOSS_SHAPES)
+def test_loss_kernels_match_plain(dev, b, bg, dim, offset, bad_labels):
+    rng, q, d, labels = _loss_inputs(dev, b, bg, dim, offset, bad_labels)
     want = in_batch_nll_plain(q, d, labels, 20.0)
     nll, pos, hit = in_batch_nll(q, d, labels, 20.0, impl="kernel")
     _close(nll, want[0], 1e-4)
@@ -382,6 +404,24 @@ def test_loss_kernels_match_plain(dev, b, bg, dim, offset):
         grads[impl] = (qq.grad, dd.grad)
     for a, bb in zip(grads["kernel"], grads["plain"]):
         _close(a, bb, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,bg,dim,offset", [(1024, 1024, 128, 0),
+                                             (33, 203, 37, 50)])
+def test_loss_kernels_bit_reproducible(dev, b, bg, dim, offset):
+    # No atomics: the same inputs give the same bits, call after call.
+    rng, q, d, labels = _loss_inputs(dev, b, bg, dim, offset, True)
+    g = torch.from_numpy(rng.uniform(0.5, 1.5, size=(b,)).astype(
+        np.float32)).to(dev) / b
+    fwd = [in_batch_nll_kernel(q, d, labels, 20.0) for _ in range(2)]
+    for a, bb in zip(*fwd):
+        assert torch.equal(a, bb)
+    lse = fwd[0][1]
+    for fn in (in_batch_loss_dq, in_batch_loss_dd):
+        runs = [fn(q, d, labels, 20.0, lse, g, impl="kernel")
+                for _ in range(2)]
+        assert torch.equal(runs[0], runs[1])
 
 
 @pytest.mark.cuda
