@@ -116,7 +116,7 @@ def main() -> int:
         gather_row_groups, scatter_add_row_groups,
         scatter_add_row_groups_plain)
     from dssm_tpu_torch.kernels.joint import (
-        fused_gather_joint_lookup, fused_gather_joint_lookup_plain,
+        BWD_PIECE, fused_gather_joint_lookup, fused_gather_joint_lookup_plain,
         joint_lookup, joint_lookup_bwd, joint_lookup_bwd_plain,
         joint_lookup_plain)
     from dssm_tpu_torch.kernels.rank import (
@@ -194,6 +194,20 @@ def main() -> int:
             return None, []
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top_n]
         return total, top
+
+    def bwd_segments(sel_, q_inv_, q_wgt_, d_inv_, d_wgt_, gr_):
+        """The joint lookup backward's segments: live lookups of the
+        longest compact row, the pieces of at most BWD_PIECE lookups the
+        kernel sums (a warp each), and the rows some live lookup names."""
+        named = []
+        for inv_, wgt_ in ((q_inv_, q_wgt_), (d_inv_, d_wgt_)):
+            live = (wgt_ != 0) & (inv_ >= 0) & (inv_ < sel_.numel())
+            j_ = sel_.long()[inv_[live].long()]
+            named.append(j_[(j_ >= 0) & (j_ < gr_)])
+        per_row = torch.bincount(torch.cat(named), minlength=gr_)
+        return dict(longest_segment=int(per_row.max()),
+                    pieces=int(((per_row + BWD_PIECE - 1) // BWD_PIECE).sum()),
+                    rows_named=int((per_row > 0).sum()), rows=gr_)
 
     def eager_ms(fn, reps=50, trials=7):
         """Time per call launched eagerly from Python (host included)."""
@@ -498,7 +512,10 @@ def main() -> int:
         (index_select of the group rows, then row 5's count products), and
         its bound: inv, wgt, sel and uniq read once, the real groups' table
         rows read once, compact and both outputs written once; one f32
-        multiply-add per live lookup and column. Returns the numbers."""
+        multiply-add per live lookup and column. The library chain is timed
+        with its count matrices built in the timed call (the same function)
+        and, as earlier runs timed it, built outside it. Returns the
+        numbers."""
         got = fused_gather_joint_lookup(tbl, uniq_, *fields_, grp,
                                         impl="kernel")
         want = fused_gather_joint_lookup_plain(tbl, uniq_, *fields_, grp)
@@ -523,9 +540,16 @@ def main() -> int:
         cq_, cd_ = (count_matrix(fields_[i], fields_[i + 1], sel_.numel())
                     .to(tbl.dtype) for i in (1, 3))
 
-        def library():
+        def library_counts_outside():
             c2_ = tbl.index_select(0, rows_).index_select(0, sel_)
             return cq_ @ c2_, cd_ @ c2_
+
+        def library():
+            cq2, cd2 = (count_matrix(fields_[i], fields_[i + 1],
+                                     sel_.numel()).to(tbl.dtype)
+                        for i in (1, 3))
+            c2_ = tbl.index_select(0, rows_).index_select(0, sel_)
+            return cq2 @ c2_, cd2 @ c2_
 
         real_ = int(((uniq_ >= 0) & (uniq_ < ng)).sum())
         h_ = tbl.shape[1]
@@ -535,6 +559,12 @@ def main() -> int:
                    + sum(o.numel() * 4 for o in got[:2]))
         nnz_ = int((fields_[2] != 0).sum() + (fields_[4] != 0).sum())
         b_ms_, b_by_ = bound_ms(nbytes_, 2.0 * nnz_ * h_, "f32")
+        lib_ms, lib_out_ms = graph_ms(library), graph_ms(library_counts_outside)
+        print(f"fused_gather_joint_lookup ({what}): library chain "
+              f"(index_select + count matrix products) {lib_ms:.4f} ms with "
+              f"its count matrices built in the timed call, "
+              f"{lib_out_ms:.4f} ms with them built outside it (not the "
+              f"same function) on {card}")
         return dict(
             bound_ms=b_ms_, bound_by=b_by_, max_abs_err=err_, tolerance=f"1e-5 x max |out| ({scale_:.3g}); "
             "bit-equal to gather_row_groups + joint_lookup",
@@ -544,7 +574,7 @@ def main() -> int:
                 tbl, uniq_, grp, impl="kernel"), *fields_, impl="kernel")),
             plain_ms=graph_ms(lambda: fused_gather_joint_lookup_plain(
                 tbl, uniq_, *fields_, grp)),
-            library_ms=graph_ms(library))
+            library_ms=lib_ms, library_ms_counts_outside=lib_out_ms)
 
     fused_full = fused_case(table, uniq, [sel, q_inv, q_wgt, d_inv, d_wgt],
                             group, "full, f32")
@@ -552,12 +582,14 @@ def main() -> int:
         source="dssm_tpu_torch/csrc/joint.cu",
         replaces="dssm_tpu/kernels/pallas_count.py:494",
         ms_split=fused_full.pop("split_ms"),
+        ms_library_counts_outside=fused_full.pop("library_ms_counts_outside"),
         shape=f"table {tuple(table.shape)} f32, {uniq.numel()} slots "
               f"({real_slots_first} real), sel ({sel.numel()}), q ({rows_n}, "
               f"{kq}) d ({rows_n}, {kd}), {nnz_q + nnz_d} live lookups",
         **fused_full)
 
-    # Joint lookup backward (f32 atomics): bf16 gradients, as the step's.
+    # Joint lookup backward (a sorted, segmented sum): bf16 gradients, as the
+    # step's. Two calls must give the same bits.
     g_q = torch.from_numpy(rng.normal(size=(rows_n, h)).astype(
         np.float32)).to(dev).to(bf)
     g_d = torch.from_numpy(rng.normal(size=(rows_n, h)).astype(
@@ -572,10 +604,12 @@ def main() -> int:
     err, scale = float((dc_k - dc_p).abs().max()), float(dc_p.abs().max())
     check(err <= 1e-5 * scale, f"joint_lookup_bwd: max err {err} over 1e-5 "
           f"x max |dc| {scale}")
-    joint_bwd_bit_equal = bool(torch.equal(dc_k, dc_k2))
-    print(f"joint_lookup_bwd run twice on the same inputs: bit-equal = "
-          f"{joint_bwd_bit_equal} (f32 atomics; max |a - b| "
-          f"{float((dc_k - dc_k2).abs().max()):.3g})")
+    check(torch.equal(dc_k, dc_k2), "joint_lookup_bwd: two calls on the same "
+          f"inputs differ (max |a - b| {float((dc_k - dc_k2).abs().max()):.3g};"
+          " bit-equal expected: no float atomics)")
+    seg_full = bwd_segments(sel, q_inv, q_wgt, d_inv, d_wgt, gr)
+    print("joint_lookup_bwd run twice on the same inputs: bit-equal; "
+          f"segments at the full shapes: {json.dumps(seg_full)}")
     flat_q = sel.long()[q_inv.long().reshape(-1)]
     flat_d = sel.long()[d_inv.long().reshape(-1)]
 
@@ -598,9 +632,10 @@ def main() -> int:
         plain_ms=graph_ms(lambda: joint_lookup_bwd_plain(
             sel, q_inv, q_wgt, d_inv, d_wgt, g_q, g_d, gr)),
         library_ms=graph_ms(joint_bwd_library),
-        bound_ms=b_ms, bound_by=b_by, bit_equal_twice=joint_bwd_bit_equal,
-        shape=f"g ({rows_n}, {h}) bf16 x 2 -> dc ({gr}, {h}) f32 (the "
-              "zero fill of dc is in every time)",
+        bound_ms=b_ms, bound_by=b_by, segments=seg_full,
+        shape=f"g ({rows_n}, {h}) bf16 x 2 -> dc ({gr}, {h}) f32 (every row "
+              "written by the kernel, no zero fill; the library's zero fill "
+              "is in its time)",
     )
 
     # Count lookup backward: the doc side of the per-side branch, slots as
@@ -955,6 +990,8 @@ def main() -> int:
     rf.update(ms_bfloat16=fused16["ms"], ms_split_bfloat16=fused16["split_ms"],
               ms_plain_bfloat16=fused16["plain_ms"],
               ms_library_bfloat16=fused16["library_ms"],
+              ms_library_counts_outside_bfloat16=fused16[
+                  "library_ms_counts_outside"],
               ms_bound_bfloat16=fused16["bound_ms"])
     gr16 = compact16.shape[0]
     lk = joint_lookup(compact16, *f16, impl="kernel")
@@ -1217,8 +1254,14 @@ def main() -> int:
                   for _ in range(2))
     gr_c = comp_c.shape[0]
     dck_c = joint_lookup_bwd(*jf, g_qc, g_dc, gr_c, impl="kernel")
+    dck_c2 = joint_lookup_bwd(*jf, g_qc, g_dc, gr_c, impl="kernel")
     dcp_c = joint_lookup_bwd_plain(*jf, g_qc, g_dc, gr_c)
     torch.cuda.synchronize()
+    check(torch.equal(dck_c, dck_c2), "joint_lookup_bwd at the cnn shapes: "
+          "two calls on the same inputs differ (bit-equal expected)")
+    seg_cnn = bwd_segments(*jf, gr_c)
+    print("joint_lookup_bwd at the cnn shapes run twice: bit-equal; segments: "
+          + json.dumps(seg_cnn))
     err_c = max(float((a_ - b_).abs().max()) for a_, b_ in zip(lk_c, lp_c))
     sc_c = max(float(b_.abs().max()) for b_ in lp_c)
     check(err_c <= 1e-5 * sc_c, f"joint_lookup at the cnn shapes: max err "
@@ -1236,11 +1279,24 @@ def main() -> int:
         jf[0].long()[jf[3].long()[jf[4] != 0]]])).numel()
     idx_bytes_c = (jf[1].numel() + jf[3].numel()) * 8 + jf[0].numel() * 4
     fused_c = fused_case(wc, uniq_c, jf, 8, "cnn shapes")
+    flat_qc = jf[0].long()[jf[1].long().reshape(-1)]
+    flat_dc = jf[0].long()[jf[3].long().reshape(-1)]
+
+    def cnn_bwd_library():
+        # The two index_add_ of the full shapes' library, on the word rows.
+        dc_ = torch.zeros((gr_c, hc), device=dev)
+        dc_.index_add_(0, flat_qc, (jf[2][..., None] * g_qc.float()[
+            ..., None, :]).reshape(-1, hc))
+        return dc_.index_add_(0, flat_dc, (jf[4][..., None] * g_dc.float()[
+            ..., None, :]).reshape(-1, hc))
+
     rf = results["fused_gather_joint_lookup"]
     rf["max_abs_err"] = max(rf["max_abs_err"], fused_c["max_abs_err"])
     rf.update(ms_split_cnn=fused_c["split_ms"],
               ms_plain_cnn=fused_c["plain_ms"],
               ms_library_cnn=fused_c["library_ms"],
+              ms_library_counts_outside_cnn=fused_c[
+                  "library_ms_counts_outside"],
               ms_bound_cnn=fused_c["bound_ms"])
     cnn_shapes = {
         "fused_gather_joint_lookup": fused_c,
@@ -1264,17 +1320,24 @@ def main() -> int:
                                                  impl="kernel")),
             plain_ms=graph_ms(lambda: joint_lookup_bwd_plain(
                 *jf, g_qc, g_dc, gr_c)),
+            library_ms=graph_ms(cnn_bwd_library), segments=seg_cnn,
             bound_ms=bound_ms(idx_bytes_c + 2 * rows_c * hc * 2
                               + gr_c * hc * 4, 2.0 * nnz_c * hc, "f32")[0],
             max_abs_err=errb_c),
     }
     for name, r_ in cnn_shapes.items():
         results[name]["ms_cnn"] = r_["ms"]
+    results["joint_lookup_bwd"].update(
+        ms_library_cnn=cnn_shapes["joint_lookup_bwd"]["library_ms"],
+        ms_plain_cnn=cnn_shapes["joint_lookup_bwd"]["plain_ms"],
+        ms_bound_cnn=cnn_shapes["joint_lookup_bwd"]["bound_ms"],
+        segments_cnn=seg_cnn)
     print("gather, joint and fused lookups at the cnn shapes (compact "
           f"{tuple(comp_c.shape)} f32, {real_c} real slots, word rows "
           f"{rows_c} a side, {nnz_c} live lookups on {both_c} rows): "
           + json.dumps(cnn_shapes) + f" on {card}")
-    del tb_c, comp_c, lk_c, lp_c, g_qc, g_dc, dck_c, dcp_c, jf
+    del tb_c, comp_c, lk_c, lp_c, g_qc, g_dc, dck_c, dck_c2, dcp_c, jf
+    del flat_qc, flat_dc
 
     main_bag = bag_cases[("cnn", "float32")]
     for name, pre, line in (("embedding_bag", "fwd", 147),

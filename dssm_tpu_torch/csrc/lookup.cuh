@@ -1,5 +1,5 @@
-// Device functions shared by the lookup kernels (count.cu, joint.cu) and
-// the row-group gather (gather.cu, joint.cu).
+// Device functions shared by the lookup kernels (count.cu, joint.cu's
+// joint lookup) and the row-group gather (gather.cu).
 //
 // A lookup row is K (slot, weight) pairs. A pair is live when its weight is
 // not zero and its slot resolves to a row of the source block: slot in
@@ -98,7 +98,8 @@ __device__ __forceinline__ void accumulate_row(
 // The transpose of accumulate_row: dst[s_row[j], c] += s_wgt[j] * g[c].
 // Several lookup rows (blocks) add into one dst row, so the adds are f32
 // atomics: the sum is right, its order (and so its last bits) is not fixed
-// from run to run.
+// from run to run. count.cu's backward uses it; joint.cu's backward no
+// longer does (it sorts the lookups by row and sums each row in order).
 template <typename G>
 __device__ __forceinline__ void scatter_row_grad(
     float* __restrict__ dst, const int32_t* s_row, const float* s_wgt, int n,

@@ -49,8 +49,9 @@ _SIGNATURES = {
                          _INT, _INT, _INT, ctypes.c_float, _P],
     "dssm_joint_lookup": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT,
                           _INT, _INT, _INT, _INT, _P],
-    "dssm_joint_lookup_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT,
-                              _INT, _INT, _INT, _INT, _INT, _P],
+    "dssm_joint_lookup_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                              _I64, _INT, _INT, _INT, _INT, _INT, _INT, _P],
+    "dssm_joint_lookup_bwd_workspace": [_I64, _INT, _INT, _INT, _INT],
     "dssm_fused_gather_joint_lookup": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _I64, _INT, _INT, _INT, _INT, _INT,
                                        _I64, _INT, _INT, _P],
@@ -71,6 +72,9 @@ _SIGNATURES = {
     "dssm_embedding_bag_dwgt": [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT,
                                 _INT, _P],
 }
+
+# Return types other than the launchers' int (a CUDA error code).
+_RESTYPES = {"dssm_joint_lookup_bwd_workspace": _I64}
 
 # One name per counted entry point. dense_tower_residuals is the tower's
 # training call (the same C function, asked for its per-layer residuals).
@@ -183,7 +187,8 @@ def load(path: Optional[str] = None) -> ctypes.CDLL:
             for fn, argtypes in _SIGNATURES.items():
                 if hasattr(lib, fn):
                     getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
+                    getattr(lib, fn).restype = _RESTYPES.get(fn,
+                                                             ctypes.c_int)
             _lib = lib
         return _lib
 
@@ -218,6 +223,12 @@ def launch(name: str, fn: str, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     _launches[name] += 1
+
+
+def query(fn: str, *args) -> int:
+    """Call C function `fn`, which launches nothing (a size query), and
+    return its result; counts no launch."""
+    return getattr(load(), fn)(*args)
 
 
 def check_cuda(name: str, device: torch.device, *tensors: torch.Tensor) -> None:

@@ -37,6 +37,9 @@ _NAME = "joint_lookup"
 _BWD = "joint_lookup_bwd"
 _FUSED = "fused_gather_joint_lookup"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# Live lookups one warp of the backward sums before its partial is added to
+# the row's others (kPiece in csrc/joint.cu).
+BWD_PIECE = 32
 
 
 def select_rows_plain(compact: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
@@ -100,8 +103,10 @@ def joint_lookup_bwd(sel: torch.Tensor, q_inv: torch.Tensor,
                      g_d: torch.Tensor, gr: int, *,
                      impl: str = "auto") -> torch.Tensor:
     """d_compact [gr, H] f32 from both sides' output gradients (f32 or
-    bf16). The kernel adds with f32 atomics: the last bits depend on the
-    order of the adds."""
+    bf16). The kernel sorts the live lookups by compact row and sums each
+    row in a fixed order, with no float atomics: two calls give the same
+    bits. It writes every row of d_compact (zero where no live lookup names
+    it) and takes its scratch from one workspace allocated here."""
     if _build.resolve_impl(impl, g_q, _BWD) == "plain":
         return joint_lookup_bwd_plain(sel, q_inv, q_wgt, d_inv, d_wgt, g_q,
                                       g_d, gr)
@@ -116,13 +121,20 @@ def joint_lookup_bwd(sel: torch.Tensor, q_inv: torch.Tensor,
                       g_d)
     h = g_q.shape[-1]
     rows = q_inv.numel() // q_inv.shape[-1]
-    dc = torch.zeros((gr, h), dtype=torch.float32, device=g_q.device)
+    kq, kd = q_inv.shape[-1], d_inv.shape[-1]
     if rows == 0 or h == 0 or gr == 0:
-        return dc
+        return torch.zeros((gr, h), dtype=torch.float32, device=g_q.device)
+    nbytes = _build.query("dssm_joint_lookup_bwd_workspace", rows, kq, kd,
+                          gr, h)
+    if nbytes < 0:
+        raise ValueError(f"{_BWD}: shapes the kernel does not take: {rows} "
+                         f"rows, K {kq} / {kd}, gr {gr}, H {h}")
+    dc = torch.empty((gr, h), dtype=torch.float32, device=g_q.device)
+    work = torch.empty((nbytes,), dtype=torch.uint8, device=g_q.device)
     _build.launch(_BWD, "dssm_joint_lookup_bwd", g_q.device, sel.data_ptr(),
                   q_inv.data_ptr(), q_wgt.data_ptr(), d_inv.data_ptr(),
                   d_wgt.data_ptr(), g_q.data_ptr(), g_d.data_ptr(),
-                  dc.data_ptr(), rows, q_inv.shape[-1], d_inv.shape[-1],
+                  dc.data_ptr(), work.data_ptr(), nbytes, rows, kq, kd,
                   sel.shape[0], gr, h, _DTYPE_CODE[g_q.dtype])
     return dc
 

@@ -5,9 +5,10 @@ without a card. Imports no JAX, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: the gather and the scatter move or add the same values (exact);
-the lookups, their backward kernels (f32 atomics) and the f32 tower only sum
-in another order (rtol 1e-5 of the largest value); the bf16 tower may round
-one intermediate to the neighbouring bf16 value (2e-2).
+the lookups, their backward kernels (the count backward with f32 atomics, the
+joint backward in a fixed order, so two calls give the same bits) and the f32
+tower only sum in another order (rtol 1e-5 of the largest value); the bf16
+tower may round one intermediate to the neighbouring bf16 value (2e-2).
 The loss kernels are held to 1e-4 of the largest value: their logits are
 exact f32 products summed in k order (the plain matmul sums in another
 order), scaled by gamma = 20, and their exp and the merges of the online
@@ -209,36 +210,82 @@ def test_count_backward_kernel_matches_plain(dev, g_dtype):
     _close(c2.grad.float(), count_lookup_bwd_plain(inv, wgt, g, 128), 1e-2)
 
 
-def _joint_case(rng, dev, rows, kq, kd, u2, gr, h, used):
+def _joint_case(rng, dev, rows, kq, kd, u2, gr, h, used, every=None,
+                name_padding=False, dead_rows=0):
+    """sel, q_inv, q_wgt, d_inv, d_wgt: `used` sorted compact rows, sel's
+    padding aliasing compact row 0 and one slot past the block (dead);
+    ragged rows. every: the one slot every lookup of both sides names (one
+    segment far longer than a piece); name_padding: lookups also name the
+    padding slots (they add into row 0); dead_rows: the first rows of each
+    side have no live lookup."""
     sel = np.zeros((u2,), np.int32)  # padding aliases compact row 0
     sel[:used] = np.sort(rng.choice(gr, used, replace=False))
     sel[0] = 0
     sel[used - 1] = gr + 5  # a slot that points past the block: dead
-    q_inv, q_wgt = _ragged(rng, rows, kq, used)
-    d_inv, d_wgt = _ragged(rng, rows, kd, used)
+    named = u2 if name_padding else used
+    q_inv, q_wgt = _ragged(rng, rows, kq, named)
+    d_inv, d_wgt = _ragged(rng, rows, kd, named)
+    if every is not None:
+        for inv, wgt in ((q_inv, q_wgt), (d_inv, d_wgt)):
+            inv[:] = every
+            wgt[:] = rng.integers(1, 4, size=wgt.shape)
     q_inv[0, 0], q_wgt[0, 0] = 0, 2.0
+    for wgt in (q_wgt, d_wgt):
+        wgt[1:1 + dead_rows] = 0.0
     return [torch.from_numpy(a).to(dev)
             for a in (sel, q_inv, q_wgt, d_inv, d_wgt)]
+
+
+# (rows, kq, kd, u2, gr, h, extra): small ragged shapes, h = 100 (not a
+# whole number of 16-byte bf16 vectors), the `full` widths, a cnn-width
+# compact block with 3-D rows of 16 x 8, one segment named by every lookup
+# of both sides (~1500 pieces), lookups that name sel's padding (row 0).
+JOINT_CASES = [
+    (128, 8, 16, 128, 256, 384, {}),
+    (50, 5, 70, 96, 200, 100, {"dead_rows": 3}),
+    (1024, 32, 64, 1024, 2048, 384, {"dead_rows": 5}),
+    (256 * 16, 8, 8, 2048, 8192, 1024, {"dead_rows": 40}),
+    (1024, 32, 64, 1024, 2048, 384, {"every": 7, "dead_rows": 2}),
+    (300, 12, 20, 256, 1024, 96, {"name_padding": True}),
+]
+
+
+def _touched(fields, gr):
+    """Compact rows some live lookup names (a bool mask over [0, gr))."""
+    sel, q_inv, q_wgt, d_inv, d_wgt = fields
+    hit = torch.zeros(gr, dtype=torch.bool, device=sel.device)
+    for inv, wgt in ((q_inv, q_wgt), (d_inv, d_wgt)):
+        live = (wgt != 0) & (inv >= 0) & (inv < sel.shape[0])
+        j = sel.long()[inv[live].long()]
+        hit[j[(j >= 0) & (j < gr)]] = True
+    return hit
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_joint_lookup_kernels_match_plain(dev, dtype):
+    """Forward (compact of `dtype`) and backward (g of f32 and bf16) against
+    their plain versions; the backward through autograd too."""
     rng = np.random.default_rng(25)
-    for rows, kq, kd, u2, gr, h in ((128, 8, 16, 128, 256, 384),
-                                    (50, 5, 70, 96, 200, 100)):
-        fields = _joint_case(rng, dev, rows, kq, kd, u2, gr, h, u2 - 6)
+    for rows, kq, kd, u2, gr, h, extra in JOINT_CASES:
+        fields = _joint_case(rng, dev, rows, kq, kd, u2, gr, h, u2 - 6,
+                             **extra)
+        if rows == 256 * 16:  # the cnn's 3-D rows: batch x words x trigrams
+            fields = [fields[0]] + [f.reshape(256, 16, -1)
+                                    for f in fields[1:]]
         compact = torch.from_numpy(rng.normal(size=(gr, h)).astype(
             np.float32)).to(dev, dtype)
         got = joint_lookup(compact, *fields, impl="kernel")
         want = joint_lookup_plain(compact, *fields)
         for a, b in zip(got, want):
             _close(a, b)
-        g_q, g_d = (torch.from_numpy(rng.normal(size=(rows, h)).astype(
-            np.float32)).to(dev, dtype) for _ in range(2))
-        dc = joint_lookup_bwd(*fields, g_q, g_d, gr, impl="kernel")
-        _close(dc, joint_lookup_bwd_plain(*fields, g_q, g_d, gr))
-        assert dc[0].abs().max() > 0  # row 0: added through sel, not set
+        for g_dtype in (torch.float32, torch.bfloat16):
+            g_q, g_d = (torch.from_numpy(rng.normal(
+                size=(*fields[1].shape[:-1], h)).astype(np.float32)).to(
+                    dev, g_dtype) for _ in range(2))
+            dc = joint_lookup_bwd(*fields, g_q, g_d, gr, impl="kernel")
+            _close(dc, joint_lookup_bwd_plain(*fields, g_q, g_d, gr))
+            assert dc[0].abs().max() > 0  # row 0: added through sel, not set
         # Through autograd against autograd through the plain version.
         ck = compact.clone().requires_grad_(True)
         cp = compact.clone().requires_grad_(True)
@@ -250,26 +297,62 @@ def test_joint_lookup_kernels_match_plain(dev, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+def test_joint_lookup_bwd_bit_reproducible_and_writes_every_row(dev, g_dtype):
+    """No float atomics: two calls give the same bits. Every row of d_compact
+    is written, exactly 0 where no live lookup names it, though the memory
+    the caching allocator hands out was left full of NaN bits (and the
+    scratch's counters of -1) by a freed tensor. One counted launch a
+    call."""
+    rng = np.random.default_rng(29)
+    for rows, kq, kd, u2, gr, h, extra in JOINT_CASES:
+        fields = _joint_case(rng, dev, rows, kq, kd, u2, gr, h, u2 - 6,
+                             **extra)
+        g_q, g_d = (torch.from_numpy(rng.normal(size=(rows, h)).astype(
+            np.float32)).to(dev, g_dtype) for _ in range(2))
+        runs = []
+        for _ in range(2):
+            junk = torch.full((64 << 20,), 255, dtype=torch.uint8, device=dev)
+            del junk
+            before = _build.launch_counts()["joint_lookup_bwd"]
+            runs.append(joint_lookup_bwd(*fields, g_q, g_d, gr,
+                                         impl="kernel"))
+            assert _build.launch_counts()["joint_lookup_bwd"] == before + 1
+        assert torch.equal(runs[0], runs[1])
+        hit = _touched(fields, gr)
+        assert bool((runs[0][~hit] == 0).all())
+        assert bool(torch.isfinite(runs[0]).all())
+        _close(runs[0], joint_lookup_bwd_plain(*fields, g_q, g_d, gr))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_gather_joint_lookup_matches_plain_and_split(dev, dtype):
     """Bit-equal to the gather kernel followed by the joint lookup kernel,
     and within rtol 1e-5 of the plain version; empty slots (the sentinel,
     -1, an id past the table) among the real ones, slot 0 empty in the
-    second case (sel's padding then names a zero row), and the sequence
-    towers' 3-D lookup rows."""
+    second case (sel's padding then names a zero row), the `full` widths,
+    a cnn-width table (h = 1024, K = 8), h = 100 (a bf16 row is no whole
+    number of 16-byte vectors), one row named by every lookup, rows with no
+    live lookup, and the sequence towers' 3-D lookup rows."""
     rng = np.random.default_rng(27)
     group = 8 if dtype == torch.float32 else 16
-    table = torch.from_numpy(rng.normal(size=(V, 384)).astype(
-        np.float32)).to(dev, dtype)
-    for slots, real, rows, kq, kd, u2 in ((64, 23, 128, 8, 16, 128),
-                                          (40, 30, 64, 5, 70, 96)):
+    cases = [(64, 23, 128, 8, 16, 128, 384, {}),
+             (40, 30, 64, 5, 70, 96, 384, {"dead_rows": 2}),
+             (256, 107, 1024, 32, 64, 1024, 384, {"dead_rows": 5}),
+             (128, 90, 2048, 8, 8, 1024, 1024, {"dead_rows": 30}),
+             (64, 23, 128, 8, 16, 128, 100, {}),
+             (64, 23, 512, 32, 64, 128, 384, {"every": 9})]
+    for slots, real, rows, kq, kd, u2, h, extra in cases:
+        table = torch.from_numpy(rng.normal(size=(V, h)).astype(
+            np.float32)).to(dev, dtype)
         uniq = np.full((slots,), SKIP_SENTINEL_GID, np.int32)
         uniq[:real] = np.sort(rng.choice(V // group, real, replace=False))
         if slots == 40:
             uniq[[0, 7, 31]] = (SKIP_SENTINEL_GID, -1, V // group + 3)
         uniq = torch.from_numpy(uniq).to(dev)
-        fields = _joint_case(rng, dev, rows, kq, kd, u2, slots * group, 384,
-                             u2 - 6)
+        fields = _joint_case(rng, dev, rows, kq, kd, u2, slots * group, h,
+                             u2 - 6, **extra)
         _build.reset_launch_counts()
         q, d, c = fused_gather_joint_lookup(table, uniq, *fields, group,
                                             impl="kernel")
@@ -283,11 +366,13 @@ def test_fused_gather_joint_lookup_matches_plain_and_split(dev, dtype):
         assert torch.equal(c, c_p)
         _close(q, q_p)
         _close(d, d_p)
+        if extra.get("dead_rows"):
+            assert bool((q[1:1 + extra["dead_rows"]] == 0).all())
         fields3 = [fields[0]] + [f.reshape(rows // 4, 4, -1)
                                  for f in fields[1:]]
         q3, d3, _ = fused_gather_joint_lookup(table, uniq, *fields3, group,
                                               impl="kernel")
-        assert q3.shape == (rows // 4, 4, 384)
+        assert q3.shape == (rows // 4, 4, h)
         assert torch.equal(q3.reshape(rows, -1), q)
         assert torch.equal(d3.reshape(rows, -1), d)
 
