@@ -4,9 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from dssm_tpu_torch/csrc, holds each kernel
-to its plain PyTorch version at the `full` preset's shapes and times both,
-then drives the `full` preset end to end (500k x 384 table, towers
-300->300->128 in bf16, batch 1024, union dedupe):
+to its plain PyTorch version at the `full` preset's shapes and times both
+(the count lookup also bit-equal to the joint lookup through sel =
+arange(u2), and timed at the cnn and lstm eval shapes; the rank count also
+at the multihost preset's 13107 eval pairs), then drives the `full` preset
+end to end (500k x 384 table, towers 300->300->128 in bf16, batch 1024,
+union dedupe):
 
   - trains it from seeded fresh weights on the toy corpus's batch stream,
     12 steps through the kernels and the same steps from the same state
@@ -19,7 +22,8 @@ then drives the `full` preset end to end (500k x 384 table, towers
     each, the stochastic-rounding scatters, kernels against plain versions);
   - evaluates the f32, bf16 and int8 models on the held-out split (recall@1,
     NDCG@10, MRR), kernels against plain versions, the second pass from the
-    cache of prepared batches;
+    cache of prepared batches, and traces one more cached pass of the f32
+    model (device busy ms, of which the rank count and the count lookups);
   - saves the trained state with the port's Checkpointer, restores it,
   - serves from the restored weights: a doc index over 4096 toy titles and
     top-10 for 64 queries, through the kernels and through the plain
@@ -62,6 +66,7 @@ TRAIN_STEPS = 12       # joint branch, kernels against plain, per table dtype
 PER_SIDE_STEPS = 3     # per-side branch (separate towers)
 SR_SEEDS = 64          # seeds averaged in the scatters' unbiasedness check
 RANK_N = 6553          # eval pairs of the full preset (10% of 65536)
+RANK_MULTIHOST = 13107  # eval pairs of the multihost preset (10% of 131072)
 TRAIN_PAIRS = 32768    # of the preset's 65536 toy pairs: bounds hashing time
 INDEX_BATCHES = 4      # served index: 4 batches of 1024 titles
 CLI_PAIRS = 8192       # toy corpus of the command-line drive
@@ -92,6 +97,7 @@ def main() -> int:
         return 2
 
     import numpy as np
+    import torch.nn.functional as F
 
     from dssm_tpu_torch.config import get_preset, validate
     from dssm_tpu_torch.bridge import batch_to_torch
@@ -111,7 +117,9 @@ def main() -> int:
         check_rows, embedding_bag, embedding_bag_dwgt,
         embedding_bag_dwgt_plain, embedding_bag_plain)
     from dssm_tpu_torch.kernels.count import (
-        count_lookup, count_lookup_bwd, count_lookup_bwd_plain, count_matrix)
+        count_lookup, count_lookup_bwd, count_lookup_bwd_plain,
+        count_lookup_plain, count_matrix)
+    from dssm_tpu_torch.kernels.dedup_embed import select_rows
     from dssm_tpu_torch.kernels.gather import (
         gather_row_groups, scatter_add_row_groups,
         scatter_add_row_groups_plain)
@@ -277,7 +285,52 @@ def main() -> int:
     # Count lookup: 1024 rows, K=64 (doc side) and 32 (query side), u2=1024,
     # ragged rows whose trailing weights are zero (junk inv past them).
     u2, rows_n = cfg.data.max_unique_rows, cfg.train.batch_size
-    count_err = {}
+
+    def count_check(c2_, inv_, wgt_, what):
+        """The kernel against its plain version (f32: rtol 1e-5 of each
+        value and of the largest; bf16: 1e-2 of the row's norm); its max
+        abs error."""
+        got_ = count_lookup(c2_, inv_, wgt_, impl="kernel")
+        want_ = count_lookup_plain(c2_, inv_, wgt_)
+        torch.cuda.synchronize()
+        err_ = (got_ - want_).abs()
+        if c2_.dtype == torch.float32:
+            tol_ = 1e-5 * want_.abs() + 1e-5 * float(want_.abs().max())
+            check(bool((err_ <= tol_).all()), f"count_lookup {what}: max err "
+                  f"{float(err_.max())} over rtol 1e-5")
+        else:
+            row_norm = want_.norm(dim=-1, keepdim=True)
+            check(bool((err_ <= 1e-2 * row_norm).all()),
+                  f"count_lookup {what}: max err {float(err_.max())} over "
+                  "1e-2 x row norm")
+        return float(err_.max())
+
+    def count_joint_equal(c2_, q_inv_, q_wgt_, d_inv_, d_wgt_, what):
+        """The count lookup is bit-equal, side by side, to the joint lookup
+        kernel through sel = arange(u2): both sum each column over the live
+        pairs in k order from 0."""
+        sel_ = torch.arange(c2_.shape[0], dtype=torch.int32, device=dev)
+        lq_, ld_ = joint_lookup(c2_, sel_, q_inv_, q_wgt_, d_inv_, d_wgt_,
+                                impl="kernel")
+        check(torch.equal(count_lookup(c2_, q_inv_, q_wgt_, impl="kernel"),
+                          lq_)
+              and torch.equal(count_lookup(c2_, d_inv_, d_wgt_,
+                                           impl="kernel"), ld_),
+              f"count_lookup {what}: not bit-equal to joint_lookup through "
+              "sel = arange(u2)")
+
+    def count_bound(c2_, inv_, wgt_):
+        """inv and wgt read once, the rows live lookups name read once, the
+        output written once; one f32 multiply-add per live lookup and
+        column."""
+        live_ = (wgt_ != 0) & (inv_ >= 0) & (inv_ < c2_.shape[0])
+        hh_ = c2_.shape[1]
+        return bound_ms(inv_.numel() * 8 + torch.unique(inv_[live_]).numel()
+                        * hh_ * c2_.element_size()
+                        + inv_.numel() // inv_.shape[-1] * hh_ * 4,
+                        2.0 * int(live_.sum()) * hh_, "f32")
+
+    count_err, count_cases = {}, {}
     for k in (cfg.data.max_trigrams, cfg.data.max_trigrams_query):
         inv_np = rng.integers(0, u2, size=(rows_n, k)).astype(np.int32)
         wgt_np = rng.integers(1, 4, size=(rows_n, k)).astype(np.float32)
@@ -288,43 +341,56 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             c2 = torch.from_numpy(rng.normal(size=(u2, h)).astype(
                 np.float32)).to(dev).to(dtype)
-            ok_ = count_lookup(c2, inv, wgt, impl="kernel")
-            op_ = count_lookup(c2, inv, wgt, impl="plain")
-            torch.cuda.synchronize()
-            err = (ok_ - op_).abs()
-            if dtype == torch.float32:
-                tol = 1e-5 * op_.abs() + 1e-5 * float(op_.abs().max())
-                check(bool((err <= tol).all()), f"count_lookup f32 K={k}: "
-                      f"max err {float(err.max())} over rtol 1e-5")
-            else:
-                row_norm = op_.norm(dim=1, keepdim=True)
-                check(bool((err <= 1e-2 * row_norm).all()),
-                      f"count_lookup bf16 K={k}: max err {float(err.max())} "
-                      "over 1e-2 x row norm")
-            count_err[(k, dtype)] = float(err.max())
-            if k == cfg.data.max_trigrams and dtype == torch.bfloat16:
-                main_case = (c2, inv, wgt, wgt_np, inv_np)
-    c2, inv, wgt, wgt_np, inv_np = main_case
-    nz = wgt_np != 0
-    touched = len(np.unique(inv_np[nz]))
-    nbytes = inv.numel() * 4 + wgt.numel() * 4 + touched * h * 2 + rows_n * h * 4
-    b_ms, b_by = bound_ms(nbytes, 2.0 * nz.sum() * h, "f32")
+            dname = str(dtype).split(".")[-1]
+            count_err[f"K={k} {dname}"] = count_check(c2, inv, wgt,
+                                                      f"{dname} K={k}")
+            count_cases[(k, dname)] = (c2, inv, wgt)
+    kd_, kq_ = cfg.data.max_trigrams, cfg.data.max_trigrams_query
+    for dname in ("float32", "bfloat16"):
+        c2, inv_d, wgt_d = count_cases[(kd_, dname)]
+        _, inv_q, wgt_q = count_cases[(kq_, dname)]
+        count_joint_equal(c2, inv_q, wgt_q, inv_d, wgt_d,
+                          f"at the full shapes ({dname})")
+    c2, inv, wgt = count_cases[(kd_, "bfloat16")]
+    c2_f32 = count_cases[(kd_, "float32")][0]
+    inv_l = inv.long()
     cnt = count_matrix(inv, wgt, u2)
     c2f = c2.float()
+    b_ms, b_by = count_bound(c2, inv, wgt)
+    count_extra = {}
+    for (k_, dname), (c2_, inv_, wgt_) in count_cases.items():
+        if (k_, dname) != (kd_, "bfloat16"):
+            tag = f"k{k_}_{dname}"
+            count_extra[f"ms_{tag}"] = graph_ms(
+                lambda: count_lookup(c2_, inv_, wgt_, impl="kernel"))
+            count_extra[f"ms_plain_{tag}"] = graph_ms(
+                lambda: count_lookup_plain(c2_, inv_, wgt_))
+            count_extra[f"ms_bound_{tag}"] = count_bound(c2_, inv_, wgt_)[0]
     results["count_lookup"] = dict(
         source="dssm_tpu_torch/csrc/count.cu",
         replaces="dssm_tpu/kernels/pallas_count.py:218",
-        max_abs_err=count_err[(cfg.data.max_trigrams, torch.bfloat16)],
+        max_abs_err=count_err[f"K={kd_} bfloat16"],
         ms=graph_ms(lambda: count_lookup(c2, inv, wgt, impl="kernel")),
-        plain_ms=graph_ms(lambda: count_lookup(c2, inv, wgt, impl="plain")),
-        library_ms=graph_ms(lambda: cnt @ c2f),
+        plain_ms=graph_ms(lambda: count_lookup_plain(c2, inv, wgt)),
+        # The same function: the count matrix built in the timed call.
+        library_ms=graph_ms(lambda: count_matrix(inv, wgt, u2) @ c2.float()),
+        # Not the same function: the count matrix built outside the call,
+        # as this line's library time was taken before.
+        ms_library_counts_outside=graph_ms(lambda: cnt @ c2f),
+        # On the f32 block (kernel: ms_k64_float32).
+        ms_library_embedding_bag_float32=graph_ms(lambda: F.embedding_bag(
+            inv_l, c2_f32, per_sample_weights=wgt, mode="sum")),
         eager_ms=eager_ms(lambda: count_lookup(c2, inv, wgt, impl="kernel")),
         bound_ms=b_ms, bound_by=b_by,
-        shape=f"compact2 ({u2}, {h}) bf16, inv/wgt ({rows_n}, "
-              f"{cfg.data.max_trigrams}), {int(nz.sum())} nonzero",
-        errors={f"K={k} {str(d).split('.')[-1]}": e
-                for (k, d), e in count_err.items()},
+        shape=f"compact2 ({u2}, {h}) bf16, inv/wgt ({rows_n}, {kd_}), "
+              f"{int((wgt != 0).sum())} nonzero; bit-equal to joint_lookup "
+              "through sel = arange(u2) on f32 and bf16",
+        errors=count_err, **count_extra,
     )
+    del cnt, c2f, inv_l
+    print("count_lookup, the other full-shape cases and library calls (ms): "
+          + json.dumps({k_: v_ for k_, v_ in results["count_lookup"].items()
+                        if k_.startswith("ms_")}) + f" on {card}")
 
     # Dense tower: x [1024, 300] bf16 -> 300 -> 128, tanh, no norm (the
     # model's call), plus an f32 relu normalized case for generality.
@@ -724,8 +790,6 @@ def main() -> int:
     )
 
     # Loss forward, dq, dd: unit q, d [1024, 128] f32, diagonal labels.
-    import torch.nn.functional as F
-
     gamma = cfg.loss.gamma
     qn = F.normalize(torch.from_numpy(rng.normal(size=(rows_n, dims[-1]))
                                       .astype(np.float32)).to(dev), dim=1)
@@ -1047,7 +1111,9 @@ def main() -> int:
               f"{redrawn} rows")
         return q_.contiguous(), d_.contiguous(), margin
 
-    for n_, nd_ in ((1000, 1777), (RANK_N, RANK_N)):
+    rank_big = {}
+    for n_, nd_ in ((1000, 1777), (RANK_MULTIHOST, RANK_MULTIHOST),
+                    (RANK_N, RANK_N)):
         rq, rd, margin = rank_case(n_, nd_)
         r_k = rank_counts(rq, rd, impl="kernel")
         r_p = rank_counts_plain(rq, rd)
@@ -1056,6 +1122,19 @@ def main() -> int:
               f"version at {n_} x {nd_} ({int((r_k != r_p).sum())} ranks)")
         check(int(r_k.min()) == 1 and int(r_k.max()) > 10,
               f"rank_counts: ranks {int(r_k.min())}..{int(r_k.max())}")
+        if n_ == RANK_MULTIHOST:
+            true_r = true_scores(rq, rd)
+            rank_big = dict(
+                ms_13107=graph_ms(lambda: rank_counts(rq, rd, impl="kernel"),
+                                  reps=3),
+                ms_plain_13107=graph_ms(lambda: rank_counts_plain(rq, rd),
+                                        reps=3),
+                ms_library_13107=graph_ms(
+                    lambda: (rq @ rd.T > true_r[:, None]).sum(1), reps=3),
+                ms_bound_13107=bound_ms(
+                    (rq.numel() + rd.numel() + 2 * n_) * 4,
+                    2.0 * n_ * n_ * dims[-1], "f32")[0])
+        del r_p
     true_r = true_scores(rq, rd)
     b_ms, b_by = bound_ms((rq.numel() + rd.numel() + 2 * RANK_N) * 4,
                           2.0 * RANK_N * RANK_N * dims[-1], "f32")
@@ -1071,7 +1150,8 @@ def main() -> int:
         bound_ms=b_ms, bound_by=b_by,
         shape=f"q, d ({RANK_N}, {dims[-1]}) f32, ranks "
               f"{int(r_k.min())}..{int(r_k.max())}; also equal at a ragged "
-              "1000 x 1777",
+              f"1000 x 1777 and at {RANK_MULTIHOST}^2 (ms_13107)",
+        **rank_big,
     )
     del rq, rd
     new_names = ("joint_lookup", "joint_lookup_bwd", "count_lookup_bwd",
@@ -1298,6 +1378,52 @@ def main() -> int:
               ms_library_counts_outside_cnn=fused_c[
                   "library_ms_counts_outside"],
               ms_bound_cnn=fused_c["bound_ms"])
+    # The count lookup at the cnn and lstm eval shapes: each side's 16384
+    # word rows of 8 lookups into compact2, the block's selected rows in the
+    # compute dtype (bf16) as the eval path forms it, from Wc [30000, 1024]
+    # and from Win [30000, 384]; bit-equal to the joint lookup through
+    # sel = arange(u2) on both sides; timed on the d side.
+    count_seq = {}
+    for arch, tbl_ in (("cnn", wc),
+                       ("lstm", seq_params["lstm"]["shared"]["Win"])):
+        c2_s = select_rows(gather_row_groups(tbl_, uniq_c, 8, impl="kernel"),
+                           jf[0], torch.bfloat16).contiguous()
+        err_s = max(count_check(c2_s, jf[1], jf[2], f"{arch} q side"),
+                    count_check(c2_s, jf[3], jf[4], f"{arch} d side"))
+        count_joint_equal(c2_s, *jf[1:], f"at the {arch} shapes")
+        count_seq[arch] = dict(
+            ms=graph_ms(lambda: count_lookup(c2_s, jf[3], jf[4],
+                                             impl="kernel")),
+            plain_ms=graph_ms(lambda: count_lookup_plain(c2_s, jf[3], jf[4])),
+            library_ms=graph_ms(lambda: count_matrix(
+                jf[3], jf[4], c2_s.shape[0]) @ c2_s.float()),
+            bound_ms=count_bound(c2_s, jf[3], jf[4])[0], max_abs_err=err_s,
+            shape=f"compact2 {tuple(c2_s.shape)} bf16, inv/wgt "
+                  f"{tuple(jf[3].shape)}, {int((jf[4] != 0).sum())} live")
+        del c2_s
+    rc = results["count_lookup"]
+    rc["max_abs_err"] = max(rc["max_abs_err"], *(
+        r_["max_abs_err"] for r_ in count_seq.values()))
+    for arch, r_ in count_seq.items():
+        rc.update({f"ms_{arch}": r_["ms"], f"ms_plain_{arch}": r_["plain_ms"],
+                   f"ms_library_{arch}": r_["library_ms"],
+                   f"ms_bound_{arch}": r_["bound_ms"]})
+    print("count_lookup at the cnn and lstm eval shapes (d side; both sides "
+          "bit-equal to joint_lookup through sel = arange(u2)): "
+          + json.dumps(count_seq) + f" on {card}")
+    # Library calls at the cnn shapes: the gather's index_select of the
+    # group rows; the joint lookup's products with count matrices built
+    # outside the call, as row 5's library at the full shapes.
+    rows_cg = (torch.where((uniq_c >= 0) & (uniq_c < wc.shape[0] // 8),
+                           uniq_c, 0).long()[:, None] * 8
+               + torch.arange(8, device=dev)).reshape(-1)
+    cnt_qc = count_matrix(jf[1], jf[2], jf[0].numel())
+    cnt_dc = count_matrix(jf[3], jf[4], jf[0].numel())
+
+    def joint_library_cnn():
+        c2_ = comp_c.index_select(0, jf[0].long())
+        return cnt_qc @ c2_, cnt_dc @ c2_
+
     cnn_shapes = {
         "fused_gather_joint_lookup": fused_c,
         "gather_row_groups": dict(
@@ -1305,12 +1431,14 @@ def main() -> int:
                                                   impl="kernel")),
             plain_ms=graph_ms(lambda: gather_row_groups(wc, uniq_c, 8,
                                                         impl="plain")),
+            library_ms=graph_ms(lambda: wc.index_select(0, rows_cg)),
             bound_ms=bound_ms((real_c + uniq_c.numel()) * 8 * hc * 4
                               + uniq_c.numel() * 4, 0, "f32")[0],
             max_abs_err=0.0),
         "joint_lookup": dict(
             ms=graph_ms(lambda: joint_lookup(comp_c, *jf, impl="kernel")),
             plain_ms=graph_ms(lambda: joint_lookup_plain(comp_c, *jf)),
+            library_ms=graph_ms(joint_library_cnn),
             bound_ms=bound_ms(idx_bytes_c + both_c * hc * 4
                               + 2 * rows_c * hc * 4, 2.0 * nnz_c * hc,
                               "f32")[0],
@@ -1327,6 +1455,7 @@ def main() -> int:
     }
     for name, r_ in cnn_shapes.items():
         results[name]["ms_cnn"] = r_["ms"]
+        results[name]["ms_library_cnn"] = r_["library_ms"]
     results["joint_lookup_bwd"].update(
         ms_library_cnn=cnn_shapes["joint_lookup_bwd"]["library_ms"],
         ms_plain_cnn=cnn_shapes["joint_lookup_bwd"]["plain_ms"],
@@ -1337,7 +1466,7 @@ def main() -> int:
           f"{rows_c} a side, {nnz_c} live lookups on {both_c} rows): "
           + json.dumps(cnn_shapes) + f" on {card}")
     del tb_c, comp_c, lk_c, lp_c, g_qc, g_dc, dck_c, dck_c2, dcp_c, jf
-    del flat_qc, flat_dc
+    del flat_qc, flat_dc, rows_cg, cnt_qc, cnt_dc
 
     main_bag = bag_cases[("cnn", "float32")]
     for name, pre, line in (("embedding_bag", "fwd", 147),
@@ -1764,6 +1893,28 @@ def main() -> int:
             ranks_differing_kernel_vs_plain=differing,
             queries_with_a_near_tie=int((ties > 0).sum()),
             first_pass_s=dict(cold), cached_pass_s=dict(hot))
+        if tname == "float32":
+            # One cached pass traced: the device's busy time, and the rank
+            # count's and the count lookups' shares of it.
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof_e:
+                eval_mod.evaluate(params_e, cfg_e, hashed_eval, bs, "auto",
+                                  cache=True)
+                torch.cuda.synchronize()
+            busy_e, top_e = device_time_us(prof_e, 8)
+            by_name = {"rank_counts_kernel": 0.0, "count_lookup_kernel": 0.0}
+            for e in prof_e.key_averages():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    for kname in by_name:
+                        if kname in e.key:
+                            by_name[kname] += float(getattr(
+                                e, "self_device_time_total", 0.0))
+            eval_runs[tname]["traced_cached_pass"] = dict(
+                device_busy_ms=None if busy_e is None else busy_e / 1e3,
+                rank_counts_ms=by_name["rank_counts_kernel"] / 1e3,
+                count_lookup_ms=by_name["count_lookup_kernel"] / 1e3,
+                top_kernels_us=top_e)
         print(f"evaluate, {tname} table: " + json.dumps(eval_runs[tname]))
         del q_e, d_e
     results["rank_counts"]["launches"] = counts_e["rank_counts"]

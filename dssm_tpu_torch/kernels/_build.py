@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("gather.cu", "count.cu", "tower.cu", "joint.cu", "loss.cu",
            "scatter.cu", "scatter_sr.cu", "rank.cu", "embed.cu")
 # lookup.cuh: included by count.cu, joint.cu and embed.cu; sm90.cuh: by
-# tower.cu and loss.cu.
+# tower.cu, loss.cu and rank.cu.
 HEADERS = ("lookup.cuh", "sm90.cuh")
 LIB_NAME = "libdssm_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

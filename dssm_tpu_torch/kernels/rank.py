@@ -5,7 +5,8 @@
 
 Counterpart of dssm_tpu/kernels/pallas_rank.py::rank_counts_pallas; the CUDA
 kernel is csrc/rank.cu: a tiled f32 product whose scores stay in registers,
-compared and counted in place. The true score is formed outside the kernel
+compared and counted in place, each block holding a q tile while doc tiles
+stream past it. The true score is formed outside the kernel
 as the row dot and the self column is excluded by index, so the comparison
 cannot be flipped by the product's own rounding of the diagonal entry. A
 tie does not count (strict >). The plain version is the reference's default
@@ -23,7 +24,9 @@ import torch
 from dssm_tpu_torch.kernels import _build
 
 _NAME = "rank_counts"
-_MAX_ROWS = 65535 * 64  # the kernel's grid: 64 query rows a block row
+# Ranks are int32 and reach ND. The kernel's grid (one block per resident
+# slot, each a share of the tile pairs) puts no limit on N or ND.
+_MAX_DOCS = 2**31 - 1
 
 
 def true_scores(q: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -61,15 +64,17 @@ def rank_counts(q: torch.Tensor, d: torch.Tensor, *,
     if nd < n:
         raise ValueError(f"{_NAME}: {nd} docs for {n} queries; query i's "
                          "true doc is d[i]")
+    if nd > _MAX_DOCS:
+        raise ValueError(f"{_NAME}: {nd} docs; int32 ranks take at most "
+                         f"{_MAX_DOCS}")
     if _build.resolve_impl(impl, q, _NAME) == "plain":
         return rank_counts_plain(q, d)
     if q.dtype != torch.float32 or d.dtype != torch.float32:
         raise ValueError(f"{_NAME}: the kernel takes f32 embeddings, got "
                          f"{q.dtype} and {d.dtype}")
-    if dim % 4 or n > _MAX_ROWS:
+    if dim % 4:
         raise ValueError(f"{_NAME}: the kernel takes a width that is a "
-                         f"multiple of 4 and at most {_MAX_ROWS} queries, "
-                         f"got {dim} and {n}")
+                         f"multiple of 4, got {dim}")
     _build.check_cuda(_NAME, q.device, q, d)
     if q.data_ptr() % 16 or d.data_ptr() % 16:
         raise ValueError(f"{_NAME}: q and d must be 16-byte aligned")

@@ -97,19 +97,58 @@ def test_gather_kernel_matches_plain(dev):
                            gather_row_groups_plain(tbl, gids, group))
 
 
+# (u2, h, rows, k): small ragged rows; the `full` eval lookups (K = 64 and
+# 32 over a 1024 x 384 block); the cnn eval lookups (16,384 word rows of 8
+# over h = 1024); widths that are no whole number of 16-byte vectors.
+COUNT_CASES = [(128, 384, 256, 32), (128, 384, 100, 70), (1024, 384, 1024, 64),
+               (1024, 384, 1024, 32), (1024, 1024, (1024, 16), 8),
+               (128, 100, 300, 20), (128, 36, 300, 20)]
+
+
+def _count_case(rng, u2, rows, k, dev):
+    """inv, wgt [*rows, k]: ragged rows, and some live weights on slots
+    outside [0, u2) (past it, and negative), which add nothing."""
+    shape = rows if isinstance(rows, tuple) else (rows,)
+    inv, wgt = _ragged(rng, int(np.prod(shape)), k, u2)
+    inv[::7, 0], wgt[::7, 0] = u2 + 3, 2.0
+    inv[3::11, k - 1], wgt[3::11, k - 1] = -5, 1.5
+    return [torch.from_numpy(a.reshape(*shape, k)).to(dev)
+            for a in (inv, wgt)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_count_kernel_matches_plain(dev, dtype):
     rng = np.random.default_rng(22)
-    c2 = torch.from_numpy(rng.normal(size=(128, 384)).astype(np.float32))
-    c2 = c2.to(dev, dtype)
-    for rows, k in ((256, 32), (100, 70)):
-        inv, wgt = _ragged(rng, rows, k, 128)
-        inv, wgt = torch.from_numpy(inv).to(dev), torch.from_numpy(wgt).to(dev)
+    for u2, h, rows, k in COUNT_CASES:
+        c2 = torch.from_numpy(rng.normal(size=(u2, h)).astype(np.float32))
+        c2 = c2.to(dev, dtype)
+        inv, wgt = _count_case(rng, u2, rows, k, dev)
         got = count_lookup(c2, inv, wgt, impl="kernel")
         want = count_lookup_plain(c2, inv, wgt)
         torch.testing.assert_close(got, want, rtol=1e-5,
                                    atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_count_kernel_bit_equal_to_joint_lookup(dev, dtype):
+    """The count lookup sums each column over the live pairs in k order from
+    0, as the joint lookup kernel does: through sel = arange(u2) the two
+    give the same bits, on both sides of a joint batch."""
+    rng = np.random.default_rng(23)
+    for u2, h, rows, kq, kd in ((1024, 384, 1024, 32, 64),
+                                (1024, 1024, (1024, 16), 8, 8),
+                                (128, 100, 300, 12, 20), (128, 36, 50, 5, 70)):
+        c2 = torch.from_numpy(rng.normal(size=(u2, h)).astype(np.float32))
+        c2 = c2.to(dev, dtype)
+        q_inv, q_wgt = _count_case(rng, u2, rows, kq, dev)
+        d_inv, d_wgt = _count_case(rng, u2, rows, kd, dev)
+        sel = torch.arange(u2, dtype=torch.int32, device=dev)
+        lq, ld = joint_lookup(c2, sel, q_inv, q_wgt, d_inv, d_wgt,
+                              impl="kernel")
+        assert torch.equal(count_lookup(c2, q_inv, q_wgt, impl="kernel"), lq)
+        assert torch.equal(count_lookup(c2, d_inv, d_wgt, impl="kernel"), ld)
 
 
 # (widths, rows): small ragged widths; the `full` widths at row counts that
@@ -625,9 +664,15 @@ def test_scatter_add_bf16_kernel_matches_plain(dev):
     assert torch.equal(got, want) and not torch.equal(got, table)
 
 
+# The eval passes of `full` (6553 pairs) and `multihost` (13107); ragged
+# edges; one q tile against many doc tiles; one query; D = 36, and D = 260
+# and 680, deeper than one (320) and than two passes of q.
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,nd,dim", [(600, 600, 128), (70, 203, 36),
-                                      (1000, 1777, 128)])
+                                      (1000, 1777, 128), (6553, 6553, 128),
+                                      (13107, 13107, 128), (129, 4000, 128),
+                                      (1, 300, 128), (300, 700, 260),
+                                      (200, 517, 680)])
 def test_rank_kernel_matches_plain(dev, n, nd, dim):
     rng = np.random.default_rng(31)
     q = torch.nn.functional.normalize(torch.from_numpy(

@@ -116,6 +116,9 @@ def test_rank_counts_refusals():
         rank_counts(q, torch.zeros((4, 12)))
     with pytest.raises(RuntimeError, match="needs CUDA tensors"):
         rank_counts(q, q, impl="kernel")
+    # int32 ranks: at most 2**31 - 1 docs (a broadcast view, no memory).
+    with pytest.raises(ValueError, match="int32 ranks"):
+        rank_counts(q, torch.zeros((1, 8)).expand(2**31, 8))
     assert rank_counts(q[:0], d).shape == (0,)
 
 
