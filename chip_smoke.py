@@ -6,8 +6,10 @@
 Builds the port's CUDA kernels from dssm_tpu_torch/csrc, holds each kernel
 to its plain PyTorch version at the `full` preset's shapes and times both
 (the count lookup also bit-equal to the joint lookup through sel =
-arange(u2), and timed at the cnn and lstm eval shapes; the rank count also
-at the multihost preset's 13107 eval pairs), then drives the `full` preset
+arange(u2), and timed at the cnn and lstm eval shapes; its backward on both
+sides of a per-side batch with f32 and bf16 gradients, two calls bit-equal;
+the joint lookup also at the int8 step's shapes; the rank count also at
+the multihost preset's 13107 eval pairs), then drives the `full` preset
 end to end (500k x 384 table, towers 300->300->128 in bf16, batch 1024,
 union dedupe):
 
@@ -17,9 +19,11 @@ union dedupe):
     (the joint step's lookup on an f32 or bf16 table is the fused gather +
     joint lookup kernel, bit-equal to the gather and joint lookup kernels
     it replaces there, which an int8 table's step still runs); then 3
-    steps of the per-side branch (separate towers) the same way;
+    steps of the per-side branch (separate towers) the same way, and 3
+    more traced (device busy ms a step);
   - trains it the same way on a bf16 table and on an int8 table (12 steps
-    each, the stochastic-rounding scatters, kernels against plain versions);
+    each, the stochastic-rounding scatters, kernels against plain versions;
+    3 int8 steps traced);
   - evaluates the f32, bf16 and int8 models on the held-out split (recall@1,
     NDCG@10, MRR), kernels against plain versions, the second pass from the
     cache of prepared batches, and traces one more cached pass of the f32
@@ -704,35 +708,72 @@ def main() -> int:
               "is in its time)",
     )
 
-    # Count lookup backward: the doc side of the per-side branch, slots as
-    # compact2 rows (u2 = 1024), bf16 compact2.
-    dc2_k = count_lookup_bwd(d_inv, d_wgt, g_d, u2, impl="kernel")
-    dc2_p = count_lookup_bwd_plain(d_inv, d_wgt, g_d, u2)
-    torch.cuda.synchronize()
-    err, scale = float((dc2_k - dc2_p).abs().max()), float(dc2_p.abs().max())
-    check(err <= 1e-5 * scale, f"count_lookup_bwd: max err {err} over 1e-5 "
-          f"x max |dc2| {scale}")
-    flat_u = d_inv.long().reshape(-1)
+    # Count lookup backward, as the per-side step calls it: both sides of
+    # the per-side stream's first batch, slots as compact2 rows; g f32 (the
+    # step's: the lookup's f32 output is cast to bf16 after it) and bf16.
+    # Two calls must give the same bits. Bound: inv and wgt read once, g
+    # read once, d_compact2 written once; one f32 FMA per live lookup and
+    # column. Library: one index_add_ of the weighted g rows (the same
+    # function; dead lookups folded to slot 0 with weight 0).
+    tb_ps = batch_to_torch(next(stream(False)), dev)
+    count_bwd_cases, count_bwd_err = {}, 0.0
+    for side in ("d", "q"):
+        inv_s = tb_ps[f"{side}_inv"].contiguous()
+        wgt_s = tb_ps[f"{side}_wgt"].contiguous()
+        u2_s = tb_ps[f"{side}_sel"].numel()
+        valid_s = (inv_s >= 0) & (inv_s < u2_s)
+        nnz_s = int(((wgt_s != 0) & valid_s).sum())
+        idx_s = torch.where(valid_s, inv_s, 0).long().reshape(-1)
+        w0_s = torch.where(valid_s, wgt_s, 0.0)
+        for g_dt in (torch.float32, bf):
+            g_s = torch.from_numpy(rng.normal(size=(rows_n, h)).astype(
+                np.float32)).to(dev).to(g_dt)
+            dc2_k = count_lookup_bwd(inv_s, wgt_s, g_s, u2_s, impl="kernel")
+            dc2_k2 = count_lookup_bwd(inv_s, wgt_s, g_s, u2_s, impl="kernel")
+            dc2_p = count_lookup_bwd_plain(inv_s, wgt_s, g_s, u2_s)
+            torch.cuda.synchronize()
+            what = f"{side} side, K={inv_s.shape[1]}, g {str(g_dt)[6:]}"
+            err = float((dc2_k - dc2_p).abs().max())
+            scale = float(dc2_p.abs().max())
+            check(err <= 1e-5 * scale, f"count_lookup_bwd ({what}): max err "
+                  f"{err} over 1e-5 x max |dc2| {scale}")
+            check(torch.equal(dc2_k, dc2_k2), f"count_lookup_bwd ({what}): "
+                  "two calls on the same inputs differ (bit-equal expected: "
+                  "no float atomics)")
+            count_bwd_err = max(count_bwd_err, err / scale)
 
-    def count_bwd_library():
-        return torch.zeros((u2, h), device=dev).index_add_(
-            0, flat_u, (d_wgt[..., None] * g_d.float()[:, None, :]
-                        ).reshape(-1, h))
+            def count_bwd_library(idx_s=idx_s, w0_s=w0_s, g_s=g_s, u2_s=u2_s):
+                return torch.zeros((u2_s, h), device=dev).index_add_(
+                    0, idx_s, (w0_s[..., None] * g_s.float()[:, None, :]
+                               ).reshape(-1, h))
 
-    b_ms, b_by = bound_ms(d_inv.numel() * 8 + rows_n * h * 2 + u2 * h * 4,
-                          2.0 * nnz_d * h, "f32")
+            b_ms, b_by = bound_ms(inv_s.numel() * 8 + g_s.numel()
+                                  * g_s.element_size() + u2_s * h * 4,
+                                  2.0 * nnz_s * h, "f32")
+            count_bwd_cases[what] = dict(
+                ms=graph_ms(lambda: count_lookup_bwd(
+                    inv_s, wgt_s, g_s, u2_s, impl="kernel")),
+                plain_ms=graph_ms(lambda: count_lookup_bwd_plain(
+                    inv_s, wgt_s, g_s, u2_s)),
+                library_ms=graph_ms(count_bwd_library),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                live_lookups=nnz_s, u2=u2_s)
+    print("count_lookup_bwd, each case run twice on the same inputs: "
+          f"bit-equal; on {card}: " + json.dumps(count_bwd_cases))
+    step_case = count_bwd_cases[f"d side, K={tb_ps['d_inv'].shape[1]}, "
+                                "g float32"]
     results["count_lookup_bwd"] = dict(
-        source="dssm_tpu_torch/csrc/count.cu",
+        source="dssm_tpu_torch/csrc/count.cu (csrc/segsum.cuh)",
         replaces="dssm_tpu/kernels/pallas_count.py:168",
-        max_abs_err=err, tolerance=f"1e-5 x max |dc2| ({scale:.3g})",
-        ms=graph_ms(lambda: count_lookup_bwd(d_inv, d_wgt, g_d, u2,
-                                             impl="kernel")),
-        plain_ms=graph_ms(lambda: count_lookup_bwd_plain(d_inv, d_wgt, g_d,
-                                                         u2)),
-        library_ms=graph_ms(count_bwd_library),
-        bound_ms=b_ms, bound_by=b_by,
-        shape=f"inv/wgt ({rows_n}, {kd}), g ({rows_n}, {h}) bf16 -> "
-              f"({u2}, {h}) f32, {nnz_d} live lookups",
+        tolerance=f"1e-5 x max |dc2| (largest ratio {count_bwd_err:.3g}); "
+                  "two calls bit-equal",
+        **{k: step_case[k] for k in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by", "max_abs_err")},
+        cases=count_bwd_cases,
+        shape="the per-side step's d side, g f32 (every case in `cases`): "
+              f"inv/wgt ({rows_n}, {tb_ps['d_inv'].shape[1]}) -> "
+              f"({step_case['u2']}, {h}) f32, {step_case['live_lookups']} "
+              "live lookups; every row written by the kernel, no zero fill",
     )
 
     # Dense tower with residuals and its backward: x [2048, 300] bf16 (both
@@ -951,6 +992,16 @@ def main() -> int:
               f"{tname} table")
         results["gather_row_groups"][f"ms_{tname}"] = graph_ms(
             lambda: gather_row_groups(tbl, uniq_lp, grp, impl="kernel"))
+        rows_all = (torch.where((uniq_lp >= 0) & (uniq_lp < groups_lp),
+                                uniq_lp, 0).long()[:, None] * grp
+                    + torch.arange(grp, device=dev)).reshape(-1)
+        results["gather_row_groups"][f"library_ms_{tname}"] = graph_ms(
+            lambda: tbl.index_select(0, rows_all))
+        print(f"gather_row_groups on the {tname} table: kernel "
+              f"{results['gather_row_groups'][f'ms_{tname}']:.4f} ms, library "
+              "(index_select of the slots' rows) "
+              f"{results['gather_row_groups'][f'library_ms_{tname}']:.4f} ms "
+              f"on {card}")
         # Bit-equal to the plain version (same Philox stream), in place.
         t_k, t_p = tbl.clone(), tbl.clone()
         out = fn(t_k, uniq_lp, upd, grp, 12345, impl="kernel")
@@ -1071,6 +1122,58 @@ def main() -> int:
           f"slots: max err {err_b} over 1e-5 x {scale_b}")
     results["joint_lookup"]["ms_bfloat16"] = graph_ms(
         lambda: joint_lookup(compact16, *f16, impl="kernel"))
+    cnt_q16 = count_matrix(f16[1], f16[2], f16[0].numel())
+    cnt_d16 = count_matrix(f16[3], f16[4], f16[0].numel())
+
+    def joint_library_bf16():  # as row 5's library: the count matrices
+        c2_ = compact16.index_select(0, f16[0].long()).float()  # built outside
+        return cnt_q16 @ c2_, cnt_d16 @ c2_
+
+    results["joint_lookup"]["library_ms_bfloat16"] = graph_ms(
+        joint_library_bf16)
+
+    # The joint lookup at the int8 step's shapes: the int8 stream's first
+    # batch over its compact block of 256 slots of 32 rows, f32 (as
+    # dequant_compact returns it), here gathered from the f32 table.
+    tb8 = batch_to_torch(lowprec["int8"]["batches"][0], dev)
+    f8 = [tb8[k].contiguous() for k in ("sel", "q_inv", "q_wgt", "d_inv",
+                                        "d_wgt")]
+    compact8 = gather_row_groups(table, tb8["uniq"], 32, impl="kernel")
+    lk8 = joint_lookup(compact8, *f8, impl="kernel")
+    lp8 = joint_lookup_plain(compact8, *f8)
+    err8 = max(float((a_ - b_).abs().max()) for a_, b_ in zip(lk8, lp8))
+    scale8 = max(float(b_.abs().max()) for b_ in lp8)
+    check(err8 <= 1e-5 * scale8, f"joint_lookup at the int8 step's shapes: "
+          f"max err {err8} over 1e-5 x {scale8}")
+    cnt_q8 = count_matrix(f8[1], f8[2], f8[0].numel())
+    cnt_d8 = count_matrix(f8[3], f8[4], f8[0].numel())
+
+    def joint_library_int8():  # as row 5's library at the smoke's shape
+        c2_ = compact8.index_select(0, f8[0].long())
+        return cnt_q8 @ c2_, cnt_d8 @ c2_
+
+    nnz8 = int((f8[2] != 0).sum() + (f8[4] != 0).sum())
+    both8 = torch.unique(torch.cat([
+        f8[0].long()[f8[1].long()[f8[2] != 0]],
+        f8[0].long()[f8[3].long()[f8[4] != 0]]])).numel()
+    rj = results["joint_lookup"]
+    rj["max_abs_err"] = max(rj["max_abs_err"], err8)
+    rj.update(
+        ms_int8_step=graph_ms(lambda: joint_lookup(compact8, *f8,
+                                                   impl="kernel")),
+        plain_ms_int8_step=graph_ms(lambda: joint_lookup_plain(compact8,
+                                                               *f8)),
+        library_ms_int8_step=graph_ms(joint_library_int8),
+        bound_ms_int8_step=bound_ms(
+            (f8[1].numel() + f8[3].numel()) * 8 + f8[0].numel() * 4
+            + both8 * h * 4 + 2 * rows_n * h * 4, 2.0 * nnz8 * h, "f32")[0],
+        shape_int8_step=f"compact {tuple(compact8.shape)} f32, {nnz8} live "
+                        f"lookups on {both8} rows")
+    print("joint_lookup at the int8 step's shapes and on the bf16 compact "
+          f"block, on {card}: " + json.dumps(
+              {k: v for k, v in rj.items() if k.endswith("_int8_step")
+               or k == "library_ms_bfloat16"}))
+    del compact8, lk8, lp8, cnt_q8, cnt_d8
     results["joint_lookup_bwd"]["ms_bfloat16"] = graph_ms(
         lambda: joint_lookup_bwd(*f16, g_q, g_d, gr16, impl="kernel"))
     del compact16, tb16, lk, lp_, dck, dcp, table16
@@ -1570,8 +1673,8 @@ def main() -> int:
         same random stream, so they part only where the accumulators' last
         bits tip a rounding). The whole run: under bf16 compute the two
         runs drift apart step by step (a tower activation rounds to the
-        neighbouring bf16 value, the backward's atomics add in another
-        order), so the loss curves are held to loss_tol and each
+        neighbouring bf16 value, the kernels sum in another order than
+        the plain versions), so the loss curves are held to loss_tol and each
         parameter's update (the table's on its touched rows) to 0.1 of
         itself, by update_gap: a wrong update reads 1 or more, the sound
         runs of every branch on an H100 at most 0.039 (the cnn's)."""
@@ -1737,6 +1840,36 @@ def main() -> int:
     print(f"device time by kernel in the traced steps (us, {n_prof} steps): "
           + json.dumps(top_t))
 
+    def traced_step(what, cfg_, state_, batches_, names_):
+        """Device busy time a step of `batches_` from `state_`, traced
+        (their wire fields moved to the card first), the top kernels, and
+        the device time a step of the kernels whose names hold one of
+        `names_`."""
+        tb_ = [batch_to_torch(b_, dev) for b_ in batches_]
+        step_ = make_train_step(cfg_, "auto")
+        state_, _ = step_(state_, tb_[0])  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_:
+            t0_ = time.perf_counter()
+            for b_ in tb_:
+                state_, _ = step_(state_, b_)
+            torch.cuda.synchronize()
+            wall_ = time.perf_counter() - t0_
+        us_, top_ = device_time_us(prof_, 10)
+        named_us = sum(float(getattr(e, "self_device_time_total", 0.0))
+                       for e in prof_.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and any(n_ in e.key for n_ in names_))
+        print(f"{what}, traced ({len(tb_)} steps, on {card}): " + json.dumps(
+            dict(device_busy_ms_per_step=(
+                None if us_ is None else us_ / 1e3 / len(tb_)),
+                 wall_ms_per_step=wall_ * 1e3 / len(tb_),
+                 named_kernels=list(names_),
+                 named_kernels_ms_per_step=(
+                     None if us_ is None else named_us / 1e3 / len(tb_)),
+                 top_kernels_us=top_)))
+
     # The per-side branch (separate towers, per-side dedupe): the path of
     # the count lookup's backward kernel.
     cfg_ps = validate(cfg.replace(tower=t.replace(shared_weights=False)))
@@ -1754,6 +1887,10 @@ def main() -> int:
     print(f"per-side branch, {PER_SIDE_STEPS} steps: loss {ps['loss']}; "
           f"count_lookup_bwd launched {ps['counts']['count_lookup_bwd']} "
           f"times; kernel vs plain: {json.dumps(gaps(ps))}")
+    traced_step("per-side step, f32 table", cfg_ps, ps["state"],
+                [next(it) for _ in range(PER_SIDE_STEPS)],
+                ("bwd_rank_kernel", "bwd_scan_kernel", "bwd_place_kernel",
+                 "bwd_reduce_kernel"))  # the 2 count_lookup_bwd calls a step
     del params_ps, ps
 
     # ---- phase 4b: the same path on a bf16 and on an int8 table ----------
@@ -1789,7 +1926,7 @@ def main() -> int:
         # One step from the same state, the same random stream. int8: the
         # f32 accumulators differ in their last bits, each run rounds to a
         # neighbour of its own: under 2 levels. bf16: the compact gradient
-        # is rounded to bf16 first, and where the atomics tip that rounding
+        # is rounded to bf16 first, and where the sum order tips that rounding
         # the update differs by one bf16 ulp of itself, at most 2 ulps of
         # the larger of the old and new weight; with a neighbour on each
         # side that is under 4 grid steps (2.0 was the most seen).
@@ -1823,6 +1960,10 @@ def main() -> int:
         print(f"training path, {tname} table: " + json.dumps(summary))
         lowprec_runs[tname] = dict(cfg=cfg_lp, state=run["state"],
                                    summary=summary)
+        if tname == "int8":
+            traced_step("int8 joint step", cfg_lp, run["state"],
+                        lp["batches"][:PER_SIDE_STEPS],
+                        ("joint_lookup_kernel",))
         del params_lp, run
 
     # ---- phase 4c: evaluation of the three trained models -----------------

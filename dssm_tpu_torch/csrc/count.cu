@@ -36,21 +36,35 @@
 // streaming stores: at the cnn shape they are the largest stream, read once
 // by the tower (faster there than plain stores; the same at `full`).
 // Sum order: each column is one fmaf chain over the live pairs in k order
-// from 0, as joint.cu's accumulate_row sums (lookup.cuh): the output is
-// bit-equal to the joint lookup through sel = arange(u2), and to the earlier
-// design of a block a row and a thread a column.
+// from 0, as joint.cu's lookups sum: the output is bit-equal to the joint
+// lookup through sel = arange(u2), and to the earlier design of a block a
+// row and a thread a column.
 //
-// Backward: d_compact2[inv[r, k], :] += wgt[r, k] * g[r, :], f32, into a
-// zeroed [u2, h] buffer: one thread block per row, one thread per column;
-// the first warp compacts the row's live pairs into shared memory, then an
-// atomic add per (live lookup, column) (lookup.cuh). It moves g once and
-// the touched rows of d_compact2 once; the atomics on hot rows bound it.
+// Backward: d_compact2[u, :] = sum over the live lookups with inv == u of
+// wgt * g[row, :], f32, g f32 or bf16; every row of d_compact2 written (0
+// where no live lookup names it), with no float atomics: two calls give the
+// same bits. It is joint.cu's backward taken as one side with no row
+// selection (segsum.cuh): a stable counting sort of the live lookups by
+// compact row (rank, scan and place kernels), then a segmented sum, a warp
+// a piece of at most 32 lookups in flat order, a row's pieces added in
+// order. Four kernels in one call, the last three with programmatic
+// dependent launch.
+// Bound on the H100: bytes. At `full` (d side, f32 g) inv + wgt (0.5 MB),
+// g (1.6 MB) and d_compact2 (1.6 MB) once: ~1.1 us at 3.35 TB/s (bf16 g:
+// 0.9 us). The segmented sum re-reads one g row a live lookup (~33k rows:
+// 50 MB f32, 25 MB bf16) from L2, a floor of several microseconds at the
+// L2's rate, and the four kernels' dependent global round trips come one
+// after another: on these shapes it is slower than the one-kernel f32
+// atomics it replaced, which have no such chain.
+// Scratch (keys, ranks, counts, the sorted lists, descriptors, partials)
+// comes from the caller, sized by dssm_count_lookup_bwd_workspace.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "lookup.cuh"
+#include "segsum.cuh"
 
 namespace {
 
@@ -179,7 +193,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int q = 0; q < VPL; ++q) {
       const int v = v0 + lane + 32 * q;
-      if (v < ve) dssm::store_floats_cs<VEC>(out + (int64_t)v * VEC, acc[q]);
+      if (v < ve) dssm::store_floats<VEC, true>(out + (int64_t)v * VEC, acc[q]);
     }
   }
 }
@@ -232,26 +246,6 @@ int launch_fwd(FwdArgs a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <typename G>
-__global__ void count_lookup_bwd_kernel(const int32_t* __restrict__ inv,
-                                        const float* __restrict__ wgt,
-                                        const G* __restrict__ g,
-                                        float* __restrict__ dc2, int k,
-                                        int u2, int h) {
-  extern __shared__ unsigned char smem_raw[];
-  int32_t* s_row = reinterpret_cast<int32_t*>(smem_raw);
-  float* s_wgt = reinterpret_cast<float*>(smem_raw + sizeof(int32_t) * k);
-  __shared__ int s_live;
-  const int64_t r = blockIdx.x;
-  if (threadIdx.x < 32) {
-    const int live = dssm::compact_live_pairs(inv + r * k, wgt + r * k,
-                                              nullptr, k, u2, u2, s_row,
-                                              s_wgt);
-    if (threadIdx.x == 0) s_live = live;
-  }
-  __syncthreads();
-  dssm::scatter_row_grad(dc2, s_row, s_wgt, s_live, h, g + r * h);
-}
 
 }  // namespace
 
@@ -277,28 +271,39 @@ extern "C" int dssm_count_lookup(const void* compact2, const void* inv,
   return (int)cudaErrorInvalidValue;
 }
 
+// Bytes of scratch dssm_count_lookup_bwd needs for these shapes; -1 for
+// shapes it does not take.
+extern "C" long long dssm_count_lookup_bwd_workspace(long long rows, int k,
+                                                     int u2, int h) {
+  dssm::BwdLayout l;
+  return dssm::bwd_layout(rows, k, 0, u2, h, &l) ? 4 * l.words : -1;
+}
+
 // inv, wgt: [rows, k]; g: [rows, h] (g_dtype 0 = f32, 1 = bf16); dc2:
-// [u2, h] f32, zeroed by the caller, added into. Returns cudaGetLastError().
+// [u2, h] f32, every row written (the caller does not fill it); work:
+// 16-byte aligned scratch of work_bytes >=
+// dssm_count_lookup_bwd_workspace(...). Four kernels on the stream
+// (segsum.cuh). Returns the first CUDA error.
 extern "C" int dssm_count_lookup_bwd(const void* inv, const void* wgt,
-                                     const void* g, void* dc2, long long rows,
+                                     const void* g, void* dc2, void* work,
+                                     long long work_bytes, long long rows,
                                      int k, int u2, int h, int g_dtype,
                                      void* stream) {
-  if (rows <= 0 || k <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (sizeof(int32_t) + sizeof(float)) * (size_t)k;
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const int threads = dssm::block_threads(h);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (g_dtype == 0) {
-    count_lookup_bwd_kernel<float><<<(unsigned int)rows, threads, smem, s>>>(
-        (const int32_t*)inv, (const float*)wgt, (const float*)g, (float*)dc2,
-        k, u2, h);
-  } else if (g_dtype == 1) {
-    count_lookup_bwd_kernel<__nv_bfloat16><<<(unsigned int)rows, threads,
-                                             smem, s>>>(
-        (const int32_t*)inv, (const float*)wgt, (const __nv_bfloat16*)g,
-        (float*)dc2, k, u2, h);
-  } else {
+  dssm::BwdLayout l;
+  if (!dssm::bwd_layout(rows, k, 0, u2, h, &l) || work_bytes < 4 * l.words ||
+      !dssm::aligned16(work) || (g_dtype != 0 && g_dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  dssm::BwdArgs a = {};
+  a.inv[0] = (const int32_t*)inv;
+  a.wgt[0] = (const float*)wgt;
+  a.k[0] = k;
+  a.g[0] = g;
+  a.g[1] = g;
+  a.dc = (float*)dc2;
+  a.rows = (int)rows;
+  a.u2 = u2;
+  a.gr = u2;
+  a.h = h;
+  return dssm::lookup_bwd(a, l, work, g_dtype, (cudaStream_t)stream);
 }

@@ -1,6 +1,7 @@
-// Device functions shared by the lookup kernels (count.cu, joint.cu's
-// joint lookup) and the row-group gather (gather.cu), and the 16-byte
-// column vectors of count.cu's warp-per-row lookup.
+// Device functions shared by the lookup kernels (count.cu, joint.cu,
+// embed.cu) and the row-group gather (gather.cu), and the 16-byte column
+// vectors of the warp-per-row lookups (count.cu's forward, joint.cu's
+// lookups) and of the segmented sums (segsum.cuh).
 //
 // A lookup row is K (slot, weight) pairs. A pair is live when its weight is
 // not zero and its slot resolves to a row of the source block: slot in
@@ -20,13 +21,6 @@ namespace dssm {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-// Threads of a lookup block: one per column of H, whole warps, at most 512
-// (wider rows loop).
-inline int block_threads(int h) {
-  const int threads = ((h + 31) / 32) * 32;
-  return threads > 512 ? 512 : threads;
 }
 
 // Called by the first warp of a block: writes the live pairs of one lookup
@@ -77,43 +71,7 @@ __device__ __forceinline__ void copy_row_group(
   }
 }
 
-// out[c] = sum_j s_wgt[j] * src[s_row[j], c] for the block's columns, f32
-// accumulation in k order. A negative s_row[j] reads as a zero row: its
-// term stays in the sum, as an empty slot's zeroed compact row would.
-template <typename T>
-__device__ __forceinline__ void accumulate_row(
-    const T* __restrict__ src, const int32_t* s_row, const float* s_wgt,
-    int n, int h, float* __restrict__ out_row) {
-  for (int c = threadIdx.x; c < h; c += blockDim.x) {
-    float acc = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < n; ++j) {
-      const int32_t row = s_row[j];
-      const float v = row >= 0 ? to_f32(src[(int64_t)row * h + c]) : 0.f;
-      acc = fmaf(s_wgt[j], v, acc);
-    }
-    out_row[c] = acc;
-  }
-}
-
-// The transpose of accumulate_row: dst[s_row[j], c] += s_wgt[j] * g[c].
-// Several lookup rows (blocks) add into one dst row, so the adds are f32
-// atomics: the sum is right, its order (and so its last bits) is not fixed
-// from run to run. count.cu's backward uses it; joint.cu's backward no
-// longer does (it sorts the lookups by row and sums each row in order).
-template <typename G>
-__device__ __forceinline__ void scatter_row_grad(
-    float* __restrict__ dst, const int32_t* s_row, const float* s_wgt, int n,
-    int h, const G* __restrict__ g_row) {
-  for (int c = threadIdx.x; c < h; c += blockDim.x) {
-    const float g = to_f32(g_row[c]);
-    for (int j = 0; j < n; ++j) {
-      atomicAdd(dst + (int64_t)s_row[j] * h + c, s_wgt[j] * g);
-    }
-  }
-}
-
-// ---- 16-byte column vectors (count.cu's forward) --------------------------
+// ---- 16-byte column vectors ------------------------------------------------
 
 // What one lane loads at a time: VEC values of T (16 bytes, or one value).
 template <typename T, int VEC>
@@ -171,18 +129,25 @@ __device__ __forceinline__ void to_floats(unsigned short x, float (&f)[1]) {
   f[0] = __uint_as_float((unsigned int)x << 16);
 }
 
-// VEC f32 values to p (16-byte aligned when VEC > 1) with streaming stores
-// (st.global.cs: written once, read once by the next kernel).
-template <int VEC>
-__device__ __forceinline__ void store_floats_cs(float* p,
-                                                const float (&f)[VEC]) {
+// VEC f32 values to p (16-byte aligned when VEC > 1), with streaming stores
+// (st.global.cs: written once, read once by the next kernel) or plain ones.
+template <int VEC, bool kStream>
+__device__ __forceinline__ void store_floats(float* p, const float (&f)[VEC]) {
   if constexpr (VEC == 1) {
-    __stcs(p, f[0]);
+    if constexpr (kStream) {
+      __stcs(p, f[0]);
+    } else {
+      *p = f[0];
+    }
   } else {
 #pragma unroll
     for (int e = 0; e < VEC; e += 4) {
-      __stcs(reinterpret_cast<float4*>(p + e),
-             make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]));
+      const float4 v = make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
+      if constexpr (kStream) {
+        __stcs(reinterpret_cast<float4*>(p + e), v);
+      } else {
+        *reinterpret_cast<float4*>(p + e) = v;
+      }
     }
   }
 }

@@ -28,9 +28,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("gather.cu", "count.cu", "tower.cu", "joint.cu", "loss.cu",
            "scatter.cu", "scatter_sr.cu", "rank.cu", "embed.cu")
-# lookup.cuh: included by count.cu, joint.cu and embed.cu; sm90.cuh: by
-# tower.cu, loss.cu and rank.cu.
-HEADERS = ("lookup.cuh", "sm90.cuh")
+# lookup.cuh: included by gather.cu, count.cu, joint.cu and embed.cu;
+# segsum.cuh (the lookup backward: sort and segmented sum): by count.cu and
+# joint.cu; sm90.cuh: by tower.cu, loss.cu and rank.cu.
+HEADERS = ("lookup.cuh", "segsum.cuh", "sm90.cuh")
 LIB_NAME = "libdssm_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -42,8 +43,9 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "dssm_gather_row_groups": [_P, _P, _P, _I64, _I64, _I64, _P],
     "dssm_count_lookup": [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _P],
-    "dssm_count_lookup_bwd": [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT,
-                              _P],
+    "dssm_count_lookup_bwd": [_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT,
+                              _INT, _INT, _P],
+    "dssm_count_lookup_bwd_workspace": [_I64, _INT, _INT, _INT],
     "dssm_dense_tower": [_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
                          ctypes.POINTER(_P), ctypes.POINTER(_INT), _INT, _I64,
                          _INT, _INT, _INT, ctypes.c_float, _P],
@@ -74,7 +76,8 @@ _SIGNATURES = {
 }
 
 # Return types other than the launchers' int (a CUDA error code).
-_RESTYPES = {"dssm_joint_lookup_bwd_workspace": _I64}
+_RESTYPES = {"dssm_joint_lookup_bwd_workspace": _I64,
+             "dssm_count_lookup_bwd_workspace": _I64}
 
 # One name per counted entry point. dense_tower_residuals is the tower's
 # training call (the same C function, asked for its per-layer residuals).

@@ -3,8 +3,9 @@
 Counterpart of dssm_tpu/kernels/pallas_count.py::count_lookup_pallas, forward
 and backward; the CUDA kernels are in csrc/count.cu: a direct
 gather-accumulate that never builds the count matrix, and for the gradient in
-compact2 the transposed scatter-accumulate. The plain versions repeat the
-reference's formulation, count_matrix(inv, wgt) @ compact2 and its transpose.
+compact2 a counting sort of the live lookups by compact row followed by a
+segmented sum in a fixed order. The plain versions repeat the reference's
+formulation, count_matrix(inv, wgt) @ compact2 and its transpose.
 """
 
 from __future__ import annotations
@@ -61,8 +62,11 @@ def count_lookup_bwd(inv: torch.Tensor, wgt: torch.Tensor, g: torch.Tensor,
                      u2: int, *, impl: str = "auto") -> torch.Tensor:
     """d_compact2 [U2, H] f32 = sum over lookups of wgt * g at row inv.
 
-    inv/wgt [..., K], g [..., H] f32 or bf16. The kernel adds with f32
-    atomics: the last bits depend on the order of the adds.
+    inv/wgt [..., K], g [..., H] f32 or bf16. The kernel sorts the live
+    lookups by compact row and sums each row in a fixed order, with no float
+    atomics: two calls give the same bits. It writes every row of
+    d_compact2 (zero where no live lookup names it) and takes its scratch
+    from one workspace allocated here.
     """
     if _build.resolve_impl(impl, g, _BWD) == "plain":
         return count_lookup_bwd_plain(inv, wgt, g, u2)
@@ -74,12 +78,18 @@ def count_lookup_bwd(inv: torch.Tensor, wgt: torch.Tensor, g: torch.Tensor,
     h = g.shape[-1]
     k = inv.shape[-1]
     rows = inv.numel() // k if k else 0
-    dc2 = torch.zeros((u2, h), dtype=torch.float32, device=g.device)
     if rows == 0 or h == 0 or k == 0 or u2 == 0:
-        return dc2
+        return torch.zeros((u2, h), dtype=torch.float32, device=g.device)
+    nbytes = _build.query("dssm_count_lookup_bwd_workspace", rows, k, u2, h)
+    if nbytes < 0:
+        raise ValueError(f"{_BWD}: shapes the kernel does not take: {rows} "
+                         f"rows, K {k}, u2 {u2}, H {h}")
+    dc2 = torch.empty((u2, h), dtype=torch.float32, device=g.device)
+    work = torch.empty((nbytes,), dtype=torch.uint8, device=g.device)
     _build.launch(_BWD, "dssm_count_lookup_bwd", g.device, inv.data_ptr(),
-                  wgt.data_ptr(), g.data_ptr(), dc2.data_ptr(), rows, k, u2,
-                  h, _DTYPE_CODE[g.dtype])
+                  wgt.data_ptr(), g.data_ptr(), dc2.data_ptr(),
+                  work.data_ptr(), nbytes, rows, k, u2, h,
+                  _DTYPE_CODE[g.dtype])
     return dc2
 
 

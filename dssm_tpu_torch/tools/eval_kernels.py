@@ -1,15 +1,19 @@
-"""Time the eval path's two heaviest kernels, the count lookup forward
-(csrc/count.cu) and the rank count (csrc/rank.cu), beside other builds of
+"""Time the port's lookup, gather and rank kernels beside other builds of
 them, on one NVIDIA GPU.
 
-    python -m dssm_tpu_torch.tools.eval_kernels [--source NAME=DIR ...]
+    python -m dssm_tpu_torch.tools.eval_kernels [--cases eval|lookup]
+        [--source NAME=DIR ...]
 
-Builds count.cu and rank.cu as they stand and, for each --source, the
-count.cu and rank.cu in DIR (the same C entry points, e.g. an earlier
-commit's csrc/), all at once; holds every build to the plain versions and
-says whether its outputs are bit-equal to this tree's build; then times each
-with CUDA-graph replays (median of 11 replays of 20 calls, 5 for the rank
-count; L2-warm), builds in turns, forward then backward through the list:
+Builds the group's sources as they stand (`eval`: count.cu and rank.cu;
+`lookup`: count.cu, joint.cu and gather.cu) and, for each --source, the same
+files in DIR (the same C entry points, e.g. an earlier commit's csrc/, with
+the headers they include), all at once; holds every build to the plain
+versions and says whether its outputs are bit-equal to this tree's build;
+then times each with CUDA-graph replays (median of 11 replays of 20 calls,
+5 for the rank count; L2-warm), builds in turns, forward then backward
+through the list.
+
+`--cases eval` (the default), the eval path's two heaviest kernels:
 
   - the count lookup at the `full` shapes: a 1024 x 384 compact2 (bf16 and
     f32), 1024 rows of K = 64 and of 32 lookups, about half live; and at
@@ -25,6 +29,33 @@ yardsticks: the count matrix built and multiplied into compact2 (the same
 function), and for the rank count `(q @ d.T > t).sum(1)` (the same
 function) and cuBLAS's f32 product `q @ d.T` alone (TF32 off).
 
+`--cases lookup`, the training path's lookup kernels:
+
+  - the count lookup's backward at the `full` per-side step's shapes: the
+    first per-side batch of the `full` preset's toy stream (1024 rows, d
+    side K = 64, q side K = 32, into u2 = 1024 compact rows, h = 384), g
+    f32 (the step's dtype) and bf16. A build whose dssm_count_lookup_bwd
+    has no workspace (the f32-atomics design before the sorted one) is
+    called the way its wrapper called it: a zero fill and the kernel, both
+    in its time;
+  - the joint lookup at the smoke's shape (the first union-dedupe batch of
+    that stream over an f32 compact block of 256 slots x 8 rows, and over a
+    bf16 one of 256 x 16), at the int8 step's (the int8 stream's batch over
+    the dequantized f32 block, 256 slots x 32 rows = 8192 x 384) and at the
+    cnn's (the first union-dedupe batch of the cnn toy stream's training
+    split, 16384 word rows a side, over a 1024 x 8 x 1024 f32 block);
+  - the gather at the cnn shape (1024 slots of 8 rows of Wc [30000, 1024]
+    f32), against `index_select` of the same rows;
+  - the kernels that share code with these two: the joint lookup's
+    backward (csrc/segsum.cuh) at the `full` shapes with bf16 gradients,
+    and the fused gather + joint lookup (the lookup warp body) from an f32
+    table of 65536 rows with the same batch.
+
+Beside them, once a case: the plain version, one PyTorch call of the same
+function as a yardstick (`index_add_`; the count matrices built and
+multiplied; `index_select`), and the bound: the larger of the bytes read and
+written once at 3.35 TB/s and the f32 FMAs at 67 TFLOP/s.
+
 Prints the card's name and power limit, one line per case and a JSON line
 last. Needs one GPU; exits non-zero without one.
 """
@@ -32,6 +63,7 @@ last. Needs one GPU; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import statistics
@@ -45,22 +77,31 @@ import torch
 from dssm_tpu_torch.bridge import batch_to_torch
 from dssm_tpu_torch.config import get_preset, validate
 from dssm_tpu_torch.data import (
-    batch_iterator, hash_pairs, make_toy_pairs, train_eval_split)
-from dssm_tpu_torch.kernels import _build, count, rank
+    ToyPairs, batch_iterator, hash_pairs, make_toy_pairs, train_eval_split)
+from dssm_tpu_torch.data.remap import apply_remap, build_freq_remap
+from dssm_tpu_torch.kernels import _build, count, gather, joint, rank
 
-SOURCES = ("count.cu", "rank.cu")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+F32_FLOPS = 67e12          # f32 outside the tensor cores
+PAIRS = 4096  # of the toy corpus: the first batch is the step's own batch
+# The C signature of dssm_count_lookup_bwd before it took a workspace: inv,
+# wgt, g, dc2 (zeroed, added into), rows, k, u2, h, g_dtype, stream.
+_P, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_OLD_COUNT_BWD = [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _P]
 
 
-def build(dirs):
-    """{name: path of its shared library}, compiled in parallel."""
+def build(dirs, sources, out):
+    """{name: path of its shared library}, compiled in parallel from the
+    `sources` (file names) of this tree's csrc/ and of each (name, dir) of
+    dirs, under build/eval_kernels/<out>/<name>/."""
     builds = {"tree": _build.CSRC}
     builds.update({n: os.path.abspath(p) for n, p in dirs})
-    out = os.path.join(_build.BUILD_DIR, "eval_kernels")
+    root = os.path.join(_build.BUILD_DIR, "eval_kernels", out)
     with ThreadPoolExecutor(len(builds)) as ex:
         return dict(zip(builds, ex.map(
             lambda kv: _build.compile_library(
-                [os.path.join(kv[1], s) for s in SOURCES],
-                os.path.join(out, kv[0], "libeval.so")),
+                [os.path.join(kv[1], s) for s in sources],
+                os.path.join(root, kv[0], "lib.so")),
             builds.items())))
 
 
@@ -87,9 +128,9 @@ def graph_ms(fn, reps=20, replays=11):
     return statistics.median(times)
 
 
-def cases(dev, rng):
+def eval_cases(dev, rng):
     """(name, kernel call, plain call, tolerance check, reps, {yardstick
-    name: PyTorch call}) per case."""
+    name: PyTorch call}, {more of the case's record}) per case."""
     def lookup_case(name, c2, inv, wgt):
         def near(got, want):
             if c2.dtype == torch.float32:
@@ -100,7 +141,7 @@ def cases(dev, rng):
         return (name, lambda: count.count_lookup(c2, inv, wgt, impl="kernel"),
                 lambda: count.count_lookup_plain(c2, inv, wgt), near, 20,
                 {"library": lambda: count.count_matrix(
-                    inv, wgt, c2.shape[0]) @ c2.float()})
+                    inv, wgt, c2.shape[0]) @ c2.float()}, {})
 
     out = []
     for k in (64, 32):
@@ -156,28 +197,242 @@ def cases(dev, rng):
                     lambda got, want, ties=ties: bool(
                         ((got - want).abs() <= ties).all()), 5,
                     {"library": lambda q=q, d=d, t=t: (q @ d.T > t).sum(1),
-                     "cublas_product_alone": lambda q=q, d=d: q @ d.T}))
+                     "cublas_product_alone": lambda q=q, d=d: q @ d.T}, {}))
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--source", action="append", default=[],
-                    metavar="NAME=DIR", help="a csrc/ with another count.cu "
-                    "and rank.cu to time")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("eval_kernels: needs an NVIDIA GPU", file=sys.stderr)
-        return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
-    libs = build([s.split("=", 1) for s in args.source])
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False  # exact f32 yardsticks
+def padded(width):
+    """A table's width padded to whole 128 lanes, as the model's tables are
+    (`full`: W0 [500000, 384]; cnn: Wc [30000, 1024])."""
+    return -(-width // 128) * 128
+
+
+def bound_us(nbytes, fmas):
+    return max(nbytes / HBM_BYTES_PER_S, 2.0 * fmas / F32_FLOPS) * 1e6
+
+
+def count_bwd(inv, wgt, g, u2):
+    """count_lookup_bwd through the loaded build, whichever its design."""
+    lib = _build.load()
+    if hasattr(lib, "dssm_count_lookup_bwd_workspace"):
+        return count.count_lookup_bwd(inv, wgt, g, u2, impl="kernel")
+    fn = lib.dssm_count_lookup_bwd
+    fn.argtypes = _OLD_COUNT_BWD
+    h, k = g.shape[-1], inv.shape[-1]
+    dc2 = torch.zeros((u2, h), dtype=torch.float32, device=g.device)
+    rc = fn(inv.data_ptr(), wgt.data_ptr(), g.data_ptr(), dc2.data_ptr(),
+            inv.numel() // k, k, u2, h, 0 if g.dtype == torch.float32 else 1,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"count_lookup_bwd: CUDA error {rc} at launch")
+    return dc2
+
+
+def _near(scale_of):
+    """Within 1e-5 of the largest |value| of the plain version."""
+    def near(got, want):
+        got, want = [x if isinstance(x, tuple) else (x,) for x in (got, want)]
+        tol = 1e-5 * max(float(scale_of(w)) for w in want)
+        return all(float((a - b).abs().max()) <= tol
+                   for a, b in zip(got, want))
+    return near
+
+
+def _batches(preset, stream_kw, n_pairs=None):
+    """The first batch of each stream (dict of batch_iterator arguments)
+    over the preset's toy corpus: cut to n_pairs and frequency-remapped, as
+    chip_smoke.py trains `full`; or, without n_pairs, its training split,
+    as chip_smoke.py trains the sequence presets."""
+    cfg = validate(get_preset(preset))
+    pairs = make_toy_pairs(cfg.data.toy_num_pairs, cfg.data.toy_vocab_words,
+                           cfg.data.seed)
+    if n_pairs is None:
+        pairs, _ = train_eval_split(pairs, eval_frac=cfg.data.eval_frac,
+                                    seed=cfg.data.seed)
+    else:
+        pairs = ToyPairs(queries=pairs.queries[:n_pairs],
+                         titles=pairs.titles[:n_pairs])
+    hashed = hash_pairs(pairs, cfg.tower, cfg.data)
+    if n_pairs is not None:
+        hashed = apply_remap(hashed, build_freq_remap(hashed,
+                                                      cfg.tower.vocab_size))
+    out = {}
+    for name, kw in stream_kw.items():
+        out[name] = next(batch_iterator(
+            hashed, cfg.train.batch_size, seed=cfg.train.seed,
+            dedup_unique=cfg.data.max_unique,
+            dedup_unique_rows=cfg.data.max_unique_rows, **kw))
+    return cfg, out
+
+
+def lookup_cases(dev, rng):
+    """(name, kernel call, plain call, tolerance check, reps, {yardstick
+    name: PyTorch call}, {"bound_us": the case's bound, "what": its
+    inputs}) per case."""
+    def normal(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dev, dtype)
+
+    cfg, full = _batches("full", {
+        name: dict(dedup_group=grp, dedup_joint=jnt, wire_compress=True,
+                   sort_rows=True)
+        for name, grp, jnt in (("per_side", 8, False), ("joint8", 8, True),
+                               ("joint16", 16, True), ("joint32", 32, True))},
+        PAIRS)
+    h = padded(cfg.tower.embed_width)
+    out = []
+    ps = batch_to_torch(full["per_side"], dev)
+    for side in ("d", "q"):
+        inv = ps[f"{side}_inv"].contiguous()
+        wgt = ps[f"{side}_wgt"].contiguous()
+        u2 = ps[f"{side}_sel"].numel()
+        rows, k = inv.shape
+        valid = (inv >= 0) & (inv < u2)
+        idx = torch.where(valid, inv, 0).long().reshape(-1)
+        w0 = torch.where(valid, wgt, 0.0)
+        nnz = int(((wgt != 0) & valid).sum())
+        for gd in (torch.float32, torch.bfloat16):
+            g = normal(rows, h, dtype=gd)
+            out.append((
+                f"count_lookup_bwd full {side} side K={k} g "
+                f"{str(gd).split('.')[-1]}",
+                lambda inv=inv, wgt=wgt, g=g, u2=u2: count_bwd(inv, wgt, g,
+                                                               u2),
+                lambda inv=inv, wgt=wgt, g=g, u2=u2:
+                    count.count_lookup_bwd_plain(inv, wgt, g, u2),
+                _near(lambda w: w.abs().max()),
+                {"library": lambda idx=idx, w0=w0, g=g, u2=u2: torch.zeros(
+                    (u2, h), device=dev).index_add_(0, idx, (
+                        w0[..., None] * g.float()[:, None, :]).reshape(-1, h))},
+                bound_us(inv.numel() * 8 + g.numel() * g.element_size()
+                         + u2 * h * 4, nnz * h),
+                f"{nnz} live lookups, u2 {u2}"))
+
+    def joint_case(name, compact, fields):
+        sel, q_inv, q_wgt, d_inv, d_wgt = fields
+        u2 = sel.numel()
+        live = [(w != 0) & (i >= 0) & (i < u2) for i, w in
+                ((q_inv, q_wgt), (d_inv, d_wgt))]
+        rows_named = torch.unique(torch.cat([
+            sel.long()[q_inv[live[0]].long()],
+            sel.long()[d_inv[live[1]].long()]])).numel()
+        nnz = int(live[0].sum() + live[1].sum())
+        n_rows = q_inv.numel() // q_inv.shape[-1]
+        hh = compact.shape[1]
+
+        def library():
+            cq = count.count_matrix(q_inv, q_wgt, u2)
+            cd = count.count_matrix(d_inv, d_wgt, u2)
+            c2 = joint.select_rows_plain(compact.float(), sel)
+            return ((cq @ c2).reshape(*q_inv.shape[:-1], hh),
+                    (cd @ c2).reshape(*d_inv.shape[:-1], hh))
+
+        return (name,
+                lambda: joint.joint_lookup(compact, *fields, impl="kernel"),
+                lambda: joint.joint_lookup_plain(compact, *fields),
+                _near(lambda w: w.abs().max()), {"library": library},
+                bound_us((q_inv.numel() + d_inv.numel()) * 8 + u2 * 4
+                         + rows_named * hh * compact.element_size()
+                         + 2 * n_rows * hh * 4, nnz * hh),
+                f"compact {tuple(compact.shape)} {compact.dtype}, {nnz} live "
+                f"lookups on {rows_named} rows")
+
+    for key, dtype, what in (("joint8", torch.float32, "full f32 compact"),
+                             ("joint16", torch.bfloat16, "full bf16 compact"),
+                             ("joint32", torch.float32,
+                              "int8 step (dequantized f32 compact)")):
+        tb = batch_to_torch(full[key], dev)
+        grp = int(key[5:])
+        fields = [tb[f].contiguous() for f in ("sel", "q_inv", "q_wgt",
+                                                "d_inv", "d_wgt")]
+        compact = normal(tb["uniq"].numel() * grp, h, dtype=dtype)
+        out.append(joint_case(f"joint_lookup {what}", compact, fields))
+        if key != "joint8":
+            continue
+        # The kernels that share code with the two above: the joint
+        # backward (segsum.cuh) with the step's bf16 gradients, and the
+        # fused gather + joint lookup (the lookup warp) on an f32 table.
+        gr = compact.shape[0]
+        g_q, g_d = (normal(*fields[1].shape[:-1], h, dtype=torch.bfloat16)
+                    for _ in range(2))
+        flat = [fields[0].long()[torch.where(
+            (i >= 0) & (i < fields[0].numel()), i, 0).long()].reshape(-1)
+            for i in (fields[1], fields[3])]
+        nnz = int((fields[2] != 0).sum() + (fields[4] != 0).sum())
+
+        def bwd_library(fields=fields, g_q=g_q, g_d=g_d, flat=flat, gr=gr):
+            dc = torch.zeros((gr, h), device=dev)
+            for fl, w, g in ((flat[0], fields[2], g_q),
+                             (flat[1], fields[4], g_d)):
+                dc.index_add_(0, fl, (w[..., None] * g.float()[
+                    :, None, :]).reshape(-1, h))
+            return dc
+
+        out.append((
+            "joint_lookup_bwd full bf16 g",
+            lambda fields=fields, g_q=g_q, g_d=g_d, gr=gr:
+                joint.joint_lookup_bwd(*fields, g_q, g_d, gr, impl="kernel"),
+            lambda fields=fields, g_q=g_q, g_d=g_d, gr=gr:
+                joint.joint_lookup_bwd_plain(*fields, g_q, g_d, gr),
+            _near(lambda w: w.abs().max()), {"library": bwd_library},
+            bound_us((fields[1].numel() + fields[3].numel()) * 8
+                     + fields[0].numel() * 4 + 2 * g_q.numel() * 2
+                     + gr * h * 4, nnz * h),
+            f"dc ({gr}, {h}), {nnz} live lookups"))
+        table = normal(1 << 16, h)  # 8192 groups of 8 rows
+        u = tb["uniq"]
+        real = (u >= 0) & (u < cfg.tower.vocab_size // grp)
+        uniq = torch.where(real, torch.remainder(u, table.shape[0] // grp),
+                           u)  # the batch's groups folded into the table
+        out.append((
+            "fused_gather_joint_lookup full f32 table",
+            lambda table=table, uniq=uniq, fields=fields, grp=grp:
+                joint.fused_gather_joint_lookup(table, uniq, *fields, grp,
+                                                impl="kernel"),
+            lambda table=table, uniq=uniq, fields=fields, grp=grp:
+                joint.fused_gather_joint_lookup_plain(table, uniq, *fields,
+                                                      grp),
+            _near(lambda w: w.abs().max()), {},
+            bound_us((fields[1].numel() + fields[3].numel()) * 8
+                     + fields[0].numel() * 4
+                     + (int(real.sum()) + uniq.numel()) * grp * h * 4
+                     + 2 * fields[1].shape[0] * h * 4, nnz * h),
+            f"table {tuple(table.shape)}, {uniq.numel()} slots of {grp}"))
+
+    ccfg, cnn = _batches("cnn", {"joint": dict(
+        sequence=True, dedup_group=8, dedup_joint=True)})
+    tb = batch_to_torch(cnn["joint"], dev)
+    hc = padded(ccfg.tower.conv_window * ccfg.tower.conv_channels)
+    wc = normal(ccfg.tower.vocab_size, hc)
+    uniq = tb["uniq"]
+    fields = [tb[f].contiguous() for f in ("sel", "q_inv", "q_wgt", "d_inv",
+                                            "d_wgt")]
+    compact = gather.gather_row_groups(wc, uniq, 8, impl="kernel")
+    out.append(joint_case("joint_lookup cnn f32 compact", compact, fields))
+    ng = wc.shape[0] // 8
+    real = (uniq >= 0) & (uniq < ng)
+    rows = (torch.where(real, uniq, 0).long()[:, None] * 8
+            + torch.arange(8, device=dev)).reshape(-1)
+    out.append(("gather_row_groups cnn f32",
+                lambda: gather.gather_row_groups(wc, uniq, 8, impl="kernel"),
+                lambda: gather.gather_row_groups_plain(wc, uniq, 8),
+                lambda got, want: bool(torch.equal(got, want)),
+                {"library": lambda: wc.index_select(0, rows)},
+                bound_us((int(real.sum()) + uniq.numel()) * 8 * hc * 4
+                         + uniq.numel() * 4, 0),
+                f"{uniq.numel()} slots of 8 rows, {int(real.sum())} real"))
+    return [(name, kernel, plain, near, 20, calls,
+             {"bound_us": round(bound, 2), "what": what})
+            for name, kernel, plain, near, calls, bound, what in out]
+
+
+def run(libs, case_list):
+    """{case: {us: {build or yardstick: [us, ...]}, bit_equal_to_tree:
+    {...}, ...}} for the builds in libs (bit-equality is to the first,
+    this tree's), holding every build to the plain version; builds in turns, forward then backward through the list,
+    the plain version and the yardsticks once. Prints a line a case."""
     results = {}
-    for name, kernel, plain, near, reps, calls in cases(
-            dev, np.random.default_rng(0)):
+    for name, kernel, plain, near, reps, calls, more in case_list:
         want = plain()
         row, same, ref = {}, {}, None
         order = list(libs) + list(reversed(list(libs)))
@@ -189,18 +444,47 @@ def main() -> int:
                 raise RuntimeError(f"{build_name}, {name}: differs from the "
                                    "plain version beyond its tolerance")
             ref = got if ref is None else ref
-            same[build_name] = bool(torch.equal(got, ref))
+            same[build_name] = all(
+                torch.equal(a, b) for a, b in zip(
+                    got if isinstance(got, tuple) else (got,),
+                    ref if isinstance(ref, tuple) else (ref,)))
             row.setdefault(build_name, []).append(
                 round(graph_ms(kernel, reps=reps) * 1e3, 2))
             if i == len(libs) - 1:
                 for call_name, call in {"plain": plain, **calls}.items():
                     row[call_name] = [round(graph_ms(call, reps=reps) * 1e3,
                                             2)]
-        results[name] = dict(us=row, bit_equal_to_tree=same)
+        results[name] = dict(us=row, bit_equal_to_tree=same, **more)
         print(f"{name} (us, each build twice): {json.dumps(results[name])}",
               flush=True)
+    return results
+
+
+GROUPS = {"eval": (("count.cu", "rank.cu"), eval_cases),
+          "lookup": (("count.cu", "joint.cu", "gather.cu"), lookup_cases)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cases", choices=sorted(GROUPS), default="eval",
+                    help="the case group to time (default eval)")
+    ap.add_argument("--source", action="append", default=[],
+                    metavar="NAME=DIR", help="a csrc/ with the group's "
+                    "sources to time beside this tree's")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("eval_kernels: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    sources, group_cases = GROUPS[args.cases]
+    libs = build([s.split("=", 1) for s in args.source], sources, args.cases)
+    torch.backends.cuda.matmul.allow_tf32 = False  # exact f32 yardsticks
+    results = run(libs, group_cases(torch.device("cuda"),
+                                    np.random.default_rng(0)))
     _build.load(_build.build())
-    print(json.dumps({"eval_kernels_us": results,
+    print(json.dumps({f"{args.cases}_kernels_us": results,
                       "device": torch.cuda.get_device_name(0)}))
     return 0
 

@@ -5,9 +5,10 @@ without a card. Imports no JAX, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: the gather and the scatter move or add the same values (exact);
-the lookups, their backward kernels (the count backward with f32 atomics, the
-joint backward in a fixed order, so two calls give the same bits) and the f32
-tower only sum in another order (rtol 1e-5 of the largest value); the bf16
+the lookups, their backward kernels (the count and joint backward sum each
+row in a fixed order, with no float atomics, so two calls give the same
+bits) and the f32 tower only sum in another order (rtol 1e-5 of the largest
+value); the bf16
 tower may round one intermediate to the neighbouring bf16 value (2e-2).
 The loss kernels are held to 1e-4 of the largest value: their logits are
 exact f32 products summed in k order (the plain matmul sums in another
@@ -230,23 +231,96 @@ def _close(got, want, rtol=1e-5):
                                atol=rtol * float(want.abs().max()))
 
 
+# (rows, k, u2, h, extra) of the count lookup's backward: small ragged rows;
+# the per-side `full` step's d and q sides (1024 rows of K = 64 and 32 into
+# 1024 compact rows of 384); the sequence towers' 3-D rows at h = 100 (no
+# whole number of 16-byte bf16 vectors); K > 128; one compact row named by
+# every lookup (a segment of ~1000 pieces). Every case has dead lookups
+# (weight 0 on a slot in range, live weights on slots past u2 and negative)
+# and rows with no live lookup.
+COUNT_BWD_CASES = [
+    (256, 32, 128, 384, {}),
+    (1024, 64, 1024, 384, {}),
+    (1024, 32, 1024, 384, {}),
+    ((64, 16), 8, 512, 100, {}),
+    (300, 200, 96, 36, {}),
+    (512, 64, 64, 384, {"every": 7}),
+]
+
+
+def _count_bwd_case(rng, dev, rows, k, u2, h, g_dtype, every=None):
+    """inv, wgt [*rows, k] as _count_case, with weight 0 on some slots in
+    range, the first 3 rows with no live lookup, the last 5 slots named by
+    no lookup and, with `every`, every live lookup on slot `every`; g
+    [*rows, h] normal."""
+    shape = rows if isinstance(rows, tuple) else (rows,)
+    inv, wgt = (t.cpu().numpy().reshape(-1, k)
+                for t in _count_case(rng, u2, rows, k, dev))
+    inv[(inv >= u2 - 5) & (inv < u2)] = 0
+    if every is not None:
+        inv[:] = every
+        wgt[:] = rng.integers(1, 4, size=wgt.shape)
+    live = (wgt != 0) & (inv >= 0) & (inv < u2)
+    wgt[live & (rng.random(live.shape) < 0.1)] = 0.0  # dead, slot in range
+    wgt[:3] = 0.0
+    g = torch.from_numpy(rng.normal(size=(*shape, h)).astype(
+        np.float32)).to(dev, g_dtype)
+    return [torch.from_numpy(a.reshape(*shape, k)).to(dev)
+            for a in (inv, wgt)] + [g]
+
+
+def _named(inv, wgt, u2):
+    """Compact rows some live lookup names (a bool mask over [0, u2))."""
+    live = (wgt != 0) & (inv >= 0) & (inv < u2)
+    hit = torch.zeros(u2, dtype=torch.bool, device=inv.device)
+    hit[inv[live].long()] = True
+    return hit
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
 def test_count_backward_kernel_matches_plain(dev, g_dtype):
     rng = np.random.default_rng(24)
-    for rows, k, h in ((256, 32, 384), (100, 70, 100)):
-        inv, wgt = _ragged(rng, rows, k, 128)
-        inv, wgt = torch.from_numpy(inv).to(dev), torch.from_numpy(wgt).to(dev)
-        g = torch.from_numpy(rng.normal(size=(rows, h)).astype(
-            np.float32)).to(dev, g_dtype)
-        _close(count_lookup_bwd(inv, wgt, g, 128, impl="kernel"),
-               count_lookup_bwd_plain(inv, wgt, g, 128))
+    for rows, k, u2, h, extra in COUNT_BWD_CASES:
+        inv, wgt, g = _count_bwd_case(rng, dev, rows, k, u2, h, g_dtype,
+                                      **extra)
+        _close(count_lookup_bwd(inv, wgt, g, u2, impl="kernel"),
+               count_lookup_bwd_plain(inv, wgt, g, u2))
     # Through autograd: the gradient comes back in compact2's dtype.
-    c2 = torch.zeros((128, h), device=dev, dtype=torch.bfloat16,
+    inv, wgt, g = _count_bwd_case(rng, dev, 100, 70, 128, 100, g_dtype)
+    c2 = torch.zeros((128, 100), device=dev, dtype=torch.bfloat16,
                      requires_grad=True)
     count_lookup(c2, inv, wgt, impl="kernel").backward(g.float())
     assert c2.grad.dtype == torch.bfloat16
     _close(c2.grad.float(), count_lookup_bwd_plain(inv, wgt, g, 128), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+def test_count_lookup_bwd_bit_reproducible_and_writes_every_row(dev,
+                                                                g_dtype):
+    """No float atomics: two calls give the same bits. Every row of
+    d_compact2 is written by the kernel, exactly 0 where no live lookup
+    names it, though the memory the caching allocator hands out was left
+    full of NaN bits (and the scratch's counters of -1) by a freed tensor.
+    One counted launch a call."""
+    rng = np.random.default_rng(30)
+    for rows, k, u2, h, extra in COUNT_BWD_CASES:
+        inv, wgt, g = _count_bwd_case(rng, dev, rows, k, u2, h, g_dtype,
+                                      **extra)
+        runs = []
+        for _ in range(2):
+            junk = torch.full((64 << 20,), 255, dtype=torch.uint8, device=dev)
+            del junk
+            before = _build.launch_counts()["count_lookup_bwd"]
+            runs.append(count_lookup_bwd(inv, wgt, g, u2, impl="kernel"))
+            assert _build.launch_counts()["count_lookup_bwd"] == before + 1
+        assert torch.equal(runs[0], runs[1])
+        hit = _named(inv, wgt, u2)
+        assert not bool(hit.all())
+        assert bool((runs[0][~hit] == 0).all())
+        assert bool(torch.isfinite(runs[0]).all())
+        _close(runs[0], count_lookup_bwd_plain(inv, wgt, g, u2))
 
 
 def _joint_case(rng, dev, rows, kq, kd, u2, gr, h, used, every=None,
@@ -278,7 +352,8 @@ def _joint_case(rng, dev, rows, kq, kd, u2, gr, h, used, every=None,
 # (rows, kq, kd, u2, gr, h, extra): small ragged shapes, h = 100 (not a
 # whole number of 16-byte bf16 vectors), the `full` widths, a cnn-width
 # compact block with 3-D rows of 16 x 8, one segment named by every lookup
-# of both sides (~1500 pieces), lookups that name sel's padding (row 0).
+# of both sides (~1500 pieces), lookups that name sel's padding (row 0),
+# and the int8 step's dequantized block (256 slots of 32 rows).
 JOINT_CASES = [
     (128, 8, 16, 128, 256, 384, {}),
     (50, 5, 70, 96, 200, 100, {"dead_rows": 3}),
@@ -286,6 +361,7 @@ JOINT_CASES = [
     (256 * 16, 8, 8, 2048, 8192, 1024, {"dead_rows": 40}),
     (1024, 32, 64, 1024, 2048, 384, {"every": 7, "dead_rows": 2}),
     (300, 12, 20, 256, 1024, 96, {"name_padding": True}),
+    (1024, 32, 64, 1024, 8192, 384, {"dead_rows": 5}),  # the int8 step's
 ]
 
 
@@ -738,7 +814,7 @@ def test_low_precision_train_and_eval_kernels_match_plain(dev, table_dtype):
     tp = states["plain"].params["shared"]["W0"]
     assert ta.dtype == tp.dtype == model_base.torch_dtype(table_dtype)
     # The same stream on accumulators that differ in their last bits (the
-    # backward's atomics, a bf16 activation of the tower): after 3 steps few
+    # backward's sum order, a bf16 activation of the tower): after 3 steps few
     # elements differ at all, next to none by more than a grid step (an
     # update that nearly cancels a weight leaves a finer grid behind), and
     # none by more than the f32 test's 2e-3.
@@ -754,6 +830,53 @@ def test_low_precision_train_and_eval_kernels_match_plain(dev, table_dtype):
     assert _build.launch_counts()["rank_counts"] == 1
     for k, v in metrics["plain"].items():
         assert abs(metrics["auto"][k] - v) <= 2e-2, (k, metrics)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", ["per_side", "int8_joint", "f32_joint"])
+def test_train_steps_bit_reproducible(dev, branch):
+    """Three steps run twice from one state give bit-equal tables and dense
+    parameters: the per-side branch on an f32 table (two count lookup
+    backward calls a step), the joint branch on an int8 table (the gather,
+    the dequantization and the joint lookup) and on an f32 table (the fused
+    gather + joint lookup), each with the joint backward. No kernel on
+    these paths adds floats with atomics."""
+    shared = branch != "per_side"
+    int8 = branch == "int8_joint"
+    cfg = RunConfig(
+        tower=TowerConfig(vocab_size=V, embed_width=100, hidden_dims=(64,),
+                          semantic_dim=32, compute_dtype="bfloat16",
+                          shared_weights=shared,
+                          table_dtype="int8" if int8 else "float32"),
+        data=DataConfig(max_trigrams=16, max_trigrams_query=8,
+                        max_unique=1024, max_unique_rows=128),
+        loss=LossConfig(), train=TrainConfig(batch_size=128))
+    hashed = hash_pairs(make_toy_pairs(640, 96, 7), cfg.tower, cfg.data)
+    it = batch_iterator(hashed, 128, seed=3, dedup_unique=1024,
+                        dedup_group=32 if int8 else 8,
+                        dedup_unique_rows=128, dedup_joint=shared,
+                        wire_compress=True, sort_rows=True)
+    batches = [batch_to_torch(next(it), dev) for _ in range(3)]
+    runs = []
+    for _ in range(2):
+        state = create_run_state(cfg, model_base.init_params(
+            cfg.tower, seed=0, device=dev))
+        step = make_train_step(cfg, "auto")
+        _build.reset_launch_counts()
+        for batch in batches:
+            state, _ = step(state, batch)
+        counts = _build.launch_counts()
+        if int8:
+            assert counts["joint_lookup"] == counts["joint_lookup_bwd"] == 3
+        elif shared:
+            assert counts["fused_gather_joint_lookup"] == 3
+            assert counts["joint_lookup_bwd"] == 3
+        else:
+            assert counts["count_lookup_bwd"] == 6
+        runs.append(state.params)
+    for tower, tp in runs[0].items():
+        for k, v in tp.items():
+            assert torch.equal(v, runs[1][tower][k]), (tower, k)
 
 
 @pytest.mark.cuda
