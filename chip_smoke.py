@@ -38,12 +38,17 @@ union dedupe):
 Then the cnn (CLSM) and lstm presets at their published width (Wc [30000,
 1024], Win [30000, 384], batch 1024, 16 words x 8 trigrams): the raw-index
 embedding bag and its weight gradient against their plain versions at the
-cnn, lstm and full raw shapes on f32 and bf16 tables; SEQ_STEPS steps of
-each preset on the union-dedupe and on the raw-index branch, kernels against
-plain versions; eval, save, restore and serving of the trained models; the
-weight gradient's path through the bag; and cli.train + cli.eval +
-cli.export for --preset=cnn and --preset=lstm, and cli.train on raw-index
-batches.
+cnn, lstm and full raw shapes on f32 and bf16 tables (the bag also
+bit-equal to the count lookup on the same inputs); the gather at the cnn
+shape beside index_select; SEQ_STEPS steps of each preset on the
+union-dedupe and on the raw-index branch, kernels against plain versions
+(3 more traced: the bag's share of a raw step); eval, save, restore and
+serving of the trained models (a cached cnn eval pass traced on each
+branch: the gathers' and the bags' shares); the weight gradient's path
+through the bag; and cli.train + cli.eval + cli.export for --preset=cnn and
+--preset=lstm, and cli.train on raw-index batches. A line gathers the
+traced device busy ms of the `full` cached eval pass, the cnn eval passes
+and the cnn raw step with the gathers' and the bags' shares.
 
 It checks that every kernel was launched by the path it belongs to. The
 next-to-last line is a JSON object with each kernel's numbers; the last
@@ -207,6 +212,36 @@ def main() -> int:
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top_n]
         return total, top
 
+    def kernel_ms(prof, names):
+        """{name: device ms} that one profiler window recorded in the
+        kernels whose names hold each of `names`."""
+        got = dict.fromkeys(names, 0.0)
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                for n_ in names:
+                    if n_ in e.key:
+                        got[n_] += float(getattr(
+                            e, "self_device_time_total", 0.0)) / 1e3
+        return got
+
+    def traced_pass(fn, names):
+        """One call of fn traced: device busy ms, and {label: (ms, share of
+        the busy time)} for the kernels named by each (label, kernel name)
+        of `names`; busy ms None when the window recorded no device event."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_:
+            fn()
+            torch.cuda.synchronize()
+        busy_, top_ = device_time_us(prof_, 8)
+        ms_ = kernel_ms(prof_, [k_ for _, k_ in names])
+        return dict(
+            device_busy_ms=None if busy_ is None else busy_ / 1e3,
+            **{f"{label}_ms": ms_[k_] for label, k_ in names},
+            **{f"{label}_share": None if not busy_ else ms_[k_] * 1e3 / busy_
+               for label, k_ in names},
+            top_kernels_us=top_)
+
     def bwd_segments(sel_, q_inv_, q_wgt_, d_inv_, d_wgt_, gr_):
         """The joint lookup backward's segments: live lookups of the
         longest compact row, the pieces of at most BWD_PIECE lookups the
@@ -249,6 +284,9 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s, table {tuple(table.shape)} "
           f"{table.dtype}")
     results = {}
+    # Traced device busy ms of the passes and steps that run the gather and
+    # the bag, with those kernels' shares: printed together at the end.
+    traced_summary = {}
 
     # Gather: 256 slots, ~107 real sorted groups, the rest sentinel.
     group, slots, real = 8, cfg.data.max_unique // 8, 107
@@ -1354,6 +1392,12 @@ def main() -> int:
                            float(out_p.abs().max()))
             check(err_f <= 1e-5 * sc_f, f"embedding_bag ({case}, {dname}): "
                   f"max err {err_f} over 1e-5 x max |out| {sc_f}")
+            # One kernel body: the count lookup over the whole table gives
+            # the bag's bits.
+            check(torch.equal(out_k, count_lookup(tbl, b_idx, b_wgt,
+                                                  impl="kernel")),
+                  f"embedding_bag ({case}, {dname}): differs from "
+                  "count_lookup on the same inputs (bit-equal expected)")
             err_w, sc_w = (float((dw_k - dw_p).abs().max()),
                            float(dw_p.abs().max()))
             check(err_w <= 1e-5 * sc_w, f"embedding_bag_bwd ({case}, {dname}):"
@@ -1857,17 +1901,14 @@ def main() -> int:
             torch.cuda.synchronize()
             wall_ = time.perf_counter() - t0_
         us_, top_ = device_time_us(prof_, 10)
-        named_us = sum(float(getattr(e, "self_device_time_total", 0.0))
-                       for e in prof_.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and any(n_ in e.key for n_ in names_))
+        named_ms = sum(kernel_ms(prof_, names_).values())
         print(f"{what}, traced ({len(tb_)} steps, on {card}): " + json.dumps(
             dict(device_busy_ms_per_step=(
                 None if us_ is None else us_ / 1e3 / len(tb_)),
                  wall_ms_per_step=wall_ * 1e3 / len(tb_),
                  named_kernels=list(names_),
                  named_kernels_ms_per_step=(
-                     None if us_ is None else named_us / 1e3 / len(tb_)),
+                     None if us_ is None else named_ms / len(tb_)),
                  top_kernels_us=top_)))
 
     # The per-side branch (separate towers, per-side dedupe): the path of
@@ -2036,26 +2077,15 @@ def main() -> int:
             first_pass_s=dict(cold), cached_pass_s=dict(hot))
         if tname == "float32":
             # One cached pass traced: the device's busy time, and the rank
-            # count's and the count lookups' shares of it.
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof_e:
-                eval_mod.evaluate(params_e, cfg_e, hashed_eval, bs, "auto",
-                                  cache=True)
-                torch.cuda.synchronize()
-            busy_e, top_e = device_time_us(prof_e, 8)
-            by_name = {"rank_counts_kernel": 0.0, "count_lookup_kernel": 0.0}
-            for e in prof_e.key_averages():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    for kname in by_name:
-                        if kname in e.key:
-                            by_name[kname] += float(getattr(
-                                e, "self_device_time_total", 0.0))
-            eval_runs[tname]["traced_cached_pass"] = dict(
-                device_busy_ms=None if busy_e is None else busy_e / 1e3,
-                rank_counts_ms=by_name["rank_counts_kernel"] / 1e3,
-                count_lookup_ms=by_name["count_lookup_kernel"] / 1e3,
-                top_kernels_us=top_e)
+            # count's, the count lookups' and the gathers' shares of it.
+            eval_runs[tname]["traced_cached_pass"] = traced_pass(
+                lambda: eval_mod.evaluate(params_e, cfg_e, hashed_eval, bs,
+                                          "auto", cache=True),
+                (("rank_counts", "rank_counts_kernel"),
+                 ("count_lookup", "lookup_fwd_kernel"),
+                 ("gather_row_groups", "gather_row_groups_kernel")))
+            traced_summary["full cached eval pass (f32 table)"] = eval_runs[
+                tname]["traced_cached_pass"]
         print(f"evaluate, {tname} table: " + json.dumps(eval_runs[tname]))
         del q_e, d_e
     results["rank_counts"]["launches"] = counts_e["rank_counts"]
@@ -2279,6 +2309,10 @@ def main() -> int:
                 torch.cuda.synchronize()
                 prof_wall_s = time.perf_counter() - t0
             dev_us_s, top_s = device_time_us(prof_s, 8)
+            # The bag forward and the count lookup share one kernel body
+            # (lookup_fwd_kernel); a training step runs it only as the bag.
+            bag_ms_s = kernel_ms(prof_s, ("lookup_fwd_kernel",))[
+                "lookup_fwd_kernel"] / SEQ_PROFILED_STEPS
             summary = dict(
                 card=card, arch=arch, branch=branch, steps=SEQ_STEPS,
                 batch=run_cfg.train.batch_size,
@@ -2295,12 +2329,22 @@ def main() -> int:
                     else dev_us_s / 1e3 / SEQ_PROFILED_STEPS),
                 device_busy_share_traced=(
                     None if dev_us_s is None else dev_us_s / 1e6 / prof_wall_s),
+                embedding_bag_ms_per_step_traced=bag_ms_s,
+                embedding_bag_share_traced=(
+                    None if not dev_us_s
+                    else bag_ms_s * 1e3 * SEQ_PROFILED_STEPS / dev_us_s),
                 peak_mem_gb=run["peak"] / 1e9,
                 resident_before_run_gb=run["resident"] / 1e9,
                 launches_per_step={k: v // SEQ_STEPS
                                    for k, v in run["counts"].items() if v})
             print(f"training path, {arch} preset, {branch} branch: "
                   + json.dumps(summary))
+            if (arch, branch) == ("cnn", "raw"):
+                traced_summary["cnn raw step"] = dict(
+                    device_busy_ms=summary["traced_device_busy_ms_per_step"],
+                    embedding_bag_ms=bag_ms_s,
+                    embedding_bag_share=summary[
+                        "embedding_bag_share_traced"])
             print(f"device time by kernel in the traced {arch} {branch} steps "
                   f"(us, {SEQ_PROFILED_STEPS} steps): " + json.dumps(top_s))
             seq_runs[(arch, branch)] = dict(cfg=run_cfg, state=run["state"],
@@ -2357,12 +2401,30 @@ def main() -> int:
         check(bool(((r_k - r_p).abs() <= ties).all()), f"evaluate ({arch}, "
               f"{branch}): the rank kernel differs from its plain version "
               "beyond the docs within 1e-6 of the true score")
+        traced_e = None
+        if arch == "cnn":
+            # One cached pass traced: the gathers' and the count lookups'
+            # shares (dedupe branch), or the bags' (raw branch; the bag and
+            # the count lookup share the kernel body lookup_fwd_kernel).
+            traced_e = traced_pass(
+                lambda: eval_mod.evaluate(params_e, cfg_e, seq_eval, bs,
+                                          "auto", cache=True),
+                (("gather_row_groups", "gather_row_groups_kernel"),
+                 ("count_lookup" if branch == "joint" else "embedding_bag",
+                  "lookup_fwd_kernel"),
+                 ("rank_counts", "rank_counts_kernel")))
+            traced_summary[f"cnn cached eval pass ({branch} branch)"] = (
+                traced_e)
         print(f"evaluate, {arch} preset ({branch} branch): " + json.dumps(dict(
             card=card, eval_pairs=len(seq_eval), metrics=m_cold,
             metric_gap_kernel_vs_plain=metric_gap, first_pass_s=cold,
-            cached_pass_s=hot)))
+            cached_pass_s=hot, traced_cached_pass=traced_e)))
         del q_e, d_e
     eval_mod._EVAL_CACHES.clear()
+    print(f"traced device busy ms, with the gathers' and the bags' shares "
+          f"(on {card}): " + json.dumps(
+              {k: {k2: v2 for k2, v2 in v.items() if k2 != "top_kernels_us"}
+               for k, v in traced_summary.items()}))
 
     # Save, restore and serve each preset's union-dedupe model: a doc index
     # over the corpus's distinct titles and the top-10 of 64 queries,

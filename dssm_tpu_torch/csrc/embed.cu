@@ -6,8 +6,8 @@
 // _fwd_kernel and _bwd_kernel). A TPU slices device memory in aligned row
 // groups, so that kernel DMAs the whole group around every looked-up row
 // and picks the row out with a one-hot select matmul. None of that is
-// needed here: a thread block reads exactly the rows its lookups name, with
-// 16-byte loads, and sums them in f32 registers.
+// needed here: a warp reads exactly the rows its lookups name, with 16-byte
+// loads, and sums them in f32 registers.
 //
 // Semantics: the table is f32 or bf16, idx int32 and wgt f32 [rows, k],
 // out f32. A lookup with weight 0 (hash padding, trigram.PAD_INDEX) is
@@ -22,26 +22,29 @@
 // and the few thousand distinct rows a batch names (~10 MB), and writes
 // 64 MB: ~22 us at 3.35 TB/s. Every lookup re-reads its row (512 MB in
 // all), which the 50 MB L2 serves; the 2 * nnz * H FLOPs (~0.2 GFLOP)
-// are far below the f32 rate.
+// are far below the f32 rate. At the `full` raw batch (1024 rows, K = 64,
+// table [500000, 384]) ~1 us: the ~2,000 distinct rows a batch names come
+// from device memory on first touch, but the ~33k lookups re-read ~51 MB
+// of rows (f32) from L2, which holds the kernel near 8 us.
 //
-// Design, forward: one block per row, one thread per 16-byte vector of the
-// row (4 f32 or 8 bf16 columns; wider rows loop). The first warp compacts
-// the row's live lookups into shared memory in k order (lookup.cuh); every
-// thread then runs the same loop over them, unrolled so that several table
-// loads are in flight. Backward (d_wgt): one block per row; g's row is
-// staged once in shared memory as f32, and each warp takes lookups
-// k = warp, warp + warps, ...: a dot product over the row with 16-byte
-// loads and a shuffle reduction. Both are deterministic.
+// Design, forward: the count lookup's body (csrc/lookup_fwd.cuh) with the
+// table as its source, so that the bag and the count lookup are one kernel
+// and give the same bits on the same inputs: a block a row, the live pairs
+// compacted in k order by a ballot, a thread a 4-column vector (16 bytes
+// of f32, 8 of bf16), 4 pairs loaded ahead, one fmaf chain a column in k
+// order from 0 (bit-equal to the earlier design of a thread a 16-byte
+// vector). Backward (d_wgt): one block per row; g's row is staged once in
+// shared memory as f32, and each warp takes lookups k = warp, warp +
+// warps, ...: a dot product over the row with 16-byte loads and a shuffle
+// reduction. Both are deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "lookup.cuh"
+#include "lookup_fwd.cuh"
 
 namespace {
-
-constexpr int kMaxThreads = 256;
 
 // 16 bytes of a table row as f32 values: 4 f32 or 8 bf16.
 template <typename T>
@@ -73,47 +76,6 @@ struct Vec<__nv_bfloat16> {
     }
   }
 };
-
-template <typename T>
-__global__ void embedding_bag_kernel(const T* __restrict__ table,
-                                     const int32_t* __restrict__ idx,
-                                     const float* __restrict__ wgt,
-                                     float* __restrict__ out, int k, int v,
-                                     int h) {
-  constexpr int N = Vec<T>::kN;
-  extern __shared__ unsigned char smem_raw[];
-  int32_t* s_row = reinterpret_cast<int32_t*>(smem_raw);
-  float* s_wgt = reinterpret_cast<float*>(smem_raw + sizeof(int32_t) * k);
-  __shared__ int s_live;
-  const int64_t r = blockIdx.x;
-  if (threadIdx.x < 32) {
-    const int live = dssm::compact_live_pairs(idx + r * k, wgt + r * k,
-                                              nullptr, k, v, v, s_row, s_wgt);
-    if (threadIdx.x == 0) s_live = live;
-  }
-  __syncthreads();
-  const int n = s_live;
-  const int vecs = h / N;
-  float* out_row = out + r * h;
-  for (int c = threadIdx.x; c < vecs; c += blockDim.x) {
-    float acc[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) acc[i] = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < n; ++j) {
-      float x[N];
-      Vec<T>::load(table + (int64_t)s_row[j] * h + (int64_t)c * N, x);
-      const float w = s_wgt[j];
-#pragma unroll
-      for (int i = 0; i < N; ++i) acc[i] = fmaf(w, x[i], acc[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < N; i += 4) {
-      *reinterpret_cast<float4*>(out_row + (int64_t)c * N + i) =
-          make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
-    }
-  }
-}
 
 template <typename T, typename G>
 __global__ void embedding_bag_dwgt_kernel(const T* __restrict__ table,
@@ -162,12 +124,6 @@ __global__ void embedding_bag_dwgt_kernel(const T* __restrict__ table,
 
 int vec_width(int dtype) { return dtype == 0 ? 4 : 8; }
 
-// Whole warps, one thread per 16-byte vector of the row, at most 256.
-int row_threads(int vecs) {
-  const int t = ((vecs + 31) / 32) * 32;
-  return t > kMaxThreads ? kMaxThreads : t;
-}
-
 }  // namespace
 
 // table: [v, h] (dtype 0 = f32, 1 = bf16), 16-byte aligned, h a multiple
@@ -177,25 +133,10 @@ extern "C" int dssm_embedding_bag(const void* table, const void* idx,
                                   const void* wgt, void* out, long long rows,
                                   int k, int v, int h, int dtype,
                                   void* stream) {
-  if (rows <= 0 || rows > 0x7fffffffLL || k <= 0 || v <= 0 || h <= 0 ||
-      (dtype != 0 && dtype != 1) || h % vec_width(dtype) != 0) {
+  if ((dtype != 0 && dtype != 1) || h <= 0 || h % vec_width(dtype) != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = (sizeof(int32_t) + sizeof(float)) * (size_t)k;
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const int threads = row_threads(h / vec_width(dtype));
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    embedding_bag_kernel<float><<<(unsigned int)rows, threads, smem, s>>>(
-        (const float*)table, (const int32_t*)idx, (const float*)wgt,
-        (float*)out, k, v, h);
-  } else {
-    embedding_bag_kernel<__nv_bfloat16><<<(unsigned int)rows, threads, smem,
-                                          s>>>(
-        (const __nv_bfloat16*)table, (const int32_t*)idx, (const float*)wgt,
-        (float*)out, k, v, h);
-  }
-  return (int)cudaGetLastError();
+  return dssm::lookup_fwd(table, idx, wgt, out, rows, k, v, h, dtype, stream);
 }
 
 // table as dssm_embedding_bag; idx: [rows, k] int32; g: [rows, h]

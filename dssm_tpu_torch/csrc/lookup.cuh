@@ -1,7 +1,7 @@
-// Device functions shared by the lookup kernels (count.cu, joint.cu,
-// embed.cu) and the row-group gather (gather.cu), and the 16-byte column
-// vectors of the warp-per-row lookups (count.cu's forward, joint.cu's
-// lookups) and of the segmented sums (segsum.cuh).
+// Device helpers shared by the lookup kernels (count.cu and embed.cu
+// through lookup_fwd.cuh, joint.cu, and the segmented sums of segsum.cuh):
+// f32 views of the table dtypes and the column vectors a lane loads and
+// stores.
 //
 // A lookup row is K (slot, weight) pairs. A pair is live when its weight is
 // not zero and its slot resolves to a row of the source block: slot in
@@ -23,57 +23,10 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// Called by the first warp of a block: writes the live pairs of one lookup
-// row, in k order, to s_row (the source row each resolves to) and s_wgt,
-// and returns their number (the same value in every lane). `limit` bounds
-// the resolved row: u2 without sel, gr with it.
-__device__ __forceinline__ int compact_live_pairs(
-    const int32_t* __restrict__ inv_row, const float* __restrict__ wgt_row,
-    const int32_t* __restrict__ sel, int k, int u2, int limit,
-    int32_t* s_row, float* s_wgt) {
-  const int lane = threadIdx.x;
-  int live = 0;
-  for (int j0 = 0; j0 < k; j0 += 32) {
-    const int j = j0 + lane;
-    int32_t u = -1;
-    float w = 0.f;
-    if (j < k) {
-      u = inv_row[j];
-      w = wgt_row[j];
-    }
-    bool keep = j < k && w != 0.f && u >= 0 && u < u2;
-    if (keep && sel != nullptr) u = sel[u];
-    keep = keep && u >= 0 && u < limit;
-    const unsigned int mask = __ballot_sync(0xffffffffu, keep);
-    if (keep) {
-      const int pos = live + __popc(mask & ((1u << lane) - 1u));
-      s_row[pos] = u;
-      s_wgt[pos] = w;
-    }
-    live += __popc(mask);
-  }
-  return live;
-}
+// ---- column vectors --------------------------------------------------------
 
-// One slot of a row-group gather, by the block's threads: dst = the
-// table's row group gid (vecs 16-byte vectors), or zeros when gid is not in
-// [0, num_groups) (an empty slot, such as the dedupe's sentinel). gid is
-// tested before any table address is formed; offsets are 64-bit.
-__device__ __forceinline__ void copy_row_group(
-    const int4* __restrict__ table, int64_t gid, int64_t num_groups,
-    int64_t vecs, int4* __restrict__ dst) {
-  if (gid >= 0 && gid < num_groups) {
-    const int4* src = table + gid * vecs;
-    for (int64_t i = threadIdx.x; i < vecs; i += blockDim.x) dst[i] = src[i];
-  } else {
-    const int4 zero = make_int4(0, 0, 0, 0);
-    for (int64_t i = threadIdx.x; i < vecs; i += blockDim.x) dst[i] = zero;
-  }
-}
-
-// ---- 16-byte column vectors ------------------------------------------------
-
-// What one lane loads at a time: VEC values of T (16 bytes, or one value).
+// What one lane loads at a time: VEC values of T (16 bytes; 4 bf16, 8
+// bytes; or one value).
 template <typename T, int VEC>
 struct Raw;
 template <>
@@ -89,6 +42,10 @@ struct Raw<__nv_bfloat16, 8> {
   using type = uint4;
 };
 template <>
+struct Raw<__nv_bfloat16, 4> {
+  using type = uint2;
+};
+template <>
 struct Raw<__nv_bfloat16, 1> {
   using type = unsigned short;
 };
@@ -96,6 +53,7 @@ struct Raw<__nv_bfloat16, 1> {
 __device__ __forceinline__ float4 load_raw(const float4* p) { return __ldg(p); }
 __device__ __forceinline__ float load_raw(const float* p) { return __ldg(p); }
 __device__ __forceinline__ uint4 load_raw(const uint4* p) { return __ldg(p); }
+__device__ __forceinline__ uint2 load_raw(const uint2* p) { return __ldg(p); }
 __device__ __forceinline__ unsigned short load_raw(const unsigned short* p) {
   return __ldg(p);
 }
@@ -124,6 +82,12 @@ __device__ __forceinline__ void to_floats(uint4 x, float (&f)[8]) {
     f[2 * i] = __uint_as_float(w[i] << 16);
     f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
+}
+__device__ __forceinline__ void to_floats(uint2 x, float (&f)[4]) {
+  f[0] = __uint_as_float(x.x << 16);
+  f[1] = __uint_as_float(x.x & 0xffff0000u);
+  f[2] = __uint_as_float(x.y << 16);
+  f[3] = __uint_as_float(x.y & 0xffff0000u);
 }
 __device__ __forceinline__ void to_floats(unsigned short x, float (&f)[1]) {
   f[0] = __uint_as_float((unsigned int)x << 16);

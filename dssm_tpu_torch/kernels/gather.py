@@ -65,6 +65,9 @@ def gather_row_groups(table: torch.Tensor, gids: torch.Tensor, group: int,
         raise ValueError(f"{_NAME}: a row group must be a whole number of "
                          f"16-byte vectors ({group_bytes} bytes)")
     g = gids.shape[0]
+    if g * group_bytes >= 1 << 35:
+        raise ValueError(f"{_NAME}: the kernel writes under 2^31 16-byte "
+                         f"vectors; {g} slots of {group_bytes} bytes")
     out = torch.empty((g * group, h), dtype=table.dtype, device=table.device)
     if g == 0:
         return out

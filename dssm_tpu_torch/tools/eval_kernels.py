@@ -5,13 +5,13 @@ them, on one NVIDIA GPU.
         [--source NAME=DIR ...]
 
 Builds the group's sources as they stand (`eval`: count.cu and rank.cu;
-`lookup`: count.cu, joint.cu and gather.cu) and, for each --source, the same
-files in DIR (the same C entry points, e.g. an earlier commit's csrc/, with
-the headers they include), all at once; holds every build to the plain
-versions and says whether its outputs are bit-equal to this tree's build;
-then times each with CUDA-graph replays (median of 11 replays of 20 calls,
-5 for the rank count; L2-warm), builds in turns, forward then backward
-through the list.
+`lookup`: count.cu, joint.cu, gather.cu and embed.cu) and, for each
+--source, the same files in DIR (the same C entry points, e.g. an earlier
+commit's csrc/, with the headers they include), all at once; holds every
+build to the plain versions and says whether its outputs are bit-equal to
+this tree's build; then times each with CUDA-graph replays (median of 11
+replays of 20 calls, 5 for the rank count; L2-warm), builds in turns,
+forward then backward through the list.
 
 `--cases eval` (the default), the eval path's two heaviest kernels:
 
@@ -44,8 +44,16 @@ function) and cuBLAS's f32 product `q @ d.T` alone (TF32 off).
     the dequantized f32 block, 256 slots x 32 rows = 8192 x 384) and at the
     cnn's (the first union-dedupe batch of the cnn toy stream's training
     split, 16384 word rows a side, over a 1024 x 8 x 1024 f32 block);
-  - the gather at the cnn shape (1024 slots of 8 rows of Wc [30000, 1024]
-    f32), against `index_select` of the same rows;
+  - the gather at the `full` eval shape (256 slots of one 12 KB row group
+    of the 500000 x 384 table: 8 f32, 16 bf16 or 32 int8 rows; the
+    slots of the joint batches) and at the cnn shape (1024 slots of 8 rows
+    of Wc [30000, 1024] f32), against `index_select` of the same rows;
+  - the raw-index bag forward on the `full` raw batch (q side K = 32, d
+    side K = 64, from the 500000 x 384 table) and on the cnn raw batch's
+    doc side (16384 word rows of Kw = 8, from Wc [30000, 1024] and from
+    the lstm's Win [30000, 384]), f32 and bf16 tables, against
+    `F.embedding_bag`; and the count lookup on the same inputs (compact2 =
+    the table), which must give the bag's bits;
   - the kernels that share code with these two: the joint lookup's
     backward (csrc/segsum.cuh) at the `full` shapes with bf16 gradients,
     and the fused gather + joint lookup (the lookup warp body) from an f32
@@ -53,8 +61,9 @@ function) and cuBLAS's f32 product `q @ d.T` alone (TF32 off).
 
 Beside them, once a case: the plain version, one PyTorch call of the same
 function as a yardstick (`index_add_`; the count matrices built and
-multiplied; `index_select`), and the bound: the larger of the bytes read and
-written once at 3.35 TB/s and the f32 FMAs at 67 TFLOP/s.
+multiplied; `index_select`; `F.embedding_bag`), and the bound: the larger
+of the bytes read and written once at 3.35 TB/s and the f32 FMAs at 67
+TFLOP/s.
 
 Prints the card's name and power limit, one line per case and a JSON line
 last. Needs one GPU; exits non-zero without one.
@@ -79,7 +88,7 @@ from dssm_tpu_torch.config import get_preset, validate
 from dssm_tpu_torch.data import (
     ToyPairs, batch_iterator, hash_pairs, make_toy_pairs, train_eval_split)
 from dssm_tpu_torch.data.remap import apply_remap, build_freq_remap
-from dssm_tpu_torch.kernels import _build, count, gather, joint, rank
+from dssm_tpu_torch.kernels import _build, count, embed, gather, joint, rank
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12          # f32 outside the tensor cores
@@ -260,8 +269,8 @@ def _batches(preset, stream_kw, n_pairs=None):
     for name, kw in stream_kw.items():
         out[name] = next(batch_iterator(
             hashed, cfg.train.batch_size, seed=cfg.train.seed,
-            dedup_unique=cfg.data.max_unique,
-            dedup_unique_rows=cfg.data.max_unique_rows, **kw))
+            **{"dedup_unique": cfg.data.max_unique,
+               "dedup_unique_rows": cfg.data.max_unique_rows, **kw}))
     return cfg, out
 
 
@@ -277,8 +286,8 @@ def lookup_cases(dev, rng):
         name: dict(dedup_group=grp, dedup_joint=jnt, wire_compress=True,
                    sort_rows=True)
         for name, grp, jnt in (("per_side", 8, False), ("joint8", 8, True),
-                               ("joint16", 16, True), ("joint32", 32, True))},
-        PAIRS)
+                               ("joint16", 16, True), ("joint32", 32, True))}
+        | {"raw": dict(dedup_unique=None)}, PAIRS)
     h = padded(cfg.tower.embed_width)
     out = []
     ps = batch_to_torch(full["per_side"], dev)
@@ -399,8 +408,74 @@ def lookup_cases(dev, rng):
                      + 2 * fields[1].shape[0] * h * 4, nnz * h),
             f"table {tuple(table.shape)}, {uniq.numel()} slots of {grp}"))
 
-    ccfg, cnn = _batches("cnn", {"joint": dict(
-        sequence=True, dedup_group=8, dedup_joint=True)})
+    def gather_case(what, tbl, uniq, grp):
+        ng = tbl.shape[0] // grp
+        real = (uniq >= 0) & (uniq < ng)
+        rows = (torch.where(real, uniq, 0).long()[:, None] * grp
+                + torch.arange(grp, device=dev)).reshape(-1)
+        group_bytes = grp * tbl.shape[1] * tbl.element_size()
+        return (f"gather_row_groups {what}",
+                lambda: gather.gather_row_groups(tbl, uniq, grp,
+                                                 impl="kernel"),
+                lambda: gather.gather_row_groups_plain(tbl, uniq, grp),
+                lambda got, want: bool(torch.equal(got, want)),
+                {"library": lambda: tbl.index_select(0, rows)},
+                bound_us((int(real.sum()) + uniq.numel()) * group_bytes
+                         + uniq.numel() * 4, 0),
+                f"{uniq.numel()} slots of {grp} rows, {int(real.sum())} real")
+
+    def bag_cases(what, tbl, idx, wgt):
+        """The bag forward, with F.embedding_bag beside it, and the count
+        lookup on the same inputs (compact2 = the table), which must give
+        the bag's bits."""
+        k = idx.shape[-1]
+        rows, hh = idx.numel() // k, tbl.shape[1]
+        live = wgt != 0
+        nnz = int(live.sum())
+        bound = bound_us(idx.numel() * 8 + torch.unique(idx[live]).numel()
+                         * hh * tbl.element_size() + rows * hh * 4, nnz * hh)
+        idx2, w2 = idx.reshape(rows, k).long(), wgt.reshape(rows, k).to(
+            tbl.dtype)
+        near = _near(lambda w: w.abs().max())
+        name = f"{what} {str(tbl.dtype).split('.')[-1]}"
+        desc = (f"table {tuple(tbl.shape)}, idx {tuple(idx.shape)}, {nnz} "
+                "live lookups")
+        return [
+            (f"embedding_bag {name}",
+             lambda: embed._forward_kernel(tbl, idx, wgt),
+             lambda: embed.embedding_bag_plain(tbl, idx, wgt), near,
+             {"library": lambda: torch.nn.functional.embedding_bag(
+                 idx2, tbl, per_sample_weights=w2, mode="sum")}, bound, desc),
+            (f"count_lookup on the bag's inputs {name}",
+             lambda: count.count_lookup(tbl, idx, wgt, impl="kernel"),
+             lambda: embed.embedding_bag_plain(tbl, idx, wgt),
+             lambda got, want: near(got, want) and bool(torch.equal(
+                 got, embed._forward_kernel(tbl, idx, wgt))), {}, bound,
+             desc)]
+
+    # The gather at the `full` eval shape (256 slots of one 12 KB row group
+    # of the 500000 x 384 table: 8 f32, 16 bf16 or 32 int8 rows) and the
+    # bag on the `full` raw batch (q side K = 32, d side K = 64).
+    w0 = {torch.float32: normal(cfg.tower.vocab_size, h)}
+    w0[torch.bfloat16] = w0[torch.float32].to(torch.bfloat16)
+    w0[torch.int8] = torch.from_numpy(rng.integers(
+        -127, 128, size=(cfg.tower.vocab_size, h), dtype=np.int8)).to(dev)
+    for key, dtype in (("joint8", torch.float32), ("joint16", torch.bfloat16),
+                       ("joint32", torch.int8)):
+        out.append(gather_case(f"full {str(dtype).split('.')[-1]}",
+                               w0[dtype], batch_to_torch(full[key], dev)[
+                                   "uniq"], int(key[5:])))
+    raw = batch_to_torch(full["raw"], dev)
+    for side in ("q", "d"):
+        idx, wgt = (raw[f"{side}_{f}"].contiguous() for f in ("idx", "wgt"))
+        for dtype in (torch.float32, torch.bfloat16):
+            out += bag_cases(f"full {side} side K={idx.shape[-1]}", w0[dtype],
+                             idx, wgt)
+    del w0
+
+    ccfg, cnn = _batches("cnn", {
+        "joint": dict(sequence=True, dedup_group=8, dedup_joint=True),
+        "raw": dict(sequence=True, dedup_unique=None)})
     tb = batch_to_torch(cnn["joint"], dev)
     hc = padded(ccfg.tower.conv_window * ccfg.tower.conv_channels)
     wc = normal(ccfg.tower.vocab_size, hc)
@@ -409,18 +484,15 @@ def lookup_cases(dev, rng):
                                             "d_wgt")]
     compact = gather.gather_row_groups(wc, uniq, 8, impl="kernel")
     out.append(joint_case("joint_lookup cnn f32 compact", compact, fields))
-    ng = wc.shape[0] // 8
-    real = (uniq >= 0) & (uniq < ng)
-    rows = (torch.where(real, uniq, 0).long()[:, None] * 8
-            + torch.arange(8, device=dev)).reshape(-1)
-    out.append(("gather_row_groups cnn f32",
-                lambda: gather.gather_row_groups(wc, uniq, 8, impl="kernel"),
-                lambda: gather.gather_row_groups_plain(wc, uniq, 8),
-                lambda got, want: bool(torch.equal(got, want)),
-                {"library": lambda: wc.index_select(0, rows)},
-                bound_us((int(real.sum()) + uniq.numel()) * 8 * hc * 4
-                         + uniq.numel() * 4, 0),
-                f"{uniq.numel()} slots of 8 rows, {int(real.sum())} real"))
+    out.append(gather_case("cnn float32", wc, uniq, 8))
+    # The bag on the cnn raw batch's doc side (1024 x 16 words of Kw = 8)
+    # from Wc and from the lstm's Win [30000, 384].
+    raw = batch_to_torch(cnn["raw"], dev)
+    idx, wgt = raw["d_idx"].contiguous(), raw["d_wgt"].contiguous()
+    win = normal(ccfg.tower.vocab_size, padded(ccfg.tower.embed_width))
+    for what, tbl in (("cnn", wc), ("lstm", win)):
+        for dtype in (torch.float32, torch.bfloat16):
+            out += bag_cases(f"{what} raw d side", tbl.to(dtype), idx, wgt)
     return [(name, kernel, plain, near, 20, calls,
              {"bound_us": round(bound, 2), "what": what})
             for name, kernel, plain, near, calls, bound, what in out]
@@ -461,7 +533,8 @@ def run(libs, case_list):
 
 
 GROUPS = {"eval": (("count.cu", "rank.cu"), eval_cases),
-          "lookup": (("count.cu", "joint.cu", "gather.cu"), lookup_cases)}
+          "lookup": (("count.cu", "joint.cu", "gather.cu", "embed.cu"),
+                     lookup_cases)}
 
 
 def main() -> int:

@@ -22,7 +22,9 @@ and in the plain version and do the same f32 arithmetic (bit-equal); the
 rank count is an integer, equal wherever no score lies within an f32
 rounding of the true score. The raw-index embedding bag and its weight
 gradient sum in another order than their plain versions (rtol 1e-5; on a
-bf16 table the same bf16 values are summed in f32, so the same tolerance).
+bf16 table the same bf16 values are summed in f32, so the same tolerance);
+the bag's forward is the count lookup's kernel body, so the two give the
+same bits on the same inputs.
 The fused gather + joint lookup sums the same terms in the same order as the
 joint lookup kernel after the gather kernel (bit-equal to the two), and in
 another order than its plain version (rtol 1e-5).
@@ -96,6 +98,58 @@ def test_gather_kernel_matches_plain(dev):
     for tbl, group in ((table, GROUP), (table.to(torch.bfloat16), 16)):
         assert torch.equal(gather_row_groups(tbl, gids, group, impl="kernel"),
                            gather_row_groups_plain(tbl, gids, group))
+
+
+def _gather_ids(rng, slots, num_groups, pattern):
+    """Group ids of `slots` slots: real ids (repeats allowed) mixed with the
+    dedupe's sentinel, negative ids and the largest int32; or all sentinel,
+    or all real."""
+    gids = rng.integers(0, num_groups, size=slots).astype(np.int64)
+    if pattern == "all_sentinel":
+        gids[:] = SKIP_SENTINEL_GID
+    elif pattern == "mixed":
+        tail = rng.random(slots) < 0.4
+        gids[tail] = SKIP_SENTINEL_GID
+        gids[::7] = -1
+        gids[3::11] = -(1 << 31)
+        gids[5::13] = (1 << 31) - 1
+        gids[-1] = num_groups  # one past the last group
+    return torch.from_numpy(gids.astype(np.int32))
+
+
+# (dtype, rows a group, width): groups of 12 KB at width 384 (the `full`
+# preset's) and 32 KB at 1024 (cnn's), whole numbers of 16 KB copy stages
+# or not; and 8 x 520 f32 (16,640 bytes, a stage and a part).
+GATHER_SHAPES = [(torch.float32, 8, 384), (torch.float32, 8, 1024),
+                 (torch.bfloat16, 16, 384), (torch.bfloat16, 16, 1024),
+                 (torch.int8, 32, 384), (torch.int8, 32, 1024),
+                 (torch.float32, 8, 520)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,group,width", GATHER_SHAPES)
+def test_gather_kernel_bit_equal_at_every_shape(dev, dtype, group, width):
+    """Bit-equal to the plain version for 1 to 2048 slots (more slots than
+    one pass of the persistent grid), with empty slots of every kind: the
+    sentinel 1 << 25, negative ids, ids past the last group."""
+    rng = np.random.default_rng(24)
+    v = 1 << 15
+    if dtype == torch.int8:
+        table = torch.from_numpy(rng.integers(-127, 128, size=(v, width),
+                                              dtype=np.int8))
+    else:
+        table = torch.from_numpy(rng.normal(size=(v, width)).astype(
+            np.float32)).to(dtype)
+    table = table.to(dev)
+    for slots in (1, 5, 256, 1024, 2048):
+        for pattern in ("mixed", "all_sentinel", "all_real"):
+            gids = _gather_ids(rng, slots, v // group, pattern).to(dev)
+            _build.reset_launch_counts()
+            got = gather_row_groups(table, gids, group, impl="kernel")
+            assert _build.launch_counts()["gather_row_groups"] == 1
+            want = gather_row_groups_plain(table, gids, group)
+            assert got.shape == (slots * group, width)
+            assert torch.equal(got, want), (slots, pattern)
 
 
 # (u2, h, rows, k): small ragged rows; the `full` eval lookups (K = 64 and
@@ -913,6 +967,57 @@ def test_embedding_bag_kernels_match_plain(dev, dtype, shape):
     idx_bad.view(-1)[0], wgt_bad.view(-1)[0] = V + 7, 1.0
     with pytest.raises(IndexError):
         embedding_bag(table, idx_bad, wgt_bad, impl="kernel")
+
+
+# (rows shape + K, width): the `full` raw batch's q and d sides, the cnn and
+# lstm raw batches' word rows.
+BAG_SHAPES = {"full_q": ((1024, 32), 384), "full_d": ((1024, 64), 384),
+              "cnn": ((1024, 16, 8), 1024), "lstm": ((1024, 16, 8), 384)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(BAG_SHAPES))
+def test_embedding_bag_bit_equal_to_count_lookup(dev, dtype, case):
+    """The bag forward and the count lookup run one kernel body: on the same
+    inputs (compact2 = the table) they give the same bits, and two calls
+    too; within 1e-5 of the plain version. Rows with no live lookup come
+    back 0; a row whose every lookup names one table row sums it K times;
+    dead lookups whose index lies outside the table read nothing."""
+    shape, width = BAG_SHAPES[case]
+    rng = np.random.default_rng(33)
+    v = 100_000
+    table = torch.from_numpy(rng.normal(size=(v, width)).astype(
+        np.float32)).to(dev, dtype)
+    k = shape[-1]
+    idx = rng.integers(0, v, size=shape).astype(np.int32)
+    wgt = rng.integers(1, 4, size=shape).astype(np.float32)
+    nnz = rng.integers(0, k + 1, size=shape[:-1])
+    dead = np.arange(k) >= nnz[..., None]
+    wgt[dead] = 0.0
+    idx[dead & (rng.random(shape) < 0.3)] = v + 7
+    idx[dead & (rng.random(shape) < 0.3)] = -3
+    flat_i, flat_w = idx.reshape(-1, k), wgt.reshape(-1, k)
+    flat_w[::9] = 0.0          # rows with no live lookup
+    flat_i[1::9] = v + 1       # ... whose indices lie outside the table
+    flat_w[1::9] = 0.0
+    flat_i[4], flat_w[4] = 12345, 2.0  # every lookup names one row
+    idx, wgt = torch.from_numpy(idx).to(dev), torch.from_numpy(wgt).to(dev)
+    _build.reset_launch_counts()
+    got = embedding_bag(table, idx, wgt, impl="kernel")
+    again = embedding_bag(table, idx, wgt, impl="kernel")
+    via_count = count_lookup(table, idx, wgt, impl="kernel")
+    counts = _build.launch_counts()
+    assert counts["embedding_bag"] == 2 and counts["count_lookup"] == 1
+    want = embedding_bag_plain(table, idx, wgt)
+    assert got.dtype == torch.float32 and got.shape == (*shape[:-1], width)
+    assert torch.equal(got, again) and torch.equal(got, via_count)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    rows = got.reshape(-1, width)
+    assert not bool(rows[::9].any()) and not bool(rows[1::9].any())
+    torch.testing.assert_close(rows[4], k * 2.0 * table[12345].float(),
+                               rtol=1e-5, atol=0)
 
 
 @pytest.mark.cuda

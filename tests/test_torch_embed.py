@@ -16,9 +16,11 @@ import pytest
 import torch
 
 from dssm_tpu.kernels import sparse_embed as jembed
+from dssm_tpu.kernels.pallas_count import count_lookup_pallas
 from dssm_tpu.kernels.pallas_embed import embedding_bag_pallas
 from dssm_tpu.train.sparse_update import scatter_table_update as j_scatter
 from dssm_tpu_torch.kernels import embed as tembed
+from dssm_tpu_torch.kernels.count import count_lookup_plain
 from dssm_tpu_torch.kernels import sparse_embed as tsparse_embed
 from dssm_tpu_torch.train.sparse_update import scatter_table_update
 
@@ -74,6 +76,25 @@ def test_plain_bag_matches_xla_and_pallas(shape):
                                       torch.from_numpy(idx),
                                       torch.from_numpy(wgt))
     np.testing.assert_array_equal(out.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("shape,dead_junk", [((32, 16), False),
+                                             ((64, 40), True)])
+def test_bag_is_the_count_lookup_over_the_table(shape, dead_junk):
+    """The bag is the count lookup with compact2 = the whole table (the two
+    CUDA kernels share one body): the bag's plain version against dssm_tpu's
+    count lookup kernel (interpret mode) and the port's plain count lookup
+    on the same inputs, dead lookups outside the table included."""
+    table, idx, wgt = _inputs(7, shape, dead_junk=dead_junk)
+    want = count_lookup_pallas(jnp.asarray(table), jnp.asarray(idx),
+                               jnp.asarray(wgt), interpret=True)
+    got = tembed.embedding_bag_plain(torch.from_numpy(table),
+                                     torch.from_numpy(idx),
+                                     torch.from_numpy(wgt))
+    _close(got.numpy(), want)
+    _close(got.numpy(), count_lookup_plain(torch.from_numpy(table),
+                                           torch.from_numpy(idx),
+                                           torch.from_numpy(wgt)).numpy())
 
 
 def test_plain_bag_on_a_bf16_table():
