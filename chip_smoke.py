@@ -23,7 +23,7 @@ union dedupe):
     more traced (device busy ms a step);
   - trains it the same way on a bf16 table and on an int8 table (12 steps
     each, the stochastic-rounding scatters, kernels against plain versions;
-    3 int8 steps traced);
+    3 steps of each traced, with the scatter's share of the busy time);
   - evaluates the f32, bf16 and int8 models on the held-out split (recall@1,
     NDCG@10, MRR), kernels against plain versions, the second pass from the
     cache of prepared batches, and traces one more cached pass of the f32
@@ -148,6 +148,7 @@ def main() -> int:
         dense_tower, dense_tower_residuals)
     from dssm_tpu_torch.models import base as model_base
     from dssm_tpu_torch.serve import build_doc_index, embed_queries, top_k
+    from dssm_tpu_torch.tools import eval_kernels, sass
     from dssm_tpu_torch.train import eval as eval_mod
     from dssm_tpu_torch.train.loop import make_train_step
     from dssm_tpu_torch.train.state import create_run_state
@@ -1001,6 +1002,16 @@ def main() -> int:
          scatter_sr_row_groups_plain, 286),
         ("scatter_sr_int8_row_groups", "int8", scatter_sr_int8_row_groups,
          scatter_sr_int8_row_groups_plain, 410))
+    # The scatters' bound is the larger of their bytes and the instructions
+    # they issue (Philox and the rounding), counted by class in this run's
+    # build (cuobjdump -sass of a thread's work, over its elements) and
+    # issued at the card's SM count and maximum SM clock.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sm_clock = eval_kernels.sm_clock_hz()
+    sr_instr = eval_kernels.sr_instructions(_build.library_path())
+    print(f"scatter kernels, instructions an element by class (cuobjdump "
+          f"-sass of this run's build): {json.dumps(sr_instr)}; {sms} SMs "
+          f"at {sm_clock / 1e6:.0f} MHz")
     for name, tname, fn, fn_plain, line in sr_cases:
         lp = lowprec[tname]
         grp, dtype = lp["group"], lp["dtype"]
@@ -1102,6 +1113,10 @@ def main() -> int:
         itemsize = tbl.element_size()
         b_ms, b_by = bound_ms(real_s * grp * h * (2 * itemsize + 4)
                               + slots * 4, real_s * grp * h, "f32")
+        issue_ms = sass.issue_bound_us(sr_instr[name], real_s * grp * h,
+                                       sms, sm_clock) / 1e3
+        if issue_ms > b_ms:
+            b_ms, b_by = issue_ms, "operations"
         results[name] = dict(
             source="dssm_tpu_torch/csrc/scatter_sr.cu",
             replaces=f"dssm_tpu/kernels/pallas_gather.py:{line}",
@@ -1111,7 +1126,8 @@ def main() -> int:
                               reps=5, trials=3),
             library_ms=graph_ms(lambda: t_k.index_copy_(0, rows_lp,
                                                         composed)),
-            bound_ms=b_ms, bound_by=b_by,
+            bound_ms=b_ms, bound_by=b_by, issue_bound_ms=issue_ms,
+            instructions_per_element=sr_instr[name],
             shape=f"table {tuple(tbl.shape)} {tname}, {slots} slots of "
                   f"{grp} rows, {real_s} real; {SR_SEEDS}-seed mean: "
                   f"{beyond:.4f} beyond 3 sigma, bias {bias:.1e} grid steps; "
@@ -1888,7 +1904,7 @@ def main() -> int:
         """Device busy time a step of `batches_` from `state_`, traced
         (their wire fields moved to the card first), the top kernels, and
         the device time a step of the kernels whose names hold one of
-        `names_`."""
+        `names_`, together and each with its share of the busy time."""
         tb_ = [batch_to_torch(b_, dev) for b_ in batches_]
         step_ = make_train_step(cfg_, "auto")
         state_, _ = step_(state_, tb_[0])  # warm
@@ -1901,7 +1917,8 @@ def main() -> int:
             torch.cuda.synchronize()
             wall_ = time.perf_counter() - t0_
         us_, top_ = device_time_us(prof_, 10)
-        named_ms = sum(kernel_ms(prof_, names_).values())
+        by_name = kernel_ms(prof_, names_)
+        named_ms = sum(by_name.values())
         print(f"{what}, traced ({len(tb_)} steps, on {card}): " + json.dumps(
             dict(device_busy_ms_per_step=(
                 None if us_ is None else us_ / 1e3 / len(tb_)),
@@ -1909,6 +1926,10 @@ def main() -> int:
                  named_kernels=list(names_),
                  named_kernels_ms_per_step=(
                      None if us_ is None else named_ms / len(tb_)),
+                 by_kernel=None if us_ is None else {
+                     n_: dict(ms_per_step=ms_ / len(tb_),
+                              share_of_busy=ms_ * 1e3 / us_)
+                     for n_, ms_ in by_name.items()},
                  top_kernels_us=top_)))
 
     # The per-side branch (separate towers, per-side dedupe): the path of
@@ -2004,7 +2025,11 @@ def main() -> int:
         if tname == "int8":
             traced_step("int8 joint step", cfg_lp, run["state"],
                         lp["batches"][:PER_SIDE_STEPS],
-                        ("joint_lookup_kernel",))
+                        ("joint_lookup_kernel", "scatter_sr_kernel"))
+        else:
+            traced_step("bf16 joint step", cfg_lp, run["state"],
+                        lp["batches"][:PER_SIDE_STEPS],
+                        ("scatter_sr_kernel",))
         del params_lp, run
 
     # ---- phase 4c: evaluation of the three trained models -----------------

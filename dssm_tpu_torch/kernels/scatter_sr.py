@@ -11,13 +11,17 @@ in grid units (the update divided by the row's scale, 0 where the scale is
 0), as the reference's kernel takes it. Counterpart of pallas_gather.py::
 scatter_sr_int8_row_groups.
 
-The CUDA kernels are in csrc/scatter_sr.cu. SET semantics: the real group
-ids of one call must be distinct, as the dedupe makes them. Out-of-range
-slots (the dedupe's SKIP_SENTINEL_GID padding) are skipped: nothing is read
-or written through them. The random bits are kernels/stochastic.py's Philox
+The CUDA kernels are in csrc/scatter_sr.cu: one launch a call, a thread a
+16-byte vector of the table (8 bf16 or 16 int8 elements) and a block 256
+of them, so each real slot's group spreads over several blocks and SMs
+and a skip slot's blocks read its id and leave. SET semantics: the real
+group ids of one call must be distinct, as the dedupe makes them.
+Out-of-range slots (the dedupe's SKIP_SENTINEL_GID padding, a negative id,
+one past the table), at any position, are skipped: nothing is read or
+written through them. The random bits are kernels/stochastic.py's Philox
 stream under `seed`, indexed by the element's position in the compact
-block; the plain versions draw the same stream with philox_bits, so kernel
-and plain version are bit-equal.
+block, whatever thread computes it; the plain versions draw the same
+stream with philox_bits, so kernel and plain version are bit-equal.
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
 """Time the port's lookup, gather and rank kernels beside other builds of
 them, on one NVIDIA GPU.
 
-    python -m dssm_tpu_torch.tools.eval_kernels [--cases eval|lookup]
+    python -m dssm_tpu_torch.tools.eval_kernels [--cases eval|lookup|scatter]
         [--source NAME=DIR ...]
 
 Builds the group's sources as they stand (`eval`: count.cu and rank.cu;
-`lookup`: count.cu, joint.cu, gather.cu and embed.cu) and, for each
+`lookup`: count.cu, joint.cu, gather.cu and embed.cu; `scatter`:
+scatter_sr.cu) and, for each
 --source, the same files in DIR (the same C entry points, e.g. an earlier
 commit's csrc/, with the headers they include), all at once; holds every
 build to the plain versions and says whether its outputs are bit-equal to
@@ -65,6 +66,27 @@ multiplied; `index_select`; `F.embedding_bag`), and the bound: the larger
 of the bytes read and written once at 3.35 TB/s and the f32 FMAs at 67
 TFLOP/s.
 
+`--cases scatter`, the stochastic-rounding scatters of a bf16 or int8
+table's step (in place; timed on a copy of the table, each build's first
+call checked on a fresh copy):
+
+  - at the smoke's shapes: the first batch of `chip_smoke.py`'s `full`
+    stream (its 32768-pair cut, split and frequency-remapped) deduped at
+    16-row (bf16) and 32-row (int8) groups, 256 slots of which 54 / 27 are
+    real, into the 500000 x 384 table;
+  - with all 256 slots real (distinct random groups), both dtypes;
+  - at cnn width: a 30000 x 1024 bf16 table and the first batch of the cnn
+    toy stream's training split deduped at 16-row groups (1024 slots).
+
+Beside them, once a case: the plain version (eager: its row mask cannot
+be captured), the `index_copy_` of the finished rows as a floor (not the
+same function: no PyTorch call rounds stochastically), and the bound: the
+larger of the bytes (each real group read and written once, its f32 vals
+read once) at 3.35 TB/s and the instructions the kernel issues for them
+in this tree's build (`cuobjdump -sass` of a thread's work over its
+elements, tools/sass.py), by class, at the card's SM count and maximum SM
+clock.
+
 Prints the card's name and power limit, one line per case and a JSON line
 last. Needs one GPU; exits non-zero without one.
 """
@@ -88,11 +110,20 @@ from dssm_tpu_torch.config import get_preset, validate
 from dssm_tpu_torch.data import (
     ToyPairs, batch_iterator, hash_pairs, make_toy_pairs, train_eval_split)
 from dssm_tpu_torch.data.remap import apply_remap, build_freq_remap
-from dssm_tpu_torch.kernels import _build, count, embed, gather, joint, rank
+from dssm_tpu_torch.kernels import (
+    _build, count, embed, gather, joint, rank, scatter_sr)
+from dssm_tpu_torch.tools import sass
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12          # f32 outside the tensor cores
 PAIRS = 4096  # of the toy corpus: the first batch is the step's own batch
+SMOKE_PAIRS = 32768  # chip_smoke.py's cut of the `full` toy corpus
+# The scatter kernels' names in csrc/scatter_sr.cu's SASS, and the elements
+# a thread updates: kUnits units of 4 (a Philox call each) in its Op.
+SR_KERNELS = {"scatter_sr_row_groups": ("scatter_sr_kernel", "Bf16"),
+              "scatter_sr_int8_row_groups": ("scatter_sr_kernel", "Int8")}
+SR_THREAD_ELEMENTS = {"scatter_sr_row_groups": 8,
+                      "scatter_sr_int8_row_groups": 16}
 # The C signature of dssm_count_lookup_bwd before it took a workspace: inv,
 # wgt, g, dc2 (zeroed, added into), rows, k, u2, h, g_dtype, stream.
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -137,7 +168,24 @@ def graph_ms(fn, reps=20, replays=11):
     return statistics.median(times)
 
 
-def eval_cases(dev, rng):
+def eager_ms(fn, reps=5, trials=3):
+    """Device ms per call launched eagerly from Python (host included)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def eval_cases(dev, rng, libs=None):
     """(name, kernel call, plain call, tolerance check, reps, {yardstick
     name: PyTorch call}, {more of the case's record}) per case."""
     def lookup_case(name, c2, inv, wgt):
@@ -247,20 +295,21 @@ def _near(scale_of):
     return near
 
 
-def _batches(preset, stream_kw, n_pairs=None):
+def _batches(preset, stream_kw, n_pairs=None, split=False):
     """The first batch of each stream (dict of batch_iterator arguments)
-    over the preset's toy corpus: cut to n_pairs and frequency-remapped, as
-    chip_smoke.py trains `full`; or, without n_pairs, its training split,
-    as chip_smoke.py trains the sequence presets."""
+    over the preset's toy corpus: cut to n_pairs and frequency-remapped;
+    with split, of the cut's training split, as chip_smoke.py trains
+    `full`; or, without n_pairs, of the corpus's training split, as
+    chip_smoke.py trains the sequence presets."""
     cfg = validate(get_preset(preset))
     pairs = make_toy_pairs(cfg.data.toy_num_pairs, cfg.data.toy_vocab_words,
                            cfg.data.seed)
-    if n_pairs is None:
-        pairs, _ = train_eval_split(pairs, eval_frac=cfg.data.eval_frac,
-                                    seed=cfg.data.seed)
-    else:
+    if n_pairs is not None:
         pairs = ToyPairs(queries=pairs.queries[:n_pairs],
                          titles=pairs.titles[:n_pairs])
+    if n_pairs is None or split:
+        pairs, _ = train_eval_split(pairs, eval_frac=cfg.data.eval_frac,
+                                    seed=cfg.data.seed)
     hashed = hash_pairs(pairs, cfg.tower, cfg.data)
     if n_pairs is not None:
         hashed = apply_remap(hashed, build_freq_remap(hashed,
@@ -274,7 +323,7 @@ def _batches(preset, stream_kw, n_pairs=None):
     return cfg, out
 
 
-def lookup_cases(dev, rng):
+def lookup_cases(dev, rng, libs=None):
     """(name, kernel call, plain call, tolerance check, reps, {yardstick
     name: PyTorch call}, {"bound_us": the case's bound, "what": its
     inputs}) per case."""
@@ -505,6 +554,10 @@ def run(libs, case_list):
     the plain version and the yardsticks once. Prints a line a case."""
     results = {}
     for name, kernel, plain, near, reps, calls, more in case_list:
+        # A case may time another call than the one it checks (an in-place
+        # kernel on a copy it keeps), and time some calls eagerly.
+        more = dict(more)
+        timed, eager = more.pop("timed", kernel), more.pop("eager", ())
         want = plain()
         row, same, ref = {}, {}, None
         order = list(libs) + list(reversed(list(libs)))
@@ -521,20 +574,133 @@ def run(libs, case_list):
                     got if isinstance(got, tuple) else (got,),
                     ref if isinstance(ref, tuple) else (ref,)))
             row.setdefault(build_name, []).append(
-                round(graph_ms(kernel, reps=reps) * 1e3, 2))
+                round(graph_ms(timed, reps=reps) * 1e3, 2))
             if i == len(libs) - 1:
                 for call_name, call in {"plain": plain, **calls}.items():
-                    row[call_name] = [round(graph_ms(call, reps=reps) * 1e3,
-                                            2)]
+                    row[call_name] = [round((
+                        eager_ms(call) if call_name in eager
+                        else graph_ms(call, reps=reps)) * 1e3, 2)]
         results[name] = dict(us=row, bit_equal_to_tree=same, **more)
         print(f"{name} (us, each build twice): {json.dumps(results[name])}",
               flush=True)
     return results
 
 
+def sm_clock_hz():
+    """The card's maximum SM clock, from nvidia-smi."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def sr_instructions(lib):
+    """{kernel: {class: instructions an element}} of the two scatter
+    kernels in the shared library `lib`: a thread's SASS over its
+    elements."""
+    return {k: {c: n / SR_THREAD_ELEMENTS[k] for c, n in v.items()}
+            for k, v in sass.library_counts(lib, SR_KERNELS).items()}
+
+
+def sr_bound_us(per_element, real_slots, slots, group_elems, itemsize, sms,
+                clock_hz):
+    """(bound us, "bytes" or "operations", bytes us, issue us) of one
+    scatter call: each real group read and written once and its f32 vals
+    read once, against the kernel's instructions for its elements."""
+    elements = real_slots * group_elems
+    by_bytes = (elements * (2 * itemsize + 4) + slots * 4) / HBM_BYTES_PER_S
+    by_issue = sass.issue_bound_us(per_element, elements, sms, clock_hz)
+    by_bytes *= 1e6
+    return (max(by_bytes, by_issue),
+            "bytes" if by_bytes >= by_issue else "operations", by_bytes,
+            by_issue)
+
+
+def scatter_cases(dev, rng, libs):
+    """As lookup_cases, for the two stochastic-rounding scatters."""
+    per_element = sr_instructions(libs["tree"])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = sm_clock_hz()
+    print(f"scatter kernels, instructions an element (cuobjdump -sass of "
+          f"this tree's build): {json.dumps(per_element)}; {sms} SMs at "
+          f"{clock / 1e6:.0f} MHz", flush=True)
+    kinds = {torch.bfloat16: ("scatter_sr_row_groups", 16,
+                              scatter_sr.scatter_sr_row_groups,
+                              scatter_sr.scatter_sr_row_groups_plain),
+             torch.int8: ("scatter_sr_int8_row_groups", 32,
+                          scatter_sr.scatter_sr_int8_row_groups,
+                          scatter_sr.scatter_sr_int8_row_groups_plain)}
+
+    def table(rows, h, dtype):
+        if dtype == torch.int8:
+            return torch.from_numpy(rng.integers(
+                -100, 101, size=(rows, h), dtype=np.int8)).to(dev)
+        return torch.from_numpy((rng.normal(size=(rows, h)) * 0.05).astype(
+            np.float32)).to(dev, dtype)
+
+    def case(what, tbl, gids):
+        name, grp, fn, plain = kinds[tbl.dtype]
+        h, slots = tbl.shape[1], gids.numel()
+        shape = (slots * grp, h)
+        if tbl.dtype == torch.int8:
+            vals = rng.uniform(-3, 3, size=shape)
+        else:
+            vals = rng.normal(size=shape) * 1e-4
+        vals = torch.from_numpy(vals.astype(np.float32)).to(dev)
+        real = (gids >= 0) & (gids < tbl.shape[0] // grp)
+        rows = (gids[real].long()[:, None] * grp
+                + torch.arange(grp, device=dev)).reshape(-1)
+        work = tbl.clone()
+        finished = work[rows].clone()
+        bound, by, by_bytes, by_issue = sr_bound_us(
+            per_element[name], int(real.sum()), slots, grp * h,
+            tbl.element_size(), sms, clock)
+        return (f"{name} {what}",
+                lambda: fn(tbl.clone(), gids, vals, grp, 12345,
+                           impl="kernel"),
+                lambda: plain(tbl.clone(), gids, vals, grp, 12345),
+                lambda got, want: bool(torch.equal(got, want)), 20,
+                {"plain": lambda: plain(work, gids, vals, grp, 5),
+                 "index_copy_floor": lambda: work.index_copy_(0, rows,
+                                                              finished)},
+                {"timed": lambda: fn(work, gids, vals, grp, 5,
+                                     impl="kernel"),
+                 "eager": ("plain",), "bound_us": round(bound, 3),
+                 "bound_by": by, "bytes_us": round(by_bytes, 3),
+                 "issue_us": round(by_issue, 3),
+                 "what": f"table {tuple(tbl.shape)} {tbl.dtype}, {slots} "
+                         f"slots of {grp} rows, {int(real.sum())} real"})
+
+    cfg, full = _batches("full", {
+        grp: dict(dedup_group=grp, dedup_joint=True, wire_compress=True,
+                  sort_rows=True) for grp in (16, 32)}, SMOKE_PAIRS,
+        split=True)
+    h = padded(cfg.tower.embed_width)
+    out = []
+    for dtype, (_, grp, _, _) in kinds.items():
+        tbl = table(cfg.tower.vocab_size, h, dtype)
+        gids = batch_to_torch(full[grp], dev)["uniq"]
+        out.append(case("smoke (full, first batch)", tbl, gids))
+        every = np.sort(rng.choice(tbl.shape[0] // grp, gids.numel(),
+                                   replace=False)).astype(np.int32)
+        out.append(case("full, every slot real", tbl,
+                        torch.from_numpy(every).to(dev)))
+        del tbl
+    ccfg, cnn = _batches("cnn", {"sr16": dict(
+        sequence=True, dedup_group=16, dedup_joint=True)})
+    wc = table(ccfg.tower.vocab_size,
+               padded(ccfg.tower.conv_window * ccfg.tower.conv_channels),
+               torch.bfloat16)
+    out.append(case("cnn width", wc, batch_to_torch(cnn["sr16"],
+                                                    dev)["uniq"]))
+    return out
+
+
 GROUPS = {"eval": (("count.cu", "rank.cu"), eval_cases),
           "lookup": (("count.cu", "joint.cu", "gather.cu", "embed.cu"),
-                     lookup_cases)}
+                     lookup_cases),
+          "scatter": (("scatter_sr.cu",), scatter_cases)}
 
 
 def main() -> int:
@@ -555,7 +721,7 @@ def main() -> int:
     libs = build([s.split("=", 1) for s in args.source], sources, args.cases)
     torch.backends.cuda.matmul.allow_tf32 = False  # exact f32 yardsticks
     results = run(libs, group_cases(torch.device("cuda"),
-                                    np.random.default_rng(0)))
+                                    np.random.default_rng(0), libs))
     _build.load(_build.build())
     print(json.dumps({f"{args.cases}_kernels_us": results,
                       "device": torch.cuda.get_device_name(0)}))

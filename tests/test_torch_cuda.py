@@ -745,38 +745,60 @@ def test_train_steps_kernels_match_plain(dev, shared):
                                        rtol=0, atol=2e-3)
 
 
+# 1, 64 and 256 slots, every slot real or real ones among skip ids of every
+# kind (the sentinel, negative, one past the table) at any position, the
+# table's last group always among them; widths 100 (no whole 16-byte vector
+# a row), 384 and 1024.
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", [100, 384, 1024])
+@pytest.mark.parametrize("slots,layout", [(1, "real"), (1, "skip"),
+                                          (64, "real"), (64, "mixed"),
+                                          (256, "real"), (256, "mixed")])
 @pytest.mark.parametrize("kind", ["bf16", "int8"])
-def test_scatter_sr_kernels_bit_equal_to_plain(dev, kind):
+def test_scatter_sr_kernels_bit_equal_to_plain(dev, kind, slots, layout,
+                                               width):
     rng = np.random.default_rng(29)
+    rows = 32 * 320  # 640 bf16 groups, 320 int8 groups
     if kind == "bf16":
         group, fn, plain = 16, scatter_sr_row_groups, scatter_sr_row_groups_plain
-        table = torch.from_numpy((rng.normal(size=(V, 384)) * 0.05).astype(
+        table = torch.from_numpy((rng.normal(size=(rows, width)) * 0.05).astype(
             np.float32)).to(dev, torch.bfloat16)
-        vals = (rng.normal(size=(SLOTS * group, 384)) * 1e-4).astype(np.float32)
+        vals = (rng.normal(size=(slots * group, width)) * 1e-4).astype(
+            np.float32)
     else:
         group, fn, plain = (32, scatter_sr_int8_row_groups,
                             scatter_sr_int8_row_groups_plain)
         table = torch.from_numpy(rng.integers(
-            -127, 128, size=(V, 384)).astype(np.int8)).to(dev)
-        vals = rng.uniform(-3, 3, size=(SLOTS * group, 384)).astype(np.float32)
+            -127, 128, size=(rows, width)).astype(np.int8)).to(dev)
+        vals = rng.uniform(-3, 3, size=(slots * group, width)).astype(
+            np.float32)
     vals = torch.from_numpy(vals).to(dev)
-    gids = np.full((SLOTS,), SKIP_SENTINEL_GID, np.int32)
-    gids[:23] = np.sort(rng.choice(V // group, 23, replace=False))
-    gids[30] = -1
-    gids = torch.from_numpy(gids).to(dev)
-    for seed in (0, 12345, -7):
+    num_groups = rows // group
+    if layout == "real":
+        gids = rng.choice(num_groups - 1, slots, replace=False)
+        gids[rng.integers(slots)] = num_groups - 1
+    elif layout == "skip":
+        gids = np.array([num_groups])
+    else:
+        gids = rng.choice([SKIP_SENTINEL_GID, -1, -(1 << 30), num_groups],
+                          size=slots)
+        real = rng.choice(slots, slots // 3, replace=False)
+        gids[real] = rng.choice(num_groups - 1, real.size, replace=False)
+        gids[real[0]] = num_groups - 1
+    gids = torch.from_numpy(gids.astype(np.int32)).to(dev)
+    moves = layout != "skip"
+    for seed in (0, -7, 2 ** 31 - 1):
         want = plain(table.clone(), gids, vals, group, seed)
         got = table.clone()
         out = fn(got, gids, vals, group, seed, impl="kernel")
         assert out is got and torch.equal(got, want)
-        assert not torch.equal(got, table)
+        assert torch.equal(got, table) != moves
     same = fn(table.clone(), gids, torch.zeros_like(vals), group, 3,
               impl="kernel")
     assert torch.equal(same, table)  # a zero update moves nothing
     a = fn(table.clone(), gids, vals, group, 1, impl="kernel")
     b = fn(table.clone(), gids, vals, group, 2, impl="kernel")
-    assert not torch.equal(a, b)     # the seed is the stream's key
+    assert torch.equal(a, b) != moves  # the seed is the stream's key
 
 
 @pytest.mark.cuda
@@ -887,27 +909,31 @@ def test_low_precision_train_and_eval_kernels_match_plain(dev, table_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("branch", ["per_side", "int8_joint", "f32_joint"])
+@pytest.mark.parametrize("branch", ["per_side", "int8_joint", "f32_joint",
+                                    "bf16_joint"])
 def test_train_steps_bit_reproducible(dev, branch):
     """Three steps run twice from one state give bit-equal tables and dense
     parameters: the per-side branch on an f32 table (two count lookup
     backward calls a step), the joint branch on an int8 table (the gather,
-    the dequantization and the joint lookup) and on an f32 table (the fused
-    gather + joint lookup), each with the joint backward. No kernel on
-    these paths adds floats with atomics."""
+    the dequantization and the joint lookup) and on an f32 and a bf16
+    table (the fused gather + joint lookup), each with the joint backward,
+    the low-precision tables with their stochastic-rounding scatter. No
+    kernel on these paths adds floats with atomics."""
     shared = branch != "per_side"
     int8 = branch == "int8_joint"
+    table_dtype = {"int8_joint": "int8", "bf16_joint": "bfloat16"}.get(
+        branch, "float32")
     cfg = RunConfig(
         tower=TowerConfig(vocab_size=V, embed_width=100, hidden_dims=(64,),
                           semantic_dim=32, compute_dtype="bfloat16",
-                          shared_weights=shared,
-                          table_dtype="int8" if int8 else "float32"),
+                          shared_weights=shared, table_dtype=table_dtype),
         data=DataConfig(max_trigrams=16, max_trigrams_query=8,
                         max_unique=1024, max_unique_rows=128),
         loss=LossConfig(), train=TrainConfig(batch_size=128))
     hashed = hash_pairs(make_toy_pairs(640, 96, 7), cfg.tower, cfg.data)
     it = batch_iterator(hashed, 128, seed=3, dedup_unique=1024,
-                        dedup_group=32 if int8 else 8,
+                        dedup_group={"int8": 32, "bfloat16": 16}.get(
+                            table_dtype, 8),
                         dedup_unique_rows=128, dedup_joint=shared,
                         wire_compress=True, sort_rows=True)
     batches = [batch_to_torch(next(it), dev) for _ in range(3)]
@@ -922,7 +948,10 @@ def test_train_steps_bit_reproducible(dev, branch):
         counts = _build.launch_counts()
         if int8:
             assert counts["joint_lookup"] == counts["joint_lookup_bwd"] == 3
+            assert counts["scatter_sr_int8_row_groups"] == 3
         elif shared:
+            sr = counts["scatter_sr_row_groups"]
+            assert sr == (3 if table_dtype == "bfloat16" else 0)
             assert counts["fused_gather_joint_lookup"] == 3
             assert counts["joint_lookup_bwd"] == 3
         else:
