@@ -18,7 +18,8 @@ union dedupe):
     through the plain versions, which must agree, with the loss falling
     (the joint step's lookup on an f32 or bf16 table is the fused gather +
     joint lookup kernel, bit-equal to the gather and joint lookup kernels
-    it replaces there, which an int8 table's step still runs); then 3
+    it replaces there, which an int8 table's step still runs; 8 more steps
+    traced, with the scatter-add's share of the busy time); then 3
     steps of the per-side branch (separate towers) the same way, and 3
     more traced (device busy ms a step);
   - trains it the same way on a bf16 table and on an int8 table (12 steps
@@ -39,16 +40,19 @@ Then the cnn (CLSM) and lstm presets at their published width (Wc [30000,
 1024], Win [30000, 384], batch 1024, 16 words x 8 trigrams): the raw-index
 embedding bag and its weight gradient against their plain versions at the
 cnn, lstm and full raw shapes on f32 and bf16 tables (the bag also
-bit-equal to the count lookup on the same inputs); the gather at the cnn
-shape beside index_select; SEQ_STEPS steps of each preset on the
-union-dedupe and on the raw-index branch, kernels against plain versions
-(3 more traced: the bag's share of a raw step); eval, save, restore and
+bit-equal to the count lookup on the same inputs, two weight-gradient
+calls bit-equal); the gather at the cnn shape beside index_select, the
+scatter-add at the cnn width beside index_add_; SEQ_STEPS steps of each
+preset on the union-dedupe and on the raw-index branch, kernels against
+plain versions (3 more traced: the bag's share of a raw step, the
+scatter-add's of a dedupe step); eval, save, restore and
 serving of the trained models (a cached cnn eval pass traced on each
 branch: the gathers' and the bags' shares); the weight gradient's path
 through the bag; and cli.train + cli.eval + cli.export for --preset=cnn and
 --preset=lstm, and cli.train on raw-index batches. A line gathers the
 traced device busy ms of the `full` cached eval pass, the cnn eval passes
-and the cnn raw step with the gathers' and the bags' shares.
+and the cnn raw step with the gathers' and the bags' shares, and of the
+`full` f32 joint step and the cnn dedupe step with the scatter-add's.
 
 It checks that every kernel was launched by the path it belongs to. The
 next-to-last line is a JSON object with each kernel's numbers; the last
@@ -285,8 +289,9 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s, table {tuple(table.shape)} "
           f"{table.dtype}")
     results = {}
-    # Traced device busy ms of the passes and steps that run the gather and
-    # the bag, with those kernels' shares: printed together at the end.
+    # Traced device busy ms of the passes and steps that run the gather, the
+    # bag and the scatter-add, with those kernels' shares: printed together
+    # at the end.
     traced_summary = {}
 
     # Gather: 256 slots, ~107 real sorted groups, the rest sentinel.
@@ -1402,8 +1407,11 @@ def main() -> int:
             out_k = embedding_bag(tbl, b_idx, b_wgt, impl="kernel")
             out_p = embedding_bag_plain(tbl, b_idx, b_wgt)
             dw_k = embedding_bag_dwgt(tbl, b_idx, g_b, impl="kernel")
+            dw_k2 = embedding_bag_dwgt(tbl, b_idx, g_b, impl="kernel")
             dw_p = embedding_bag_dwgt_plain(tbl, b_idx, g_b)
             torch.cuda.synchronize()
+            check(torch.equal(dw_k, dw_k2), f"embedding_bag_bwd ({case}, "
+                  f"{dname}): two calls differ (bit-equal expected)")
             err_f, sc_f = (float((out_k - out_p).abs().max()),
                            float(out_p.abs().max()))
             check(err_f <= 1e-5 * sc_f, f"embedding_bag ({case}, {dname}): "
@@ -1418,7 +1426,7 @@ def main() -> int:
                            float(dw_p.abs().max()))
             check(err_w <= 1e-5 * sc_w, f"embedding_bag_bwd ({case}, {dname}):"
                   f" max err {err_w} over 1e-5 x max |d_wgt| {sc_w}")
-            del out_k, out_p, dw_k, dw_p
+            del out_k, out_p, dw_k, dw_k2, dw_p
             grad_errs = {}
             if dname == "float32":
                 # The autograd Function: d_table by the plain segment sum,
@@ -1630,6 +1638,39 @@ def main() -> int:
           + json.dumps(cnn_shapes) + f" on {card}")
     del tb_c, comp_c, lk_c, lp_c, g_qc, g_dc, dck_c, dck_c2, dcp_c, jf
     del flat_qc, flat_dc, rows_cg, cnt_qc, cnt_dc
+
+    # The scatter-add at the cnn width: the cnn dedupe step's f32 update of
+    # Wc (8-row groups, the batch's 1024 slots), bit-equal to the plain
+    # version, with index_add_ of the real rows beside it.
+    hw = wc.shape[1]
+    vals_c = torch.from_numpy(rng.normal(size=(uniq_c.numel() * 8, hw)).astype(
+        np.float32)).to(dev) * 1e-3
+    real_cm = (uniq_c >= 0) & (uniq_c < wc.shape[0] // 8)
+    n_real_c = int(real_cm.sum())
+    wk, wp = wc.clone(), wc.clone()
+    scatter_add_row_groups(wk, uniq_c, vals_c, 8, impl="kernel")
+    scatter_add_row_groups_plain(wp, uniq_c, vals_c, 8)
+    torch.cuda.synchronize()
+    check(torch.equal(wk, wp) and not torch.equal(wk, wc),
+          "scatter_add_row_groups differs from its plain version at the cnn "
+          "width (bit-exact expected)")
+    del wp
+    rows_sc = (uniq_c[real_cm].long()[:, None] * 8
+               + torch.arange(8, device=dev)).reshape(-1)
+    vals_sc = vals_c.reshape(uniq_c.numel(), 8, hw)[real_cm].reshape(-1, hw)
+    sc_cnn = dict(
+        ms_cnn=graph_ms(lambda: scatter_add_row_groups(wk, uniq_c, vals_c, 8,
+                                                       impl="kernel")),
+        ms_plain_cnn=graph_ms(lambda: scatter_add_row_groups_plain(
+            wk, uniq_c, vals_c, 8)),
+        ms_library_cnn=graph_ms(lambda: wk.index_add_(0, rows_sc, vals_sc)),
+        ms_bound_cnn=bound_ms(3 * n_real_c * 8 * hw * 4 + uniq_c.numel() * 4,
+                              n_real_c * 8 * hw, "f32")[0])
+    results["scatter_add_row_groups"].update(sc_cnn)
+    print(f"scatter_add_row_groups at the cnn width (Wc {tuple(wc.shape)} "
+          f"f32, {uniq_c.numel()} slots of 8 rows, {n_real_c} real): "
+          + json.dumps(sc_cnn) + f" on {card}")
+    del wk, vals_c, vals_sc, rows_sc
 
     main_bag = bag_cases[("cnn", "float32")]
     for name, pre, line in (("embedding_bag", "fwd", 147),
@@ -1869,6 +1910,8 @@ def main() -> int:
         prof_wall_t = time.perf_counter() - t0
     dev_us_t, top_t = device_time_us(prof_t, 12)
     n_prof = len(prof_batches)
+    scatter_ms_t = kernel_ms(prof_t, ("scatter_add_row_groups_kernel",))[
+        "scatter_add_row_groups_kernel"] / n_prof
     h2d_ms = []
     for b_np in host_batches_t[:TRAIN_STEPS]:  # H2D alone, waited for
         t0 = time.perf_counter()
@@ -1892,11 +1935,18 @@ def main() -> int:
             None if dev_us_t is None else dev_us_t / 1e3 / n_prof),
         device_busy_share_traced=(
             None if dev_us_t is None else dev_us_t / 1e6 / prof_wall_t),
+        scatter_add_ms_per_step_traced=scatter_ms_t,
+        scatter_add_share_traced=(
+            None if not dev_us_t else scatter_ms_t * 1e3 * n_prof / dev_us_t),
         peak_mem_gb=tr["peak"] / 1e9,
         resident_before_run_gb=tr["resident"] / 1e9,
         real_group_slots_first_batch=real_t,
     )
     print("training path: " + json.dumps(train_path))
+    traced_summary["full f32 joint step"] = dict(
+        device_busy_ms=train_path["traced_device_busy_ms_per_step"],
+        scatter_add_ms=scatter_ms_t,
+        scatter_add_share=train_path["scatter_add_share_traced"])
     print(f"device time by kernel in the traced steps (us, {n_prof} steps): "
           + json.dumps(top_t))
 
@@ -2336,8 +2386,11 @@ def main() -> int:
             dev_us_s, top_s = device_time_us(prof_s, 8)
             # The bag forward and the count lookup share one kernel body
             # (lookup_fwd_kernel); a training step runs it only as the bag.
-            bag_ms_s = kernel_ms(prof_s, ("lookup_fwd_kernel",))[
-                "lookup_fwd_kernel"] / SEQ_PROFILED_STEPS
+            named_s = kernel_ms(prof_s, ("lookup_fwd_kernel",
+                                         "scatter_add_row_groups_kernel"))
+            bag_ms_s = named_s["lookup_fwd_kernel"] / SEQ_PROFILED_STEPS
+            scatter_ms_s = (named_s["scatter_add_row_groups_kernel"]
+                            / SEQ_PROFILED_STEPS)
             summary = dict(
                 card=card, arch=arch, branch=branch, steps=SEQ_STEPS,
                 batch=run_cfg.train.batch_size,
@@ -2358,12 +2411,21 @@ def main() -> int:
                 embedding_bag_share_traced=(
                     None if not dev_us_s
                     else bag_ms_s * 1e3 * SEQ_PROFILED_STEPS / dev_us_s),
+                scatter_add_ms_per_step_traced=scatter_ms_s,
+                scatter_add_share_traced=(
+                    None if not dev_us_s
+                    else scatter_ms_s * 1e3 * SEQ_PROFILED_STEPS / dev_us_s),
                 peak_mem_gb=run["peak"] / 1e9,
                 resident_before_run_gb=run["resident"] / 1e9,
                 launches_per_step={k: v // SEQ_STEPS
                                    for k, v in run["counts"].items() if v})
             print(f"training path, {arch} preset, {branch} branch: "
                   + json.dumps(summary))
+            if (arch, branch) == ("cnn", "joint"):
+                traced_summary["cnn dedupe step"] = dict(
+                    device_busy_ms=summary["traced_device_busy_ms_per_step"],
+                    scatter_add_ms=scatter_ms_s,
+                    scatter_add_share=summary["scatter_add_share_traced"])
             if (arch, branch) == ("cnn", "raw"):
                 traced_summary["cnn raw step"] = dict(
                     device_busy_ms=summary["traced_device_busy_ms_per_step"],
@@ -2446,8 +2508,8 @@ def main() -> int:
             cached_pass_s=hot, traced_cached_pass=traced_e)))
         del q_e, d_e
     eval_mod._EVAL_CACHES.clear()
-    print(f"traced device busy ms, with the gathers' and the bags' shares "
-          f"(on {card}): " + json.dumps(
+    print(f"traced device busy ms, with the gathers', the bags' and the "
+          f"scatter-add's shares (on {card}): " + json.dumps(
               {k: {k2: v2 for k2, v2 in v.items() if k2 != "top_kernels_us"}
                for k, v in traced_summary.items()}))
 

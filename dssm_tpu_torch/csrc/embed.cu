@@ -25,7 +25,14 @@
 // are far below the f32 rate. At the `full` raw batch (1024 rows, K = 64,
 // table [500000, 384]) ~1 us: the ~2,000 distinct rows a batch names come
 // from device memory on first touch, but the ~33k lookups re-read ~51 MB
-// of rows (f32) from L2, which holds the kernel near 8 us.
+// of rows (f32) from L2, which holds the kernel near 8 us. d_wgt moves
+// about the same bytes the other way: it reads an [rows, H] g where the
+// forward writes an [rows, H] output, and the distinct rows each chunk of
+// lookups names (padding included: PAD_INDEX 0 at weight 0 is a lookup of
+// row 0 whose gradient the reference has) from L2. The forward's time at a
+// shape is its yardstick, though every raw batch's padding makes d_wgt
+// resolve 4x the forward's live lookups at the cnn shape (131k against
+// 32k).
 //
 // Design, forward: the count lookup's body (csrc/lookup_fwd.cuh) with the
 // table as its source, so that the bag and the count lookup are one kernel
@@ -33,10 +40,24 @@
 // compacted in k order by a ballot, a thread a 4-column vector (16 bytes
 // of f32, 8 of bf16), 4 pairs loaded ahead, one fmaf chain a column in k
 // order from 0 (bit-equal to the earlier design of a thread a 16-byte
-// vector). Backward (d_wgt): one block per row; g's row is staged once in
-// shared memory as f32, and each warp takes lookups k = warp, warp +
-// warps, ...: a dot product over the row with 16-byte loads and a shuffle
-// reduction. Both are deterministic.
+// vector). Backward (d_wgt): a block a (row, chunk of kDwgtChunk lookups),
+// of the fewest whole warps that give each 4-column vector of the row a
+// thread (at most 256; wider rows loop). The first warp resolves the
+// chunk's distinct live rows with one ballot and one match (a row's
+// padding lookups name row 0 once); a thread holds its columns of g in
+// registers (read once, streaming), loads its vector of kDwgtAhead
+// distinct rows before their FMAs and keeps a partial a distinct row; a
+// transposed butterfly sums the chunk's partials over the warp (9 shuffles
+// for 8, not 40), the block sums its warps in warp order through shared
+// memory, and each lookup takes its row's sum. No atomics: both are
+// deterministic.
+// Measured on the card (tools/eval_kernels.py --cases lookup, PERF.md)
+// and slower: the design it replaced (a block a row, a warp a lookup, one
+// 16-byte load in flight a lane); every lookup of the chunk loaded before
+// any FMA, with no dedupe (the padding's row 0 read once a lookup); a
+// block a row looping over its chunks; chunks of 4 or 16 lookups; 4 or 8
+// distinct rows ahead; 5 or 6 blocks an SM; a persistent grid that loads
+// the next chunk's lookups and g while it works on this one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,79 +67,157 @@
 
 namespace {
 
-// 16 bytes of a table row as f32 values: 4 f32 or 8 bf16.
-template <typename T>
-struct Vec;
+constexpr int kDwgtMaxThreads = 256;
+constexpr int kDwgtChunk = 8;  // lookups a block resolves
+constexpr int kDwgtAhead = 2;  // distinct rows a thread loads ahead
 
-template <>
-struct Vec<float> {
-  static constexpr int kN = 4;
-  __device__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
-  }
-};
+// Four columns of g's row as f32, read once (a streaming load).
+__device__ __forceinline__ float4 load_g4(const float* g) {
+  return __ldcs(reinterpret_cast<const float4*>(g));
+}
+__device__ __forceinline__ float4 load_g4(const __nv_bfloat16* g) {
+  const uint2 w = __ldcs(reinterpret_cast<const uint2*>(g));
+  return make_float4(__uint_as_float(w.x << 16),
+                     __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16),
+                     __uint_as_float(w.y & 0xffff0000u));
+}
 
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+// The warp's sums of N partials a lane (N a power of two, at most 32), as
+// a transposed butterfly: at each level a lane keeps half of its partials
+// and sends the other half to the lane OFF apart, so N = 8 takes 4 + 2 + 1
+// shuffles and then 2 more over the lanes that hold one partial. After it,
+// p[0] of lane l is the sum of partial l / (32 / N) over the 32 lanes; the
+// lanes that hold one partial hold the same bits.
+template <int N, int OFF>
+__device__ __forceinline__ void warp_sums(float* p, int lane) {
+  if constexpr (N > 1) {
+    constexpr int kHalf = N / 2;
+    const bool upper = (lane & OFF) != 0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
+    for (int i = 0; i < kHalf; ++i) {
+      const float send = upper ? p[i] : p[i + kHalf];
+      const float keep = upper ? p[i + kHalf] : p[i];
+      p[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+    }
+    warp_sums<kHalf, OFF / 2>(p, lane);
+  } else {
+#pragma unroll
+    for (int off = OFF; off > 0; off >>= 1) {
+      p[0] += __shfl_xor_sync(0xffffffffu, p[0], off);
     }
   }
+}
+
+struct DwgtArgs {
+  const void* table;
+  const int32_t* idx;
+  const void* g;
+  float* dwgt;
+  int k, v, h;
+  int nvec;    // 4-column vectors a row
+  int chunks;  // of kDwgtChunk lookups a row
 };
 
+// A block takes one chunk of kDwgtChunk lookups of one row, a thread a
+// 4-column vector of the row (wider rows loop) with its g columns in
+// registers. The first warp resolves the chunk: the distinct rows its live
+// lookups name, in order of first use, to s_row (the padding lookups of a
+// row, all PAD_INDEX 0, name one), and for each lookup the index of its
+// row there, or -1 (s_map). A thread then loads its vector of the next
+// kDwgtAhead distinct rows before their FMAs, one partial a distinct row;
+// the warp sums the partials by the transposed butterfly, the block over
+// its warps in warp order through shared memory, and each lookup takes its
+// row's sum. No atomics: two calls give the same bits. Eight blocks an SM
+// (32 registers, 4-12 bytes spilled): each step up from the 5 that 44
+// registers gave was faster (PERF.md).
 template <typename T, typename G>
-__global__ void embedding_bag_dwgt_kernel(const T* __restrict__ table,
-                                          const int32_t* __restrict__ idx,
-                                          const G* __restrict__ g,
-                                          float* __restrict__ dwgt, int k,
-                                          int v, int h) {
-  constexpr int N = Vec<T>::kN;
-  extern __shared__ float4 s_g4[];
-  float* s_g = reinterpret_cast<float*>(s_g4);
-  const int64_t r = blockIdx.x;
-  for (int c = threadIdx.x; c < h; c += blockDim.x) {
-    s_g[c] = dssm::to_f32(g[r * h + c]);
+__global__ void __launch_bounds__(kDwgtMaxThreads, 8)
+    embedding_bag_dwgt_kernel(DwgtArgs a) {
+  constexpr int C = kDwgtChunk;
+  constexpr int kSpread = 32 / C;  // lanes that hold one partial at the end
+  using R = typename dssm::Raw<T, 4>::type;
+  __shared__ float s_part[kDwgtMaxThreads / 32][C];
+  __shared__ int32_t s_row[C];
+  __shared__ int s_map[C];
+  __shared__ int s_n;
+  const int64_t r = blockIdx.x / a.chunks;
+  const int kb = (int)(blockIdx.x - r * a.chunks) * C;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const T* table = static_cast<const T*>(a.table);
+  const G* g = static_cast<const G*>(a.g) + r * a.h;
+  const bool one_pass = a.nvec <= (int)blockDim.x;
+  float4 g1 = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (one_pass && (int)threadIdx.x < a.nvec) {
+    g1 = load_g4(g + (int64_t)threadIdx.x * 4);
+  }
+  if (warp == 0) {
+    const bool mine = lane < C && kb + lane < a.k;
+    const int32_t rw = mine ? __ldg(a.idx + r * a.k + kb + lane) : -1;
+    const bool live = mine && rw >= 0 && rw < a.v;  // else 0, nothing read
+    const unsigned int lives = __ballot_sync(0xffffffffu, live);
+    // The first live lookup of the chunk that names this lane's row.
+    const int lead = __ffs(__match_any_sync(0xffffffffu, rw) & lives) - 1;
+    const unsigned int leads = __ballot_sync(0xffffffffu, live && lead == lane);
+    const int m = live ? __popc(leads & ((1u << lead) - 1u)) : -1;
+    if (live && lead == lane) s_row[m] = rw;
+    if (lane < C) s_map[lane] = m;
+    if (lane == 0) s_n = __popc(leads);
   }
   __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  const int vecs = h / N;
-  for (int j = threadIdx.x >> 5; j < k; j += warps) {
-    const int32_t row = idx[r * k + j];
-    float acc = 0.f;
-    if (row >= 0 && row < v) {
-      const T* src = table + (int64_t)row * h;
-      for (int c = lane; c < vecs; c += 32) {
-        float x[N];
-        Vec<T>::load(src + (int64_t)c * N, x);
-        // g's matching columns as 16-byte shared loads (no bank conflict).
-        const float4* gv = reinterpret_cast<const float4*>(s_g + c * N);
+  const int n = s_n;
+  float p[C];
 #pragma unroll
-        for (int i = 0; i < N / 4; ++i) {
-          const float4 q = gv[i];
-          acc = fmaf(x[4 * i], q.x, acc);
-          acc = fmaf(x[4 * i + 1], q.y, acc);
-          acc = fmaf(x[4 * i + 2], q.z, acc);
-          acc = fmaf(x[4 * i + 3], q.w, acc);
+  for (int u = 0; u < C; ++u) p[u] = 0.f;
+  for (int c = threadIdx.x; c < a.nvec; c += blockDim.x) {
+    const float4 gq = one_pass ? g1 : load_g4(g + (int64_t)c * 4);
+#pragma unroll
+    for (int i = 0; i < C; i += kDwgtAhead) {
+      if (i >= n) break;  // the same on every thread
+      R x[kDwgtAhead];
+#pragma unroll
+      for (int u = 0; u < kDwgtAhead; ++u) {
+        x[u] = R{};
+        if (i + u < n) {
+          x[u] = dssm::load_vec<T, 4>(
+              table, (int64_t)s_row[i + u] * a.h + (int64_t)c * 4);
         }
       }
-    }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      for (int u = 0; u < kDwgtAhead; ++u) {
+        float f[4];
+        dssm::to_floats(x[u], f);
+        p[i + u] = fmaf(f[0], gq.x, p[i + u]);
+        p[i + u] = fmaf(f[1], gq.y, p[i + u]);
+        p[i + u] = fmaf(f[2], gq.z, p[i + u]);
+        p[i + u] = fmaf(f[3], gq.w, p[i + u]);
+      }
     }
-    if (lane == 0) dwgt[r * k + j] = acc;
+  }
+  warp_sums<C, 16>(p, lane);
+  if (warps == 1) {
+    // Lookup j's sum is distinct row s_map[j]'s, which lanes s_map[j] *
+    // kSpread on hold.
+    const int j = lane / kSpread;
+    const int m = s_map[j];
+    const float sum = __shfl_sync(0xffffffffu, p[0], max(m, 0) * kSpread);
+    if (lane % kSpread == 0 && kb + j < a.k) {
+      a.dwgt[r * a.k + kb + j] = m < 0 ? 0.f : sum;
+    }
+    return;
+  }
+  if (lane % kSpread == 0) s_part[warp][lane / kSpread] = p[0];
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < C && kb + t < a.k) {
+    const int m = s_map[t];
+    float sum = 0.f;
+    if (m >= 0) {
+      sum = s_part[0][m];
+      for (int w = 1; w < warps; ++w) sum += s_part[w][m];
+    }
+    a.dwgt[r * a.k + kb + t] = sum;
   }
 }
 
@@ -140,8 +239,8 @@ extern "C" int dssm_embedding_bag(const void* table, const void* idx,
 }
 
 // table as dssm_embedding_bag; idx: [rows, k] int32; g: [rows, h]
-// (g_dtype 0 = f32, 1 = bf16); dwgt: [rows, k] f32. Returns
-// cudaGetLastError().
+// (g_dtype 0 = f32, 1 = bf16), 16-byte aligned; dwgt: [rows, k] f32.
+// Returns cudaGetLastError().
 extern "C" int dssm_embedding_bag_dwgt(const void* table, const void* idx,
                                        const void* g, void* dwgt,
                                        long long rows, int k, int v, int h,
@@ -151,33 +250,32 @@ extern "C" int dssm_embedding_bag_dwgt(const void* table, const void* idx,
       h % vec_width(dtype) != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = sizeof(float) * (size_t)h;
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  // One warp per lookup, up to 8 warps a block.
-  const int threads = 32 * (k < 8 ? k : 8);
+  DwgtArgs a = {};
+  a.table = table;
+  a.idx = (const int32_t*)idx;
+  a.g = g;
+  a.dwgt = (float*)dwgt;
+  a.k = k;
+  a.v = v;
+  a.h = h;
+  a.nvec = h / 4;
+  a.chunks = (k + kDwgtChunk - 1) / kDwgtChunk;
+  if (rows * a.chunks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  int threads = (a.nvec + 31) / 32 * 32;
+  if (threads > kDwgtMaxThreads) threads = kDwgtMaxThreads;
+  const unsigned int blocks = (unsigned int)(rows * a.chunks);
   cudaStream_t s = (cudaStream_t)stream;
-  const unsigned int blocks = (unsigned int)rows;
   if (dtype == 0 && g_dtype == 0) {
-    embedding_bag_dwgt_kernel<float, float><<<blocks, threads, smem, s>>>(
-        (const float*)table, (const int32_t*)idx, (const float*)g,
-        (float*)dwgt, k, v, h);
+    embedding_bag_dwgt_kernel<float, float><<<blocks, threads, 0, s>>>(a);
   } else if (dtype == 0) {
     embedding_bag_dwgt_kernel<float, __nv_bfloat16>
-        <<<blocks, threads, smem, s>>>((const float*)table,
-                                       (const int32_t*)idx,
-                                       (const __nv_bfloat16*)g, (float*)dwgt,
-                                       k, v, h);
+        <<<blocks, threads, 0, s>>>(a);
   } else if (g_dtype == 0) {
     embedding_bag_dwgt_kernel<__nv_bfloat16, float>
-        <<<blocks, threads, smem, s>>>((const __nv_bfloat16*)table,
-                                       (const int32_t*)idx, (const float*)g,
-                                       (float*)dwgt, k, v, h);
+        <<<blocks, threads, 0, s>>>(a);
   } else {
     embedding_bag_dwgt_kernel<__nv_bfloat16, __nv_bfloat16>
-        <<<blocks, threads, smem, s>>>((const __nv_bfloat16*)table,
-                                       (const int32_t*)idx,
-                                       (const __nv_bfloat16*)g, (float*)dwgt,
-                                       k, v, h);
+        <<<blocks, threads, 0, s>>>(a);
   }
   return (int)cudaGetLastError();
 }

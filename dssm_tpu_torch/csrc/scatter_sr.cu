@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"  // load_evict_first
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -84,19 +86,6 @@ __device__ __forceinline__ uint4 philox4x32_10(uint64_t counter,
     k1 += 0xBB67AE85u;
   }
   return make_uint4(c0, c1, c2, c3);
-}
-
-// A thread's vals are 32 (bf16) or 64 (int8) contiguous bytes, read 16 at
-// a time: the first load of a 32-byte sector brings it into L1, the second
-// finds it there, and evict_first keeps the stream from pushing out more
-// than it needs (no_allocate read each sector from L2 twice, plain loads
-// thrashed L1 at the cnn width: PERF.md).
-__device__ __forceinline__ float4 load_evict_first(const float4* p) {
-  float4 v;
-  asm volatile("ld.global.nc.L1::evict_first.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "l"(p));
-  return v;
 }
 
 // f32 accumulator -> bf16 bits in the high half: add 16 random bits below
@@ -180,9 +169,16 @@ __global__ void __launch_bounds__(kThreads)
   uint4* dst = table + gid * vecs + vec;
   const uint64_t unit0 = (uint64_t)slot * units + (uint64_t)vec * K;
   uint4 t = *dst;
+  // A thread's vals are 32 (bf16) or 64 (int8) contiguous bytes, read 16
+  // at a time: evict_first keeps each 32-byte sector in L1 for its second
+  // load without the stream pushing out more than it needs (no_allocate
+  // read each sector from L2 twice, plain loads thrashed L1 at the cnn
+  // width: PERF.md).
   float4 v[K];
 #pragma unroll
-  for (int i = 0; i < K; ++i) v[i] = load_evict_first(vals + unit0 + i);
+  for (int i = 0; i < K; ++i) {
+    v[i] = dssm::load_evict_first(vals + unit0 + i);
+  }
   typename Op::Vec* words = reinterpret_cast<typename Op::Vec*>(&t);
 #pragma unroll
   for (int i = 0; i < K; ++i) {

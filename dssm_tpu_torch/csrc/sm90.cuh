@@ -1,7 +1,8 @@
 // Hopper helpers shared by the kernels that run as thread-block clusters
 // and stage tiles through cp.async rings (tower.cu, loss.cu): the cluster's
 // rank, distributed shared memory, cluster barriers, asynchronous copies
-// from global to shared memory, and the cluster launch.
+// from global to shared memory, and the cluster launch; and the cache-hinted
+// loads of the row-group scatters (scatter.cu, scatter_sr.cu).
 //
 // Barriers: cluster_sync() is a release arrive and an acquire wait by every
 // thread of the cluster, so shared, distributed shared and global writes
@@ -18,6 +19,26 @@ namespace dssm {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- cache-hinted loads -------------------------------------------------
+
+// 16 bytes read once, through the non-coherent path with L1::evict_first:
+// a second load of the same 32-byte sector finds it in L1 without the
+// stream pushing out more than it needs (the scatters' vals, PERF.md).
+__device__ __forceinline__ float4 load_evict_first(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.nc.L1::evict_first.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+__device__ __forceinline__ uint4 load_evict_first(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::evict_first.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
 }
 
 // ---- the cluster --------------------------------------------------------

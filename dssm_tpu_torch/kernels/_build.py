@@ -31,7 +31,7 @@ SOURCES = ("gather.cu", "count.cu", "tower.cu", "joint.cu", "loss.cu",
 # lookup.cuh: included by joint.cu and the two below; lookup_fwd.cuh (the
 # lookup forward): by count.cu and embed.cu; segsum.cuh (the lookup
 # backward: sort and segmented sum): by count.cu and joint.cu; sm90.cuh: by
-# tower.cu, loss.cu and rank.cu.
+# tower.cu, loss.cu, rank.cu, scatter.cu and scatter_sr.cu.
 HEADERS = ("lookup.cuh", "lookup_fwd.cuh", "segsum.cuh", "sm90.cuh")
 LIB_NAME = "libdssm_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -119,6 +119,8 @@ def embedding_bag_dwgt(table: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"{_BWD}: g must be f32 or bf16 {(*idx.shape[:-1], h)}"
                          f", got {g.dtype} {tuple(g.shape)}")
     _build.check_cuda(_BWD, table.device, table, idx, g)
+    if g.data_ptr() % 16:  # the kernel reads g in 16-byte (8 bf16) vectors
+        g = g.clone()
     k = idx.shape[-1]
     rows = idx.numel() // k
     dwgt = torch.empty(idx.shape, dtype=torch.float32, device=table.device)

@@ -6,7 +6,7 @@ them, on one NVIDIA GPU.
 
 Builds the group's sources as they stand (`eval`: count.cu and rank.cu;
 `lookup`: count.cu, joint.cu, gather.cu and embed.cu; `scatter`:
-scatter_sr.cu) and, for each
+scatter.cu and scatter_sr.cu) and, for each
 --source, the same files in DIR (the same C entry points, e.g. an earlier
 commit's csrc/, with the headers they include), all at once; holds every
 build to the plain versions and says whether its outputs are bit-equal to
@@ -54,7 +54,9 @@ function) and cuBLAS's f32 product `q @ d.T` alone (TF32 off).
     doc side (16384 word rows of Kw = 8, from Wc [30000, 1024] and from
     the lstm's Win [30000, 384]), f32 and bf16 tables, against
     `F.embedding_bag`; and the count lookup on the same inputs (compact2 =
-    the table), which must give the bag's bits;
+    the table), which must give the bag's bits; and the bag's weight
+    gradient d_wgt on the same inputs with an f32 g, against
+    `(table[idx] * g[..., None, :]).sum(-1)`, two calls bit-equal;
   - the kernels that share code with these two: the joint lookup's
     backward (csrc/segsum.cuh) at the `full` shapes with bf16 gradients,
     and the fused gather + joint lookup (the lookup warp body) from an f32
@@ -66,26 +68,34 @@ multiplied; `index_select`; `F.embedding_bag`), and the bound: the larger
 of the bytes read and written once at 3.35 TB/s and the f32 FMAs at 67
 TFLOP/s.
 
-`--cases scatter`, the stochastic-rounding scatters of a bf16 or int8
-table's step (in place; timed on a copy of the table, each build's first
-call checked on a fresh copy):
+`--cases scatter`, the row-group scatters of a training step (in place;
+timed on a copy of the table, each build's first call checked on a fresh
+copy, bit-equal to the plain version):
 
-  - at the smoke's shapes: the first batch of `chip_smoke.py`'s `full`
-    stream (its 32768-pair cut, split and frequency-remapped) deduped at
-    16-row (bf16) and 32-row (int8) groups, 256 slots of which 54 / 27 are
-    real, into the 500000 x 384 table;
-  - with all 256 slots real (distinct random groups), both dtypes;
-  - at cnn width: a 30000 x 1024 bf16 table and the first batch of the cnn
-    toy stream's training split deduped at 16-row groups (1024 slots).
+  - the stochastic-rounding scatters of a bf16 or int8 table, at the
+    smoke's shapes: the first batch of `chip_smoke.py`'s `full` stream (its
+    32768-pair cut, split and frequency-remapped) deduped at 16-row (bf16)
+    and 32-row (int8) groups, 256 slots of which 54 / 27 are real, into the
+    500000 x 384 table; with all 256 slots real (distinct random groups),
+    both dtypes; and at cnn width: a 30000 x 1024 bf16 table and the first
+    batch of the cnn toy stream's training split deduped at 16-row groups
+    (1024 slots);
+  - the scatter-add (scatter.cu), f32 at the smoke's shape (the same
+    stream deduped at 8-row groups, 256 slots) and with all 256 slots
+    real, bf16 (rounded to nearest) at the 16-row batch, and f32 at the cnn
+    and lstm widths (Wc [30000, 1024], Win [30000, 384]) with the cnn toy
+    stream's first batch deduped at 8-row groups (1024 slots).
 
-Beside them, once a case: the plain version (eager: its row mask cannot
-be captured), the `index_copy_` of the finished rows as a floor (not the
-same function: no PyTorch call rounds stochastically), and the bound: the
-larger of the bytes (each real group read and written once, its f32 vals
-read once) at 3.35 TB/s and the instructions the kernel issues for them
-in this tree's build (`cuobjdump -sass` of a thread's work over its
-elements, tools/sass.py), by class, at the card's SM count and maximum SM
-clock.
+Beside them, once a case: the plain version (eager for the stochastic
+rounding: its row mask cannot be captured), a PyTorch call (`index_add_`
+of the real rows for the scatter-add, the same function; for the
+stochastic rounding the `index_copy_` of the finished rows as a floor, not
+the same function: no PyTorch call rounds stochastically), and the bound:
+the bytes (each real group read and written once, its vals read once) at
+3.35 TB/s; for the stochastic rounding the larger of those and the
+instructions the kernel issues for them in this tree's build (`cuobjdump
+-sass` of a thread's work over its elements, tools/sass.py), by class, at
+the card's SM count and maximum SM clock.
 
 Prints the card's name and power limit, one line per case and a JSON line
 last. Needs one GPU; exits non-zero without one.
@@ -489,7 +499,25 @@ def lookup_cases(dev, rng, libs=None):
         name = f"{what} {str(tbl.dtype).split('.')[-1]}"
         desc = (f"table {tuple(tbl.shape)}, idx {tuple(idx.shape)}, {nnz} "
                 "live lookups")
+        # d_wgt reads idx and g and each distinct row the lookups name
+        # (padding's row 0 too), and writes [rows, K] f32.
+        g = normal(*idx.shape[:-1], hh)
+        idx_l = idx.long()
+        dwgt_bound = bound_us(idx.numel() * 8 + rows * hh * 4
+                              + torch.unique(idx[(idx >= 0) & (
+                                  idx < tbl.shape[0])]).numel() * hh
+                              * tbl.element_size(), idx.numel() * hh)
+
+        def dwgt():
+            return embed.embedding_bag_dwgt(tbl, idx, g, impl="kernel")
+
         return [
+            (f"embedding_bag_dwgt {name}", dwgt,
+             lambda: embed.embedding_bag_dwgt_plain(tbl, idx, g),
+             lambda got, want: near(got, want) and bool(torch.equal(
+                 got, dwgt())),
+             {"library": lambda: (tbl[idx_l] * g[..., None, :]).sum(-1)},
+             dwgt_bound, f"{desc}, g f32"),
             (f"embedding_bag {name}",
              lambda: embed._forward_kernel(tbl, idx, wgt),
              lambda: embed.embedding_bag_plain(tbl, idx, wgt), near,
@@ -603,22 +631,37 @@ def sr_instructions(lib):
             for k, v in sass.library_counts(lib, SR_KERNELS).items()}
 
 
+def scatter_bytes(real_slots, slots, group_elems, itemsize, vals_itemsize):
+    """Bytes a row-group scatter call must move: each real group read and
+    written once (itemsize an element), its vals read once, every slot's
+    id read once."""
+    return (real_slots * group_elems * (2 * itemsize + vals_itemsize)
+            + slots * 4)
+
+
+def add_bound_us(real_slots, slots, group_elems, itemsize):
+    """Bound (bytes) of one scatter-add call, vals of the table's dtype."""
+    return scatter_bytes(real_slots, slots, group_elems, itemsize,
+                         itemsize) / HBM_BYTES_PER_S * 1e6
+
+
 def sr_bound_us(per_element, real_slots, slots, group_elems, itemsize, sms,
                 clock_hz):
     """(bound us, "bytes" or "operations", bytes us, issue us) of one
-    scatter call: each real group read and written once and its f32 vals
-    read once, against the kernel's instructions for its elements."""
+    stochastic-rounding scatter call: each real group read and written once
+    and its f32 vals read once, against the kernel's instructions for its
+    elements."""
     elements = real_slots * group_elems
-    by_bytes = (elements * (2 * itemsize + 4) + slots * 4) / HBM_BYTES_PER_S
     by_issue = sass.issue_bound_us(per_element, elements, sms, clock_hz)
-    by_bytes *= 1e6
+    by_bytes = scatter_bytes(real_slots, slots, group_elems, itemsize,
+                             4) / HBM_BYTES_PER_S * 1e6
     return (max(by_bytes, by_issue),
             "bytes" if by_bytes >= by_issue else "operations", by_bytes,
             by_issue)
 
 
 def scatter_cases(dev, rng, libs):
-    """As lookup_cases, for the two stochastic-rounding scatters."""
+    """As lookup_cases, for the row-group scatters."""
     per_element = sr_instructions(libs["tree"])
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock = sm_clock_hz()
@@ -672,9 +715,35 @@ def scatter_cases(dev, rng, libs):
                  "what": f"table {tuple(tbl.shape)} {tbl.dtype}, {slots} "
                          f"slots of {grp} rows, {int(real.sum())} real"})
 
+    def add_case(what, tbl, gids, grp):
+        h, slots = tbl.shape[1], gids.numel()
+        vals = torch.from_numpy((rng.normal(size=(slots * grp, h)) * 1e-3)
+                                .astype(np.float32)).to(dev, tbl.dtype)
+        real = (gids >= 0) & (gids < tbl.shape[0] // grp)
+        rows = (gids[real].long()[:, None] * grp
+                + torch.arange(grp, device=dev)).reshape(-1)
+        real_vals = vals.reshape(slots, grp, h)[real].reshape(-1, h)
+        work = tbl.clone()
+        return (f"scatter_add_row_groups {what}",
+                lambda: gather.scatter_add_row_groups(tbl.clone(), gids, vals,
+                                                      grp, impl="kernel"),
+                lambda: gather.scatter_add_row_groups_plain(tbl.clone(), gids,
+                                                            vals, grp),
+                lambda got, want: bool(torch.equal(got, want)), 20,
+                {"plain": lambda: gather.scatter_add_row_groups_plain(
+                    work, gids, vals, grp),
+                 "library": lambda: work.index_add_(0, rows, real_vals)},
+                {"timed": lambda: gather.scatter_add_row_groups(
+                    work, gids, vals, grp, impl="kernel"),
+                 "bound_us": round(add_bound_us(
+                     int(real.sum()), slots, grp * h, tbl.element_size()), 3),
+                 "bound_by": "bytes",
+                 "what": f"table {tuple(tbl.shape)} {tbl.dtype}, {slots} "
+                         f"slots of {grp} rows, {int(real.sum())} real"})
+
     cfg, full = _batches("full", {
         grp: dict(dedup_group=grp, dedup_joint=True, wire_compress=True,
-                  sort_rows=True) for grp in (16, 32)}, SMOKE_PAIRS,
+                  sort_rows=True) for grp in (8, 16, 32)}, SMOKE_PAIRS,
         split=True)
     h = padded(cfg.tower.embed_width)
     out = []
@@ -686,21 +755,36 @@ def scatter_cases(dev, rng, libs):
                                    replace=False)).astype(np.int32)
         out.append(case("full, every slot real", tbl,
                         torch.from_numpy(every).to(dev)))
+        if dtype == torch.bfloat16:
+            out.append(add_case("smoke (full, first batch) bf16", tbl, gids,
+                                grp))
         del tbl
-    ccfg, cnn = _batches("cnn", {"sr16": dict(
-        sequence=True, dedup_group=16, dedup_joint=True)})
-    wc = table(ccfg.tower.vocab_size,
-               padded(ccfg.tower.conv_window * ccfg.tower.conv_channels),
-               torch.bfloat16)
-    out.append(case("cnn width", wc, batch_to_torch(cnn["sr16"],
-                                                    dev)["uniq"]))
+    tbl = table(cfg.tower.vocab_size, h, torch.float32)
+    gids = batch_to_torch(full[8], dev)["uniq"]
+    out.append(add_case("smoke (full, first batch) f32", tbl, gids, 8))
+    every = np.sort(rng.choice(tbl.shape[0] // 8, gids.numel(),
+                               replace=False)).astype(np.int32)
+    out.append(add_case("full, every slot real f32", tbl,
+                        torch.from_numpy(every).to(dev), 8))
+    del tbl
+    ccfg, cnn = _batches("cnn", {
+        grp: dict(sequence=True, dedup_group=grp, dedup_joint=True)
+        for grp in (8, 16)})
+    wc_width = padded(ccfg.tower.conv_window * ccfg.tower.conv_channels)
+    wc = table(ccfg.tower.vocab_size, wc_width, torch.bfloat16)
+    out.append(case("cnn width", wc, batch_to_torch(cnn[16], dev)["uniq"]))
+    gids = batch_to_torch(cnn[8], dev)["uniq"]
+    for what, width in (("cnn", wc_width),
+                        ("lstm", padded(ccfg.tower.embed_width))):
+        out.append(add_case(f"{what} width f32", table(
+            ccfg.tower.vocab_size, width, torch.float32), gids, 8))
     return out
 
 
 GROUPS = {"eval": (("count.cu", "rank.cu"), eval_cases),
           "lookup": (("count.cu", "joint.cu", "gather.cu", "embed.cu"),
                      lookup_cases),
-          "scatter": (("scatter_sr.cu",), scatter_cases)}
+          "scatter": (("scatter.cu", "scatter_sr.cu"), scatter_cases)}
 
 
 def main() -> int:

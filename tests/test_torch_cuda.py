@@ -678,22 +678,52 @@ def test_loss_kernels_bit_reproducible(dev, b, bg, dim, offset):
         assert torch.equal(runs[0], runs[1])
 
 
+def _slot_ids(rng, slots, layout, num_groups):
+    """Group ids of a scatter call: every slot real ("real": distinct, the
+    table's last group among them), one skip slot ("skip"), or a third of
+    the slots real among skip ids of every kind ("mixed": the sentinel,
+    negative, one past the table) at any position, the last group among
+    them."""
+    if layout == "real":
+        gids = rng.choice(num_groups - 1, slots, replace=False)
+        gids[rng.integers(slots)] = num_groups - 1
+    elif layout == "skip":
+        gids = np.array([num_groups])
+    else:
+        gids = rng.choice([SKIP_SENTINEL_GID, -1, -(1 << 30), num_groups],
+                          size=slots)
+        real = rng.choice(slots, slots // 3, replace=False)
+        gids[real] = rng.choice(num_groups - 1, real.size, replace=False)
+        gids[real[0]] = num_groups - 1
+    return gids.astype(np.int32)
+
+
+# The scatter-adds at 1, 64, 256 and 1024 slots (the cnn dedupe batch's
+# count), laid out as _slot_ids says, at widths 100, 384 and 1024 (a group
+# is a whole number of 16-byte vectors at each: 8 f32 or 16 bf16 rows).
+SCATTER_ADD_SLOTS = [(1, "real"), (1, "skip"), (64, "real"), (64, "mixed"),
+                     (256, "real"), (256, "mixed"), (1024, "real"),
+                     (1024, "mixed")]
+
+
 @pytest.mark.cuda
-def test_scatter_kernel_matches_plain_in_place(dev):
+@pytest.mark.parametrize("width", [100, 384, 1024])
+@pytest.mark.parametrize("slots,layout", SCATTER_ADD_SLOTS)
+def test_scatter_kernel_matches_plain_in_place(dev, slots, layout, width):
     rng = np.random.default_rng(28)
-    table = torch.from_numpy(rng.normal(size=(V, 384)).astype(np.float32)).to(dev)
-    gids = np.full((SLOTS,), SKIP_SENTINEL_GID, np.int32)
-    gids[:23] = np.sort(rng.choice(V // GROUP, 23, replace=False))
-    gids[30] = -1
-    gids = torch.from_numpy(gids).to(dev)
-    vals = torch.from_numpy(rng.normal(size=(SLOTS * GROUP, 384)).astype(
+    rows = GROUP * 2200
+    table = torch.from_numpy(rng.normal(size=(rows, width)).astype(
+        np.float32)).to(dev)
+    gids = torch.from_numpy(_slot_ids(rng, slots, layout,
+                                      rows // GROUP)).to(dev)
+    vals = torch.from_numpy(rng.normal(size=(slots * GROUP, width)).astype(
         np.float32)).to(dev)
     want = scatter_add_row_groups_plain(table.clone(), gids, vals, GROUP)
-    before = table.clone()
-    got = scatter_add_row_groups(table, gids, vals, GROUP, impl="kernel")
-    assert got is table and got.data_ptr() == table.data_ptr()
-    assert torch.equal(table, want)
-    assert not torch.equal(table, before)
+    got = table.clone()
+    out = scatter_add_row_groups(got, gids, vals, GROUP, impl="kernel")
+    assert out is got and out.data_ptr() == got.data_ptr()
+    assert torch.equal(got, want)
+    assert torch.equal(got, table) == (layout == "skip")
 
 
 @pytest.mark.cuda
@@ -773,19 +803,8 @@ def test_scatter_sr_kernels_bit_equal_to_plain(dev, kind, slots, layout,
         vals = rng.uniform(-3, 3, size=(slots * group, width)).astype(
             np.float32)
     vals = torch.from_numpy(vals).to(dev)
-    num_groups = rows // group
-    if layout == "real":
-        gids = rng.choice(num_groups - 1, slots, replace=False)
-        gids[rng.integers(slots)] = num_groups - 1
-    elif layout == "skip":
-        gids = np.array([num_groups])
-    else:
-        gids = rng.choice([SKIP_SENTINEL_GID, -1, -(1 << 30), num_groups],
-                          size=slots)
-        real = rng.choice(slots, slots // 3, replace=False)
-        gids[real] = rng.choice(num_groups - 1, real.size, replace=False)
-        gids[real[0]] = num_groups - 1
-    gids = torch.from_numpy(gids.astype(np.int32)).to(dev)
+    gids = torch.from_numpy(_slot_ids(rng, slots, layout,
+                                      rows // group)).to(dev)
     moves = layout != "skip"
     for seed in (0, -7, 2 ** 31 - 1):
         want = plain(table.clone(), gids, vals, group, seed)
@@ -802,18 +821,21 @@ def test_scatter_sr_kernels_bit_equal_to_plain(dev, kind, slots, layout,
 
 
 @pytest.mark.cuda
-def test_scatter_add_bf16_kernel_matches_plain(dev):
+@pytest.mark.parametrize("width", [100, 384, 1024])
+@pytest.mark.parametrize("slots,layout", SCATTER_ADD_SLOTS)
+def test_scatter_add_bf16_kernel_matches_plain(dev, slots, layout, width):
     rng = np.random.default_rng(30)
-    table = torch.from_numpy((rng.normal(size=(V, 384)) * 0.05).astype(
+    rows = 16 * 1100
+    table = torch.from_numpy((rng.normal(size=(rows, width)) * 0.05).astype(
         np.float32)).to(dev, torch.bfloat16)
-    gids = np.full((SLOTS,), SKIP_SENTINEL_GID, np.int32)
-    gids[:23] = np.sort(rng.choice(V // 16, 23, replace=False))
-    gids = torch.from_numpy(gids).to(dev)
-    vals = torch.from_numpy((rng.normal(size=(SLOTS * 16, 384)) * 1e-3).astype(
-        np.float32)).to(dev, torch.bfloat16)
+    gids = torch.from_numpy(_slot_ids(rng, slots, layout, rows // 16)).to(dev)
+    vals = torch.from_numpy((rng.normal(size=(slots * 16, width)) * 1e-3)
+                            .astype(np.float32)).to(dev, torch.bfloat16)
     want = scatter_add_row_groups_plain(table.clone(), gids, vals, 16)
-    got = scatter_add_row_groups(table.clone(), gids, vals, 16, impl="kernel")
-    assert torch.equal(got, want) and not torch.equal(got, table)
+    got = table.clone()
+    out = scatter_add_row_groups(got, gids, vals, 16, impl="kernel")
+    assert out is got and torch.equal(got, want)
+    assert torch.equal(got, table) == (layout == "skip")
 
 
 # The eval passes of `full` (6553 pairs) and `multihost` (13107); ragged
@@ -1047,6 +1069,51 @@ def test_embedding_bag_bit_equal_to_count_lookup(dev, dtype, case):
     assert not bool(rows[::9].any()) and not bool(rows[1::9].any())
     torch.testing.assert_close(rows[4], k * 2.0 * table[12345].float(),
                                rtol=1e-5, atol=0)
+
+
+# d_wgt at BAG_SHAPES and at K = 1, 7, 70 (9 chunks of 8, the last one
+# ragged) and 129, widths 36 (f32 tables only: 36 bf16 columns are not
+# whole 16-byte vectors), 520 and 1024; f32 and bf16 tables and gradients.
+DWGT_SHAPES = {**BAG_SHAPES, "k1": ((512, 1), 1024), "k7": ((300, 7), 36),
+               "k70": ((96, 70), 520), "k129": ((64, 129), 1024)}
+DWGT_CASES = [(case, dtype, g_dtype) for case in sorted(DWGT_SHAPES)
+              for dtype in ("float32", "bfloat16")
+              for g_dtype in ("float32", "bfloat16")
+              if dtype == "float32" or DWGT_SHAPES[case][1] % 8 == 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype,g_dtype", DWGT_CASES)
+def test_embedding_bag_dwgt_at_every_shape(dev, case, dtype, g_dtype):
+    """The weight gradient within 1e-5 x max |d_wgt| of the plain version,
+    and two calls bit-equal. Lookups outside the table (past it and
+    negative) get 0; a row of all padding (index 0) is computed, the same
+    dot product at every k."""
+    shape, width = DWGT_SHAPES[case]
+    rng = np.random.default_rng(34)
+    v = 100_000
+    table = torch.from_numpy(rng.normal(size=(v, width)).astype(
+        np.float32)).to(dev, getattr(torch, dtype))
+    k = shape[-1]
+    idx = rng.integers(0, v, size=shape).astype(np.int32)
+    idx[rng.random(shape) < 0.1] = v + 7
+    idx[rng.random(shape) < 0.1] = -3
+    idx.reshape(-1, k)[::7] = 0  # rows of all padding
+    idx = torch.from_numpy(idx).to(dev)
+    g = torch.from_numpy(rng.normal(size=(*shape[:-1], width)).astype(
+        np.float32)).to(dev, getattr(torch, g_dtype))
+    _build.reset_launch_counts()
+    got = embedding_bag_dwgt(table, idx, g, impl="kernel")
+    again = embedding_bag_dwgt(table, idx, g, impl="kernel")
+    assert _build.launch_counts()["embedding_bag_bwd"] == 2
+    want = embedding_bag_dwgt_plain(table, idx, g)
+    assert got.dtype == torch.float32 and got.shape == shape
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    assert not bool(got[(idx < 0) | (idx >= v)].any())
+    pad = got.reshape(-1, k)[::7]
+    assert bool(pad.any()) and torch.equal(pad, pad[:, :1].expand_as(pad))
 
 
 @pytest.mark.cuda
