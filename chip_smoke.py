@@ -54,6 +54,19 @@ traced device busy ms of the `full` cached eval pass, the cnn eval passes
 and the cnn raw step with the gathers' and the bags' shares, and of the
 `full` f32 joint step and the cnn dedupe step with the scatter-add's.
 
+The host plane (the C++ hashing and dedupe, data/native.py): the hashing
+of both toy corpora and the first 8 `full` joint and 4 cnn / lstm union
+batches bit-equal to the plain Python / numpy versions and timed beside
+them; pooled batches (4 and 8 threads, and the epoch batch cache) bit-equal
+to serial ones, with the time a consumer spends inside next() at each
+width; `full` and cnn training fed live
+by the loader as cli.train feeds it (plain host at no pool, C++ at 0, 4
+and 8 threads: steps/s, next() ms, the traced device busy share); and,
+after the CLI drives above, cli.train on a TSV corpus file (written by
+write_tsv) for --preset=full at pool widths 0 and 8 and with the epoch
+batch cache, and --preset=cnn at 0 and 8 (steps/s from metrics.jsonl),
+with cli.eval on the 8-thread runs' workdirs.
+
 It checks that every kernel was launched by the path it belongs to. The
 next-to-last line is a JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -64,6 +77,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import os
 import statistics
@@ -88,6 +102,16 @@ CLI_LOWPREC_STEPS = 6  # bf16 table, eval every 3 steps
 SEQ_STEPS = 8          # cnn / lstm, each branch, kernels against plain
 SEQ_PROFILED_STEPS = 3  # then traced, from the trained state
 SEQ_CLI_STEPS = 6      # cli.train of the cnn / lstm presets
+HOST_FULL_BATCHES = 8  # full joint batches, C++ against plain host
+HOST_SEQ_BATCHES = 4   # cnn / lstm union batches, the same
+HOST_POOL_BATCHES = 40  # full batches through each pool width
+STREAM_STEPS = 48      # full steps fed live by the loader, per setting
+STREAM_SEQ_STEPS = 24  # cnn steps, the same
+STREAM_TRACED = 12     # then traced, the same
+FILE_STEPS = 96        # cli.train --preset=full on a corpus file, per run
+FILE_LOG_EVERY = 16
+SEQ_FILE_STEPS = 40    # cli.train --preset=cnn on a corpus file, per run
+SEQ_FILE_LOG_EVERY = 8
 
 
 def check(ok: bool, msg: str) -> None:
@@ -116,12 +140,15 @@ def main() -> int:
     from dssm_tpu_torch.bridge import batch_to_torch
     from dssm_tpu_torch.data import (
         ToyPairs, batch_iterator, eval_batches, hash_pairs, make_toy_pairs,
-        train_eval_split)
+        prefetch, train_eval_split, write_tsv)
+    from dssm_tpu_torch.data import native as host_native
     from dssm_tpu_torch.data.dedupe import SKIP_SENTINEL_GID
-    from dssm_tpu_torch.data.loader import pad_batch
+    from dssm_tpu_torch.data.loader import (
+        add_dedup_fields, compress_wire, pad_batch, select_batch,
+        sort_batch_rows, wire_dtype_plan)
     from dssm_tpu_torch.data.remap import (
         apply_remap, build_freq_remap, load_remap, save_remap)
-    from dssm_tpu_torch.data.trigram import hash_batch
+    from dssm_tpu_torch.data.trigram import hash_batch, hash_batch_sequence
     from dssm_tpu_torch.device import resolve_device
     from dssm_tpu_torch.io.checkpoint import Checkpointer
     from dssm_tpu_torch.kernels import _build
@@ -177,6 +204,10 @@ def main() -> int:
           f"{len(_build.SOURCES)} sources in parallel + link)")
     print(_build.ptxas_report())
     _build.load()
+    t0 = time.perf_counter()
+    host_native.build(force=True)
+    print(f"host data plane build: {time.perf_counter() - t0:.1f} s (g++, "
+          f"{os.path.relpath(host_native.SOURCE)})")
 
     def graph_ms(fn, reps=20, replays=11):
         """Device time per call: `reps` calls captured in a CUDA graph,
@@ -2211,9 +2242,12 @@ def main() -> int:
     host_s = t3 - t0
     hash_batch(titles, t.vocab_size, cfg.data.max_trigrams,
                cfg.data.normalize_counts)
+    t4 = time.perf_counter()
+    hash_batch(titles, t.vocab_size, cfg.data.max_trigrams,
+               cfg.data.normalize_counts, impl="plain")
     host_split = dict(hash_both_sides_s=t1 - t0, remap_s=t2 - t1,
-                      dedupe_s=t3 - t2,
-                      hash_doc_side_alone_s=time.perf_counter() - t3)
+                      dedupe_s=t3 - t2, hash_doc_side_alone_s=t4 - t3,
+                      hash_doc_side_alone_plain_s=time.perf_counter() - t4)
     unused_share = ((host_split["hash_both_sides_s"]
                      - host_split["hash_doc_side_alone_s"]) / host_s)
     print(f"host prep split (s): {json.dumps(host_split)}; hashing the "
@@ -2618,6 +2652,208 @@ def main() -> int:
           f", launches {dict((k, v) for k, v in grad_counts.items() if v)}")
     del p_g, b_g, grads_g
 
+    # ---- phase 6c: the host plane: C++ against plain, the thread pool ----
+    # The C++ host data plane (data/native.py) against its plain Python /
+    # numpy versions: the hashing of both toy corpora and the dedupe of the
+    # first HOST_FULL_BATCHES `full` joint batches and HOST_SEQ_BATCHES cnn /
+    # lstm union batches (the two presets share their corpus, caps and
+    # seed, so one stream is both), bit-equal, each timed serially; pooled
+    # batches bit-identical to serial ones, with the time a consumer spends
+    # inside next() at each pool width; then training fed live by the loader as cli.train feeds it (a
+    # prefetch thread over batch_iterator), the plain host path at no pool
+    # against the C++ one at each pool width, with the device's busy share
+    # of a traced window.
+    def timed(fn):
+        t0_ = time.perf_counter()
+        out_ = fn()
+        return out_, time.perf_counter() - t0_
+
+    def same(a_, b_, what):
+        if isinstance(a_, dict):
+            check(sorted(a_) == sorted(b_), f"{what}: fields differ")
+            a_, b_ = [a_[k_] for k_ in sorted(a_)], [b_[k_] for k_ in sorted(b_)]
+        for x_, y_ in zip(a_, b_):
+            check(x_.dtype == y_.dtype and np.array_equal(x_, y_),
+                  f"{what}: C++ and plain differ")
+
+    host = dict(card=card, host_cpus=os.cpu_count())
+    norm = cfg.data.normalize_counts
+    kq_full = cfg.data.max_trigrams_query or cfg.data.max_trigrams
+    hash_cases = (
+        ("full queries", train_pairs.queries, lambda x_, i_: hash_batch(
+            x_, t.vocab_size, kq_full, norm, impl=i_)),
+        ("full titles", train_pairs.titles, lambda x_, i_: hash_batch(
+            x_, t.vocab_size, cfg.data.max_trigrams, norm, impl=i_)),
+        ("cnn / lstm titles, per word", seq_train_p.titles,
+         lambda x_, i_: hash_batch_sequence(
+             x_, sc.tower.vocab_size, sc.data.max_words,
+             sc.data.max_trigrams_per_word, norm, impl=i_)))
+    host["hashing_texts_per_s"] = {}
+    for what, texts_, fn_ in hash_cases:
+        got_, s_native = timed(lambda: fn_(texts_, "auto"))
+        want_, s_plain = timed(lambda: fn_(texts_, "plain"))
+        same(got_, want_, f"hashing {what}")
+        host["hashing_texts_per_s"][what] = dict(
+            texts=len(texts_), cpp=len(texts_) / s_native,
+            plain=len(texts_) / s_plain)
+
+    def full_stream(impl="auto", workers=0, **kw_):
+        return batch_iterator(
+            hashed_train, cfg.train.batch_size, seed=cfg.train.seed,
+            dedup_unique=cfg.data.max_unique, dedup_group=group,
+            dedup_unique_rows=cfg.data.max_unique_rows, dedup_joint=True,
+            wire_compress=True, sort_rows=True, pipeline_workers=workers,
+            impl=impl, **kw_)
+
+    def seq_joint_stream(impl="auto", workers=0):
+        c = seq_cfg["cnn"]
+        return batch_iterator(
+            seq_train, c.train.batch_size, True, seed=c.train.seed,
+            dedup_unique=c.data.max_unique, dedup_group=8,
+            dedup_unique_rows=c.data.max_unique_rows, dedup_joint=True,
+            pipeline_workers=workers, impl=impl)
+
+    def next_ms(it_, n_):
+        """The batches and the ms a consumer spends inside each next()."""
+        out_, ms_ = [], []
+        for _ in range(n_):
+            b_, s_ = timed(lambda: next(it_))
+            out_.append(b_)
+            ms_.append(s_ * 1e3)
+        it_.close()
+        return out_, ms_
+
+    host["prep_ms_per_batch_serial"] = {}
+    serial_ref = {}
+    for what, make_, n_ in (("full joint", full_stream, HOST_FULL_BATCHES),
+                            ("cnn / lstm union", seq_joint_stream,
+                             HOST_SEQ_BATCHES)):
+        got_, ms_native = next_ms(make_("auto"), n_)
+        want_, ms_plain = next_ms(make_("plain"), n_)
+        for i_, (a_, b_) in enumerate(zip(got_, want_)):
+            same(a_, b_, f"{what} batch {i_}")
+        serial_ref[what] = got_
+        host["prep_ms_per_batch_serial"][what] = dict(
+            batches=n_, cpp=statistics.median(ms_native),
+            plain=statistics.median(ms_plain))
+
+    # Where a `full` batch's serial C++ prep goes: the slice of the corpus
+    # rows, the dedupe (the C++ call and the keep masks), the row sort and
+    # the wire compression (ms, median over the batches).
+    plan_full = wire_dtype_plan(hashed_train, cfg.data.max_unique,
+                                cfg.data.max_unique_rows)
+    split_ms = {k_: [] for k_ in ("slice", "dedupe", "sort", "compress")}
+    perm_ = np.random.default_rng((cfg.train.seed, 0)).permutation(
+        len(hashed_train))
+    for i_ in range(HOST_FULL_BATCHES):
+        rows_ = perm_[i_ * cfg.train.batch_size:(i_ + 1) * cfg.train.batch_size]
+        b_, s_slice = timed(lambda: select_batch(hashed_train, rows_))
+        b_, s_dedupe = timed(lambda: add_dedup_fields(
+            b_, cfg.data.max_unique, group, cfg.data.max_unique_rows, True))
+        b_, s_sort = timed(lambda: sort_batch_rows(b_))
+        b_, s_compress = timed(lambda: compress_wire(b_, plan_full))
+        for k_, v_ in zip(split_ms, (s_slice, s_dedupe, s_sort, s_compress)):
+            split_ms[k_].append(v_ * 1e3)
+    host["full_prep_split_ms_cpp"] = {k_: statistics.median(v_)
+                                      for k_, v_ in split_ms.items()}
+
+    # Pooled against serial, and the consumer's next() time at each width
+    # (nothing between the calls: the pool's throughput).
+    host["next_ms_per_batch_no_consumer"] = {}
+    for what, make_, n_ in (("full joint", full_stream, HOST_POOL_BATCHES),
+                            ("cnn / lstm union", seq_joint_stream,
+                             HOST_SEQ_BATCHES * 3)):
+        row_ = {}
+        for workers in (0, 4, 8):
+            got_, ms_ = next_ms(make_(workers=workers), n_)
+            for i_, (a_, b_) in enumerate(zip(got_, serial_ref[what])):
+                same(a_, b_, f"{what} batch {i_}, {workers} pool threads")
+            row_[f"workers_{workers}"] = statistics.median(ms_[2:])
+        host["next_ms_per_batch_no_consumer"][what] = row_
+    pooled_cached, _ = next_ms(full_stream(
+        workers=8, reshuffle_each_epoch=False, cache_epoch_batches=True),
+        2 * (len(hashed_train) // cfg.train.batch_size) + 1)
+    fixed_, _ = next_ms(full_stream(reshuffle_each_epoch=False),
+                        len(pooled_cached))
+    for i_, (a_, b_) in enumerate(zip(pooled_cached, fixed_)):
+        same(a_, b_, f"epoch-cached full batch {i_}")
+
+    print("host plane: " + json.dumps(host))
+
+    # Training fed live by the loader, as cli.train feeds it.
+    def streamed(run_cfg, state, make_stream, steps, impl, workers):
+        """steps/s and the ms inside next() a step over `steps` steps (after
+        4 to warm up), then a traced window of STREAM_TRACED steps: the
+        device's busy share of its wall time."""
+        step_fn_ = make_train_step(run_cfg, "auto")
+        batches_ = prefetch(make_stream(impl=impl, workers=workers), depth=2)
+        for _ in range(4):
+            state, _ = step_fn_(state, batch_to_torch(next(batches_), dev))
+        torch.cuda.synchronize()
+        wait_ms = []
+        t0_ = time.perf_counter()
+        for _ in range(steps):
+            b_, s_ = timed(lambda: next(batches_))
+            wait_ms.append(s_ * 1e3)
+            state, _ = step_fn_(state, batch_to_torch(b_, dev))
+        torch.cuda.synchronize()
+        wall_ = time.perf_counter() - t0_
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_:
+            t1_ = time.perf_counter()
+            for _ in range(STREAM_TRACED):
+                state, _ = step_fn_(state, batch_to_torch(next(batches_), dev))
+            torch.cuda.synchronize()
+            traced_wall_ = time.perf_counter() - t1_
+        batches_.close()
+        us_, _ = device_time_us(prof_, 4)
+        return state, dict(
+            host=impl if isinstance(impl, str) else "prepared",
+            pool_threads=workers, steps=steps,
+            steps_per_s=steps / wall_,
+            next_ms_per_step=statistics.median(wait_ms),
+            traced_wall_ms_per_step=traced_wall_ * 1e3 / STREAM_TRACED,
+            device_busy_share_traced=(
+                None if us_ is None else us_ / 1e6 / traced_wall_))
+
+    def prepared_stream(impl, workers):
+        """The first batches of the `full` stream, made ahead, in a cycle:
+        prefetch's hand-off with no prep behind it."""
+        return itertools.cycle(serial_ref["full joint"])
+
+    def cached_stream(impl, workers):
+        return full_stream(impl, workers, reshuffle_each_epoch=False,
+                           cache_epoch_batches=True)
+
+    stream_runs = []
+    state_s = create_run_state(cfg, params)
+    seq_state = seq_runs[("cnn", "joint")]
+    for what, run_cfg, make_, steps, settings in (
+            ("full", cfg, full_stream, STREAM_STEPS,
+             (("plain", 0), ("auto", 0), ("auto", 4), ("auto", 8))),
+            ("full, made ahead", cfg, prepared_stream, STREAM_STEPS,
+             ((None, 0),)),
+            ("full, epoch cache", cfg, cached_stream, STREAM_STEPS,
+             (("auto", 8),)),
+            ("cnn", seq_state["cfg"], seq_joint_stream, STREAM_SEQ_STEPS,
+             (("plain", 0), ("auto", 0), ("auto", 4), ("auto", 8)))):
+        state_ = seq_state["state"] if what == "cnn" else state_s
+        for impl, workers in settings:
+            state_, row_ = streamed(run_cfg, state_, make_, steps, impl,
+                                    workers)
+            if make_ is cached_stream:
+                # Batches 4 .. 4 + steps - 1 are timed; one from the second
+                # epoch on is a cache hit.
+                bpe_ = len(hashed_train) // cfg.train.batch_size
+                row_.update(batches_per_epoch=bpe_, cache_hit_share_timed=sum(
+                    i_ >= bpe_ for i_ in range(4, 4 + steps)) / steps)
+            stream_runs.append(dict(preset=what, **row_))
+            if what != "cnn":
+                state_s = state_
+    print(f"training fed live by the loader (prefetch over batch_iterator, "
+          f"as cli.train; on {card}): " + json.dumps(stream_runs))
+    del state_s, seq_state, state_, serial_ref, pooled_cached, fixed_
+
     # ---- phase 7: the same path through the command-line entry points ----
     # cli.train in this process: the full preset on a toy corpus cut to
     # CLI_PAIRS pairs, first on the f32 table (CLI_STEPS steps and the final
@@ -2809,6 +3045,92 @@ def main() -> int:
                      f"{time.perf_counter() - t1:.1f} s")
         print(line)
         cli_dir.cleanup()
+
+    # cli.train and cli.eval on a corpus file: toy pairs written as TSV by
+    # write_tsv (the toy corpus's pairs, so the same split), the full preset
+    # at pool widths 0 and 8 and once with the epoch batch cache, and the
+    # cnn preset at 0 and 8; steps/s from the metrics.jsonl records after
+    # the first two log intervals (the first holds the warm-up).
+    corpus_dir = tempfile.TemporaryDirectory(prefix="dssm_smoke_corpus_")
+    tsv = {"full": os.path.join(corpus_dir.name, "full.tsv"),
+           "cnn": os.path.join(corpus_dir.name, "cnn.tsv")}
+    write_tsv(make_toy_pairs(CLI_PAIRS, cfg.data.toy_vocab_words,
+                             cfg.data.seed), tsv["full"])
+    write_tsv(seq_pairs, tsv["cnn"])
+    n_eval_cnn = -(-len(seq_eval) // seq_cfg["cnn"].train.batch_size)
+    pool8 = ["--data.pipeline_workers=8"]
+    cached = pool8 + ["--data.reshuffle_each_epoch=False",
+                      "--data.cache_epoch_batches=True"]
+    file_runs = []
+    for preset, steps, every, extra in (
+            ("full", FILE_STEPS, FILE_LOG_EVERY, []),
+            ("full", FILE_STEPS, FILE_LOG_EVERY, pool8),
+            ("full", FILE_STEPS, FILE_LOG_EVERY, cached),
+            ("cnn", SEQ_FILE_STEPS, SEQ_FILE_LOG_EVERY, []),
+            ("cnn", SEQ_FILE_STEPS, SEQ_FILE_LOG_EVERY, pool8)):
+        cli_dir = tempfile.TemporaryDirectory(prefix=f"dssm_smoke_{preset}_")
+        cli_flags = [f"--preset={preset}", f"--io.workdir={cli_dir.name}",
+                     f"--data.path={tsv[preset]}", *extra]
+        t0 = time.perf_counter()
+        _build.reset_launch_counts()
+        cli_train.main(cli_flags + [f"--train.max_steps={steps}",
+                                    f"--train.log_every={every}",
+                                    "--train.eval_every=0"])
+        torch.cuda.synchronize()
+        cli_counts = _build.launch_counts()
+        t1 = time.perf_counter()
+        if preset == "full":
+            want = cli_expected(steps, 1, "scatter_add_row_groups")
+            want_pairs = cli_eval_pairs
+        else:
+            want = {k: steps for k in seq_joint_kernels}
+            want.update(gather_row_groups=2 * n_eval_cnn,
+                        count_lookup=2 * n_eval_cnn, rank_counts=1)
+            want_pairs = len(seq_eval)
+        for name, n in cli_counts.items():
+            check(n == want.get(name, 0), f"cli.train --preset={preset} on "
+                  f"a corpus file {extra}: kernel {name} launched {n} times, "
+                  f"expected {want.get(name, 0)}")
+        records = cli_records(cli_dir.name)
+        rates = [r["steps_per_sec"] for r in records
+                 if r["tag"] == "train" and r["step"] > every]
+        losses = [r["loss"] for r in records if r["tag"] == "train"]
+        final = records[-1]
+        check(len(losses) == -(-steps // every) and all(np.isfinite(losses))
+              and final["tag"] == "eval_final"
+              and final["num_queries"] == want_pairs
+              and 0 < final["recall@1"] <= 1,
+              f"cli.train --preset={preset} on a corpus file {extra}: "
+              f"records {records}")
+        # Steps every + 1 .. steps are timed; with the epoch cache one from
+        # the second epoch on replays a cached batch.
+        n_pairs = CLI_PAIRS if preset == "full" else len(seq_pairs.queries)
+        bpe = (n_pairs - want_pairs) // (
+            cfg if preset == "full" else seq_cfg["cnn"]).train.batch_size
+        hits = (sum(s_ > bpe for s_ in range(every + 1, steps + 1))
+                / (steps - every)) if extra == cached else 0.0
+        run_ = dict(preset=preset, flags=extra, steps=steps,
+                    batches_per_epoch=bpe, cache_hit_share_timed=hits,
+                    steps_per_s=statistics.median(rates),
+                    steps_per_s_by_interval=rates,
+                    loss_first_last=[losses[0], losses[-1]],
+                    final_recall_at_1=final["recall@1"],
+                    cli_train_s=t1 - t0)
+        if extra == pool8:
+            out_eval = io.StringIO()
+            with contextlib.redirect_stdout(out_eval):
+                cli_eval.main(cli_flags)
+            reported = json.loads(out_eval.getvalue().strip().splitlines()[-1])
+            check(reported["step"] == steps and all(
+                reported[k] == final[k] for k in ("recall@1", "ndcg@10",
+                                                  "mrr", "num_queries")),
+                f"cli.eval --preset={preset} on a corpus file reports "
+                f"{reported}, the run's final eval was {final}")
+            run_["cli_eval_matches_final_eval"] = True
+        file_runs.append(run_)
+        cli_dir.cleanup()
+    corpus_dir.cleanup()
+    print(f"cli.train on a corpus file (on {card}): " + json.dumps(file_runs))
 
     # ---- phase 8: the kernels line, then the result line ----------------
     # Every kernel of the build holds its comparison and a launch count from

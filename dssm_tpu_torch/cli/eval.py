@@ -8,8 +8,9 @@ The flags are dssm_tpu.cli.eval's: any config field is overridable with
 It runs on the GPU unless --cpu is given, and fails when there is no GPU. It
 evaluates the latest checkpoint `python -m dssm_tpu_torch.cli.train` wrote
 under --io.workdir, through the vocab remap saved there, or the seeded fresh
-init when the workdir holds no checkpoint. A file corpus (data.path) is not
-ported yet.
+init when the workdir holds no checkpoint. With --data.path=pairs.tsv it
+evaluates the held-out split of that corpus file, the one cli.train held out
+(the same data.seed and data.eval_frac).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     from dssm_tpu_torch.config import get_preset
     from dssm_tpu_torch.config import validate as validate_cfg
     from dssm_tpu_torch.data import (
-        hash_pairs, make_toy_pairs, train_eval_split)
+        hash_pairs, load_file_corpus, make_toy_pairs, train_eval_split)
     from dssm_tpu_torch.data.remap import apply_remap, load_remap
     from dssm_tpu_torch.device import resolve_device
     from dssm_tpu_torch.io.checkpoint import Checkpointer
@@ -38,14 +39,15 @@ def main(argv: Optional[List[str]] = None) -> None:
     device = resolve_device(cpu)
     cfg = validate_cfg(coerce_overrides(get_preset(preset), raw_overrides))
     if cfg.data.path:
-        raise NotImplementedError(
-            "evaluating a file corpus (data.path) is not ported yet "
-            "(ROADMAP.md, Queue 1: the file corpus)")
-    pairs = make_toy_pairs(cfg.data.toy_num_pairs, cfg.data.toy_vocab_words,
-                           cfg.data.seed)
-    _, eval_pairs = train_eval_split(pairs, eval_frac=cfg.data.eval_frac,
-                                     seed=cfg.data.seed)
-    hashed_eval = hash_pairs(eval_pairs, cfg.tower, cfg.data)
+        _, hashed_eval, _, _ = load_file_corpus(cfg.tower, cfg.data)
+        print(f"corpus {cfg.data.path}: {len(hashed_eval)} eval pairs",
+              file=sys.stderr)
+    else:
+        pairs = make_toy_pairs(cfg.data.toy_num_pairs,
+                               cfg.data.toy_vocab_words, cfg.data.seed)
+        _, eval_pairs = train_eval_split(pairs, eval_frac=cfg.data.eval_frac,
+                                         seed=cfg.data.seed)
+        hashed_eval = hash_pairs(eval_pairs, cfg.tower, cfg.data)
 
     # Training may have remapped the vocab (data/remap.py): table rows live
     # at remapped positions, so eval inputs go through the same permutation.

@@ -7,7 +7,9 @@ The flags are dssm_tpu.cli.train's: any config field is overridable with
 --section.field=value. It runs on the GPU unless --cpu is given, and fails
 when there is no GPU; on the GPU every kernel of the step is the port's CUDA
 kernel. It trains the mlp (tiny, full), cnn and lstm presets on the toy
-corpus with an f32, bf16 or int8 table (--tower.table_dtype), on dedupe
+corpus, or on a corpus file with --data.path=pairs.tsv (or .jsonl; its
+seeded split gives the held-out pairs), with an f32, bf16 or int8 table
+(--tower.table_dtype), on dedupe
 batches or, with --data.dedup_lookup=False, raw-index batches; evaluates
 the held-out split every train.eval_every steps and at the end (records
 `eval` / `eval_final`), writes JSONL metrics
@@ -15,9 +17,13 @@ and checkpoints (io/checkpoint.py) under --io.workdir, and saves the
 frequency remap there when data.freq_remap is set;
 `python -m dssm_tpu_torch.cli.eval` and `cli.export` then read the same
 workdir. --resume continues from the latest checkpoint with the data stream
-at the step it left off.
+at the step it left off. The batches are built by the C++ host data plane
+(data/native.py), on a pool of --data.pipeline_workers threads when it is
+above 1; --data.reshuffle_each_epoch=False --data.cache_epoch_batches=True
+replays the first epoch's batches after it.
 
-Not ported yet: a file corpus (data.path) and the multi-device path.
+Not ported yet: the multi-step dispatch (train.steps_per_call > 1) and the
+multi-device path.
 """
 
 from __future__ import annotations
@@ -39,8 +45,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     from dssm_tpu_torch.config import get_preset
     from dssm_tpu_torch.config import validate as validate_cfg
     from dssm_tpu_torch.data import (
-        batch_iterator, hash_pairs, make_toy_pairs, prefetch,
-        train_eval_split,
+        batch_iterator, hash_pairs, load_file_corpus, make_toy_pairs,
+        prefetch, train_eval_split,
     )
     from dssm_tpu_torch.device import resolve_device
     from dssm_tpu_torch.io.checkpoint import Checkpointer
@@ -54,10 +60,13 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     device = resolve_device(cpu)
     cfg = validate_cfg(coerce_overrides(get_preset(preset), raw_overrides))
-    if cfg.data.path:
+    if cfg.train.steps_per_call > 1:
+        # dssm_tpu runs K steps a dispatch and writes its records and
+        # checkpoints on the last step of each block, not on this loop's.
         raise NotImplementedError(
-            "training on a file corpus (data.path) is not ported yet "
-            "(ROADMAP.md, Queue 1: the file corpus)")
+            f"train.steps_per_call={cfg.train.steps_per_call}: K steps a "
+            "dispatch are not ported yet (ROADMAP.md, Queue 1: the "
+            "multi-step dispatch)")
     if cfg.mesh.model_parallel > 1:
         raise NotImplementedError(
             "the multi-device path is not ported yet (ROADMAP.md, Queue 1: "
@@ -73,12 +82,18 @@ def main(argv: Optional[List[str]] = None) -> None:
             else "cpu")
     print(f"preset={cfg.name} device={kind}", file=sys.stderr)
 
-    pairs = make_toy_pairs(cfg.data.toy_num_pairs, cfg.data.toy_vocab_words,
-                           cfg.data.seed)
-    train_pairs, eval_pairs = train_eval_split(
-        pairs, eval_frac=cfg.data.eval_frac, seed=cfg.data.seed)
-    hashed_train = hash_pairs(train_pairs, cfg.tower, cfg.data)
-    hashed_eval = hash_pairs(eval_pairs, cfg.tower, cfg.data)
+    if cfg.data.path:
+        hashed_train, hashed_eval, _, _ = load_file_corpus(cfg.tower,
+                                                           cfg.data)
+        print(f"corpus {cfg.data.path}: {len(hashed_train)} train / "
+              f"{len(hashed_eval)} eval pairs", file=sys.stderr)
+    else:
+        pairs = make_toy_pairs(cfg.data.toy_num_pairs,
+                               cfg.data.toy_vocab_words, cfg.data.seed)
+        train_pairs, eval_pairs = train_eval_split(
+            pairs, eval_frac=cfg.data.eval_frac, seed=cfg.data.seed)
+        hashed_train = hash_pairs(train_pairs, cfg.tower, cfg.data)
+        hashed_eval = hash_pairs(eval_pairs, cfg.tower, cfg.data)
 
     if cfg.data.freq_remap:
         # Frequency-ordered vocab remap (data/remap.py), built from the train

@@ -1,8 +1,16 @@
 from dssm_tpu_torch.data import trigram  # noqa: F401
-from dssm_tpu_torch.data.corpus import Pairs, iter_pairs, read_pairs  # noqa: F401
+from dssm_tpu_torch.data.corpus import (  # noqa: F401
+    Pairs,
+    hash_pairs_chunked,
+    iter_pairs,
+    load_file_corpus,
+    read_pairs,
+    write_tsv,
+)
 from dssm_tpu_torch.data.loader import (  # noqa: F401
     Batch,
     HashedPairs,
+    LockedIterator,
     batch_iterator,
     eval_batches,
     hash_pairs,

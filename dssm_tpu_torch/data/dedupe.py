@@ -1,4 +1,4 @@
-"""Host-side batch dedupe (numpy): row groups, then exact unique rows.
+"""Host-side batch dedupe: row groups, then exact unique rows.
 
 A batch of short texts touches few DISTINCT trigram rows, so the lookup
 gathers those rows once into a compact block and reads every lookup from it:
@@ -8,8 +8,13 @@ gathers those rows once into a compact block and reads every lookup from it:
           compact2 = compact[row_sel]                    (row select)
           out[b]   = sum_k wgt[b,k] * compact2[inv[b,k]] (count lookup kernel)
 
-A copy of the numpy host half of dssm_tpu/kernels/dedup_embed.py,
-bit-identical to it (tests/test_torch_data.py).
+dedupe_two_level and dedupe_two_level_joint run the C++ host data plane
+(data/native.py: counting passes, no sorts over the lookups, the GIL
+released) unless impl="plain", which takes the numpy version below: a copy
+of the numpy host half of dssm_tpu/kernels/dedup_embed.py, bit-identical to
+it (tests/test_torch_data.py) and to the C++ path
+(tests/test_torch_native.py). The C++ path takes a power-of-two group and
+indices >= 0, as every table's row groups and hashed ids are.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+
+from dssm_tpu_torch.data import native
 
 # Padding slots in uniq_groups carry this out-of-range group id. The gather
 # kernel skips it (no read; the slot's output rows are zero). Chosen so
@@ -72,7 +79,8 @@ def dedupe_indices(
 
 
 def dedupe_two_level(
-    idx: np.ndarray, g_cap_rows: int, u2_cap: int, group: int = 8
+    idx: np.ndarray, g_cap_rows: int, u2_cap: int, group: int = 8,
+    impl: str = "auto",
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Two-level dedupe: row GROUPS for the gather, then exact unique ROWS,
     so the lookup reads U2 rows instead of the group-diluted compact block.
@@ -85,6 +93,17 @@ def dedupe_two_level(
                   per lookup
       keep_mask   same shape, f32 — 0 where a lookup overflowed either cap
     """
+    if native.resolve(impl, "dedupe_two_level") == "plain":
+        return dedupe_two_level_plain(idx, g_cap_rows, u2_cap, group)
+    uniq, sel, inv2, keep = native.dedupe_two_level(idx, None, g_cap_rows,
+                                                    u2_cap, group)
+    return uniq, sel, inv2.reshape(idx.shape), keep.reshape(idx.shape)
+
+
+def dedupe_two_level_plain(
+    idx: np.ndarray, g_cap_rows: int, u2_cap: int, group: int = 8
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The numpy version of dedupe_two_level."""
     uniq_groups, inv, keep = dedupe_indices(idx, g_cap_rows, group)
     flat_inv = inv.reshape(-1)
     flat_keep = keep.reshape(-1)
@@ -118,18 +137,24 @@ def dedupe_two_level(
 
 def dedupe_two_level_joint(
     q_idx: np.ndarray, d_idx: np.ndarray, g_cap_rows: int, u2_cap: int,
-    group: int = 8,
+    group: int = 8, impl: str = "auto",
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray,
            np.ndarray]:
     """UNION two-level dedupe over both sides' indices, for SHARED-table
     towers: one compact gather and one row selection serve both towers.
+    The C++ path reads the two sides in place (q first, as the numpy
+    version's concatenation).
 
     Returns (uniq_groups [G], row_sel [u2], q_inv, d_inv, q_keep, d_keep).
     """
     nq = q_idx.size
-    both = np.concatenate([q_idx.reshape(-1), d_idx.reshape(-1)])
-    uniq_groups, row_sel, inv2, keep = dedupe_two_level(
-        both, g_cap_rows, u2_cap, group)
+    if native.resolve(impl, "dedupe_two_level_joint") == "plain":
+        both = np.concatenate([q_idx.reshape(-1), d_idx.reshape(-1)])
+        uniq_groups, row_sel, inv2, keep = dedupe_two_level_plain(
+            both, g_cap_rows, u2_cap, group)
+    else:
+        uniq_groups, row_sel, inv2, keep = native.dedupe_two_level(
+            q_idx, d_idx, g_cap_rows, u2_cap, group)
     return (
         uniq_groups,
         row_sel,

@@ -5,17 +5,24 @@ a batch is a slice of them plus the per-batch dedupe fields the lookup
 kernels take (data/dedupe.py). The sequence towers (cnn, lstm) take the
 per-word fields [N, T, Kw] plus a word mask [N, T] in place of the bag
 fields (select_batch(sequence=True)). Batches stay numpy here;
-bridge.batch_to_torch moves them to the device. A copy of the
-single-process, serial path of dssm_tpu/data/loader.py, bit-identical to it
-(tests/test_torch_data.py): the multi-host shards, the thread-pool pipeline,
-the epoch batch cache and the per-shard slot spaces come with the
-multi-device path and the host plane.
+bridge.batch_to_torch moves them to the device. Hashing and the dedupe run
+on the C++ host data plane (data/native.py), which releases the GIL, so
+batch_iterator's and eval_batches' thread pools (pipeline_workers) build
+several batches at once, handed back in order: bit-identical to the serial
+path. A copy of the single-process path of dssm_tpu/data/loader.py,
+bit-identical to it (tests/test_torch_data.py, tests/test_torch_pipeline.py):
+the multi-host shards and the per-shard slot spaces come with the
+multi-device path.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Hashable, Iterator, Optional
 
 import numpy as np
 
@@ -73,7 +80,7 @@ def hash_pairs(pairs: ToyPairs, tower: TowerConfig, data: DataConfig) -> HashedP
 
 def add_dedup_fields(batch: Batch, max_unique: int, group: int = 8,
                      max_unique_rows: Optional[int] = None,
-                     joint: bool = False) -> Batch:
+                     joint: bool = False, impl: str = "auto") -> Batch:
     """Per-batch two-level index dedupe for the compact-gather lookup.
     Dropped-overflow lookups get their weights zeroed. `group` is the row
     group of the table dtype (8 f32 / 16 bf16).
@@ -85,6 +92,7 @@ def add_dedup_fields(batch: Batch, max_unique: int, group: int = 8,
 
     max_unique is a compact-row budget at f32 (8-row-group) granularity: the
     GROUP-SLOT budget max_unique // 8 stays constant across table dtypes.
+    impl picks the dedupe's C++ ("auto") or numpy ("plain") version.
     """
     if max_unique_rows is None:
         max_unique_rows = max(256, max_unique // 8)
@@ -93,7 +101,7 @@ def add_dedup_fields(batch: Batch, max_unique: int, group: int = 8,
     if joint:
         uniq, sel, q_inv, d_inv, q_keep, d_keep = dedupe_two_level_joint(
             batch["q_idx"], batch["d_idx"], max_unique, max_unique_rows,
-            group,
+            group, impl,
         )
         out["uniq"] = uniq
         out["sel"] = sel
@@ -106,7 +114,7 @@ def add_dedup_fields(batch: Batch, max_unique: int, group: int = 8,
         return out
     for side in ("q", "d"):
         uniq, sel, inv, keep = dedupe_two_level(
-            batch[f"{side}_idx"], max_unique, max_unique_rows, group
+            batch[f"{side}_idx"], max_unique, max_unique_rows, group, impl
         )
         out[f"{side}_uniq"] = uniq
         out[f"{side}_sel"] = sel
@@ -125,10 +133,12 @@ def select_batch(
     dedup_joint: bool = False,
     *,
     sequence: bool = False,
+    impl: str = "auto",
 ) -> Batch:
     """The batch of corpus rows `rows`: the bag fields, or with sequence
     the per-word fields and word masks under the same names ({q,d}_idx /
-    _wgt [B, T, Kw], {q,d}_mask [B, T]); then the dedupe fields."""
+    _wgt [B, T, Kw], {q,d}_mask [B, T]); then the dedupe fields (impl:
+    add_dedup_fields')."""
     if sequence:
         batch = {
             "q_idx": hashed.q_seq_idx[rows],
@@ -147,7 +157,7 @@ def select_batch(
         }
     if dedup_unique:
         batch = add_dedup_fields(batch, dedup_unique, dedup_group,
-                                 dedup_unique_rows, dedup_joint)
+                                 dedup_unique_rows, dedup_joint, impl)
     return batch
 
 
@@ -159,20 +169,28 @@ def eval_batches(
     wire_compress: bool = False,
     *,
     sequence: bool = False,
+    pipeline_workers: int = 0,
+    impl: str = "auto",
 ) -> Iterator[Batch]:
     """One pass over the corpus in order, including the ragged tail
     (sequence: the per-word fields, as select_batch).
     wire_compress shrinks the host->device fields exactly as in training
     (the embed path reads inv/wgt, so idx is dead weight), with one dtype
-    plan for the whole pass."""
+    plan for the whole pass. pipeline_workers > 1 builds the batches on a
+    thread pool, handed back in order (bit-identical to the serial pass)."""
     n = len(hashed)
     plan = (wire_dtype_plan(hashed, dedup_unique or 0, dedup_unique_rows)
             if wire_compress else None)
-    for start in range(0, n, batch):
+
+    def make(start: int) -> Batch:
         rows = np.arange(start, min(start + batch, n))
         out = select_batch(hashed, rows, dedup_unique, dedup_group,
-                           dedup_unique_rows, dedup_joint, sequence=sequence)
-        yield compress_wire(out, plan) if wire_compress else out
+                           dedup_unique_rows, dedup_joint, sequence=sequence,
+                           impl=impl)
+        return compress_wire(out, plan) if wire_compress else out
+
+    yield from map_in_order(make, ((s, s) for s in range(0, n, batch)),
+                            pipeline_workers)
 
 
 def pad_batch(batch: Batch, to_rows: int) -> Batch:
@@ -279,6 +297,102 @@ def compress_wire(batch: Batch, plan: Optional[Dict[str, bool]] = None) -> Batch
     return out
 
 
+class OrderedPool:
+    """Builds jobs on a pool of threads and hands their results back in the
+    order they were submitted.
+
+    With a cache (a dict, key -> future), the jobs submitted under one key
+    share one build, also when a job is submitted again before its first
+    build has finished (an epoch shorter than the jobs in flight). A build
+    that raised is evicted, so a later submit of its key builds it again
+    (dssm_tpu's fut_memo keeps it and raises it on every later submit).
+    """
+
+    def __init__(self, fn: Callable[[Any], Any], workers: int,
+                 cache: Optional[Dict[Hashable, Future]] = None):
+        self._fn = fn
+        self._pool = ThreadPoolExecutor(max_workers=workers)
+        self._queue: "deque" = deque()  # (key, future), submission order
+        self._cache = cache
+
+    def __len__(self) -> int:
+        return len(self._queue)
+
+    @staticmethod
+    def _failed(f: Future) -> bool:
+        return f.done() and not f.cancelled() and f.exception() is not None
+
+    def submit(self, key: Hashable, job: Any) -> None:
+        f = None if self._cache is None else self._cache.get(key)
+        if f is None or self._failed(f):
+            f = self._pool.submit(self._fn, job)
+            if self._cache is not None:
+                self._cache[key] = f
+        self._queue.append((key, f))
+
+    def next(self) -> Any:
+        """The oldest job's result; raises what its build raised."""
+        key, f = self._queue.popleft()
+        try:
+            return f.result()
+        finally:
+            if (self._cache is not None and self._cache.get(key) is f
+                    and self._failed(f)):
+                del self._cache[key]
+
+    def close(self) -> None:
+        """Drop the jobs not started, without waiting for those running."""
+        self._pool.shutdown(wait=False, cancel_futures=True)
+
+
+def map_in_order(fn: Callable[[Any], Any], jobs: Iterator, workers: int,
+                 cache: Optional[Dict[Hashable, Any]] = None) -> Iterator:
+    """fn(job) for each (key, job) of `jobs`, in order: serially when
+    workers <= 1, else on an OrderedPool of `workers` threads kept
+    workers + 1 jobs ahead of the consumer, as dssm_tpu's pools are. With a
+    cache, a key built once is not built again: the cache holds its result
+    (serially) or its future (on the pool), and keeps no build that raised.
+    Closing the generator drops the jobs not started without waiting for
+    the running ones."""
+    if workers <= 1:
+        for key, job in jobs:
+            if cache is None:
+                yield fn(job)
+                continue
+            if key not in cache:
+                cache[key] = fn(job)
+            yield cache[key]
+        return
+    pool = OrderedPool(fn, workers, cache)
+    try:
+        for key, job in jobs:
+            pool.submit(key, job)
+            if len(pool) > workers + 1:
+                yield pool.next()
+        while len(pool):
+            yield pool.next()
+    finally:
+        pool.close()
+
+
+class LockedIterator:
+    """One iterator shared by several threads: each next() is serialized,
+    so each item goes to exactly one caller (in no fixed order across the
+    callers). A bare generator raises "generator already executing" when
+    two threads call next() at once."""
+
+    def __init__(self, iterator):
+        self._it = iter(iterator)
+        self._lock = threading.Lock()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        with self._lock:
+            return next(self._it)
+
+
 def batch_iterator(
     hashed: HashedPairs,
     global_batch: int,
@@ -299,9 +413,11 @@ def batch_iterator(
     start_batch: int = 0,
     reshuffle_each_epoch: bool = True,
     cache_epoch_batches: bool = False,
+    *,
+    impl: str = "auto",
 ) -> Iterator[Batch]:
     """Infinite epoch-shuffled iterator over training batches, with
-    dssm_tpu's signature; one process, built serially.
+    dssm_tpu's signature; one process.
 
     Each epoch is a seeded permutation of the corpus cut into batches (the
     ragged tail is dropped). start_batch is the DATA CURSOR: the number of
@@ -309,6 +425,19 @@ def batch_iterator(
     fast-forwards by index math on the deterministic per-epoch permutation,
     so a resumed run continues the data stream where the checkpoint left it.
     Every train step consumes one batch, so the cursor is TrainState.step.
+
+    pipeline_workers > 1 builds each batch (slice, dedupe, sort, compress)
+    on a pool of that many threads, pipeline_workers + 1 batches ahead, and
+    hands them back in order: bit-identical to the serial stream. The C++
+    dedupe releases the GIL, so the builds run side by side.
+
+    reshuffle_each_epoch=False replays the (seed, 0) permutation every
+    epoch; with cache_epoch_batches=True the finished batches are kept by
+    in-epoch index as the first epoch builds them and handed out again
+    after, so a later epoch costs a dict lookup a batch. Cached batches are
+    shared objects: consumers treat batches as read-only (the train step,
+    batch_to_torch and add_rotation_offsets do). impl picks the dedupe's
+    C++ ("auto") or numpy ("plain") version.
     """
     if process_count != 1 or process_index != 0:
         raise NotImplementedError(
@@ -318,59 +447,91 @@ def batch_iterator(
         raise NotImplementedError(
             "per-shard slot spaces (local_sel_cap) are not ported yet "
             "(ROADMAP.md, Queue 1: multi-device)")
-    if (pipeline_workers and pipeline_workers > 1) or cache_epoch_batches:
-        raise NotImplementedError(
-            "the thread-pool batch pipeline and the epoch batch cache are "
-            "not ported yet (ROADMAP.md, Queue 1: the pipelined loader)")
+    if cache_epoch_batches and reshuffle_each_epoch:
+        raise ValueError("cache_epoch_batches requires "
+                         "reshuffle_each_epoch=False: a reshuffled epoch is "
+                         "not the cached one")
     n = len(hashed)
     if global_batch > n:
         raise ValueError(f"global batch {global_batch} > corpus size {n}")
     plan = (wire_dtype_plan(hashed, dedup_unique or 0, dedup_unique_rows)
             if wire_compress else None)
-    batches_per_epoch = n // global_batch
-    epoch, skip = divmod(max(0, start_batch), batches_per_epoch)
-    while True:
-        rng = np.random.default_rng(
-            (seed, epoch if reshuffle_each_epoch else 0))
-        perm = rng.permutation(n)
-        for start in range(skip * global_batch, n - global_batch + 1,
-                           global_batch):
-            out = select_batch(hashed, perm[start:start + global_batch],
-                               dedup_unique, dedup_group, dedup_unique_rows,
-                               dedup_joint, sequence=sequence)
-            if sort_rows:
-                out = sort_batch_rows(out)
-            yield compress_wire(out, plan) if wire_compress else out
-        epoch += 1
-        skip = 0
+
+    def jobs() -> Iterator:
+        """(in-epoch batch index, rows) from the cursor on, forever."""
+        batches_per_epoch = n // global_batch
+        epoch, skip = divmod(max(0, start_batch), batches_per_epoch)
+        while True:
+            rng = np.random.default_rng(
+                (seed, epoch if reshuffle_each_epoch else 0))
+            perm = rng.permutation(n)
+            for bi in range(skip, batches_per_epoch):
+                yield bi, perm[bi * global_batch:(bi + 1) * global_batch]
+            epoch += 1
+            skip = 0
+
+    def make(job) -> Batch:
+        _, rows = job
+        out = select_batch(hashed, rows, dedup_unique, dedup_group,
+                           dedup_unique_rows, dedup_joint, sequence=sequence,
+                           impl=impl)
+        if sort_rows:
+            out = sort_batch_rows(out)
+        if wire_compress:
+            out = compress_wire(out, plan)
+        return out
+
+    # The epoch batch cache, by in-epoch batch index.
+    yield from map_in_order(make, ((job[0], job) for job in jobs()),
+                            pipeline_workers,
+                            cache={} if cache_epoch_batches else None)
+
+
+class _Raised:
+    """An exception the prefetch thread's source raised, for the consumer."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
 
 
 def prefetch(iterator: Iterator[Batch], depth: int = 2) -> Iterator[Batch]:
     """Run the host-side batch pipeline in a background thread so it
-    overlaps device steps (numpy releases the GIL in its large array
-    operations; the pure-Python parts do not overlap)."""
-    import queue
-    import threading
-
+    overlaps device steps, at most `depth` batches ahead. An exception the
+    pipeline raises is raised to the consumer, after the batches before
+    it; closing the consumer stops the thread (and drops its source)."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = threading.Event()
+    end = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
 
     def worker():
+        last = end
         try:
             for item in iterator:
-                if stop.is_set():
+                if not put(item):
                     return
-                q.put(item)
+        except Exception as e:  # handed to the consumer, which raises it
+            last = _Raised(e)
         finally:
-            q.put(None)
+            put(last)
 
     thread = threading.Thread(target=worker, daemon=True)
     thread.start()
     try:
         while True:
             item = q.get()
-            if item is None:
+            if item is end:
                 return
+            if isinstance(item, _Raised):
+                raise item.error
             yield item
     finally:
         stop.set()

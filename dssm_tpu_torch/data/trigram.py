@@ -1,4 +1,4 @@
-"""Letter-trigram word hashing (pure Python).
+"""Letter-trigram word hashing.
 
 Each word is bracketed with '#' and decomposed into letter trigrams
 ('good' -> '#go','goo','ood','od#'); a text becomes a bag-of-trigrams count
@@ -8,8 +8,12 @@ vector, emitted in the fixed-length form the lookups take:
 
 and, for the sequence towers (cnn, lstm), per word: indices[T, Kw],
 weights[T, Kw] and a word mask[T]. Index 0 is RESERVED for padding (weight 0); real trigrams hash into
-[1, vocab_size). A copy of the pure-Python path of dssm_tpu/data/trigram.py,
-bit-identical to it (tests/test_torch_data.py).
+[1, vocab_size). The batch functions run the C++ host data plane
+(data/native.py) unless impl="plain", which takes the pure-Python path
+below: a copy of dssm_tpu/data/trigram.py's, bit-identical to it
+(tests/test_torch_data.py) and to the C++ path (tests/test_torch_native.py).
+The text is lowercased by str.lower() on both paths, so a letter whose
+lowercase is ASCII (the Kelvin sign, U+0130) hashes as that letter on both.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import re
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from dssm_tpu_torch.data import native
 
 PAD_INDEX = 0
 
@@ -116,9 +122,12 @@ def hash_text_sequence(
 
 
 def hash_batch(
-    texts: Sequence[str], vocab_size: int, max_trigrams: int, normalize: bool = False
+    texts: Sequence[str], vocab_size: int, max_trigrams: int,
+    normalize: bool = False, impl: str = "auto",
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Over a batch of texts -> (indices[B, K], weights[B, K])."""
+    if native.resolve(impl, "hash_batch") == "native":
+        return native.hash_batch(texts, vocab_size, max_trigrams, normalize)
     n = len(texts)
     idx = np.full((n, max_trigrams), PAD_INDEX, dtype=np.int32)
     wgt = np.zeros((n, max_trigrams), dtype=np.float32)
@@ -133,9 +142,13 @@ def hash_batch_sequence(
     max_words: int,
     max_trigrams_per_word: int,
     normalize: bool = False,
+    impl: str = "auto",
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Over a batch of texts -> (indices[B, T, Kw], weights[B, T, Kw],
     mask[B, T])."""
+    if native.resolve(impl, "hash_batch_sequence") == "native":
+        return native.hash_batch_sequence(texts, vocab_size, max_words,
+                                          max_trigrams_per_word, normalize)
     n = len(texts)
     idx = np.full((n, max_words, max_trigrams_per_word), PAD_INDEX,
                   dtype=np.int32)

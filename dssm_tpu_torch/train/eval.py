@@ -27,7 +27,8 @@ import torch
 
 from dssm_tpu_torch.bridge import batch_to_torch
 from dssm_tpu_torch.config import RunConfig
-from dssm_tpu_torch.data.loader import HashedPairs, eval_batches, pad_batch
+from dssm_tpu_torch.data.loader import (
+    HashedPairs, eval_batches, pad_batch, prefetch)
 from dssm_tpu_torch.kernels.gather import sublane_group
 from dssm_tpu_torch.kernels.rank import rank_counts
 from dssm_tpu_torch.models import base as model_base
@@ -40,10 +41,13 @@ def _host_batches(cfg: RunConfig, hashed: HashedPairs, batch_size: int,
                   ) -> Iterator[Tuple[DeviceBatch, int]]:
     """(batch on `device` padded to batch_size rows, live rows) through the
     whole host pipeline: slicing, two-level dedupe, wire compression
-    (sequence batches keep their full layout, as in dssm_tpu)."""
+    (sequence batches keep their full layout, as in dssm_tpu). As in
+    dssm_tpu, the batches are built on a pool of at least 2 threads
+    (data.pipeline_workers) and a prefetch thread 4 batches ahead, beside
+    the device's work on the batches before."""
     dedup = cfg.data.dedup_lookup
     sequence = cfg.tower.is_sequence_model
-    for batch in eval_batches(
+    for batch in prefetch(eval_batches(
         hashed, batch_size,
         dedup_unique=cfg.data.max_unique if dedup else None,
         dedup_group=group,
@@ -51,7 +55,8 @@ def _host_batches(cfg: RunConfig, hashed: HashedPairs, batch_size: int,
         dedup_joint=cfg.tower.shared_weights,
         wire_compress=dedup and not sequence,
         sequence=sequence,
-    ):
+        pipeline_workers=max(2, cfg.data.pipeline_workers),
+    ), depth=4):
         n = batch["q_wgt"].shape[0]
         yield batch_to_torch(pad_batch(batch, batch_size), device), n
 

@@ -271,8 +271,13 @@ def test_batch_iterator_fixed_epoch_order_and_refusals():
     for a in got:
         _assert_batches_equal(a, next(ji))
     _assert_batches_equal(got[0], got[5])  # epoch 2 replays epoch 1
-    for bad in (dict(process_count=2), dict(pipeline_workers=4),
-                dict(cache_epoch_batches=True), dict(local_sel_cap=64)):
+    # The thread pool and the epoch batch cache, once refused: the same
+    # stream (tests/test_torch_pipeline.py holds them at more settings).
+    for more in (dict(pipeline_workers=4), dict(cache_epoch_batches=True)):
+        it = tloader.batch_iterator(th, 64, **kw, **more)
+        for a in got:
+            _assert_batches_equal(next(it), a)
+    for bad in (dict(process_count=2), dict(local_sel_cap=64)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             next(tloader.batch_iterator(th, 64, **bad))
     # Sequence batches, once refused: dssm_tpu's stream, word masks padded

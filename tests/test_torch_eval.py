@@ -9,6 +9,7 @@ weights, under f32 compute (the embeddings agree to 1e-5, far below the
 score gaps of this corpus).
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -20,6 +21,8 @@ import pytest
 import torch
 
 from dssm_tpu.config import configs as jcfg
+from dssm_tpu.data import corpus as jcorpus
+from dssm_tpu.data import toy as jtoy
 from dssm_tpu.kernels.pallas_gather import force_interpret
 from dssm_tpu.kernels.pallas_rank import rank_counts_pallas
 from dssm_tpu.models import base as jbase
@@ -27,7 +30,7 @@ from dssm_tpu.train import eval as jeval
 from dssm_tpu_torch import bridge
 from dssm_tpu_torch.cli import eval as cli_eval
 from dssm_tpu_torch.config import configs as tcfg
-from dssm_tpu_torch.data.loader import eval_batches, hash_pairs
+from dssm_tpu_torch.data.loader import HashedPairs, eval_batches, hash_pairs
 from dssm_tpu_torch.data.toy import make_toy_pairs
 from dssm_tpu_torch.io.checkpoint import Checkpointer
 from dssm_tpu_torch.kernels.rank import (
@@ -330,7 +333,8 @@ def test_train_cli_evaluates_and_eval_cli_reports(tmp_path, table_dtype):
 
 def test_eval_cli_in_process(tmp_path, capsys):
     """No checkpoint: the fresh init is evaluated; a table dtype that is not
-    the checkpoint's is refused; no GPU and no --cpu raises."""
+    the checkpoint's is refused; a corpus file is evaluated on dssm_tpu's
+    held-out split of it; no GPU and no --cpu raises."""
     flags = ["--preset=tiny", *SMALL, f"--io.workdir={tmp_path}"]
     cli_eval.main([*flags, "--cpu"])
     cap = capsys.readouterr()
@@ -349,8 +353,26 @@ def test_eval_cli_in_process(tmp_path, capsys):
     Checkpointer(str(tmp_path)).save(3, state)
     with pytest.raises(SystemExit, match="table_dtype"):
         cli_eval.main([*flags, "--cpu", "--tower.table_dtype=bfloat16"])
-    with pytest.raises(NotImplementedError, match="file corpus"):
-        cli_eval.main([*flags, "--cpu", "--data.path=/nonexistent.tsv"])
+    # A corpus file, once refused (written by dssm_tpu's write_tsv): the
+    # metrics are evaluate's on the held-out split dssm_tpu's
+    # load_file_corpus makes of the same file, from the checkpoint.
+    tsv = str(tmp_path / "pairs.tsv")
+    jcorpus.write_tsv(jtoy.make_toy_pairs(300, 96, 5), tsv)
+    capsys.readouterr()
+    cli_eval.main([*flags, "--cpu", f"--data.path={tsv}"])
+    cap = capsys.readouterr()
+    out = json.loads(cap.out.strip())
+    _, j_eval, _, _ = jcorpus.load_file_corpus(
+        jcfg.TowerConfig(**dataclasses.asdict(cfg.tower)),
+        jcfg.DataConfig(**dataclasses.asdict(cfg.data)), tsv)
+    want = teval.evaluate(state.params, cfg, HashedPairs(**{
+        f: getattr(j_eval, f) for f in HashedPairs.__dataclass_fields__}),
+        cfg.train.batch_size)
+    assert "restored step" in cap.err and out["step"] == state.step
+    assert out["num_queries"] == len(j_eval) == 30
+    assert f"corpus {tsv}: 30 eval pairs" in cap.err
+    for k in ("recall@1", "recall@10", "ndcg@10", "mrr"):
+        assert out[k] == want[k], k
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli_eval.main(flags)

@@ -317,10 +317,68 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path):
         r = _train(f"--io.workdir={tmp_path}", "--train.max_steps=1",
                    cpu=False)
         assert r.returncode != 0 and "no CUDA device" in r.stderr
-    for flag, what in (("--data.path=/nonexistent.tsv", "file corpus"),
+    for flag, what in (("--train.steps_per_call=2",
+                        "Queue 1: the multi-step dispatch"),
                        ("--train.sparse_embed_update=false",
                         "dense-table train step"),
                        ("--io.tensorboard=true", "tooling")):
         r = _train(f"--io.workdir={tmp_path}", "--train.max_steps=1", flag)
         assert r.returncode != 0 and "NotImplementedError" in r.stderr
         assert what in r.stderr and "ROADMAP.md" in r.stderr
+
+
+def test_train_cli_on_a_corpus_file(tmp_path, capsys):
+    """cli.train on a TSV (written by dssm_tpu's write_tsv), its batches
+    built on a pool of 2 threads, trains on dssm_tpu's split and hashing of
+    that file: its checkpoint after 2 steps is bit-equal to 2 steps on the
+    serial batches of dssm_tpu's load_file_corpus, and its final eval is
+    evaluate's on the held-out split."""
+    import dataclasses
+
+    from dssm_tpu.data import corpus as jcorpus
+    from dssm_tpu_torch.bridge import batch_to_torch
+    from dssm_tpu_torch.cli import train as cli_train
+    from dssm_tpu_torch.cli.args import coerce_overrides
+    from dssm_tpu_torch.data.loader import HashedPairs, batch_iterator
+    from dssm_tpu_torch.io.checkpoint import Checkpointer
+    from dssm_tpu_torch.train.eval import evaluate
+    from dssm_tpu_torch.train.loop import make_train_step
+    from dssm_tpu_torch.train.state import create_run_state
+
+    tsv, work = str(tmp_path / "pairs.tsv"), str(tmp_path / "run")
+    jcorpus.write_tsv(jtoy.make_toy_pairs(300, 64, 3), tsv)
+    flags = [*SMALL, f"--data.path={tsv}", f"--io.workdir={work}",
+             "--data.pipeline_workers=2", "--train.max_steps=2",
+             "--train.log_every=1", "--train.eval_every=0"]
+    cli_train.main(["--preset=tiny", "--cpu", *flags])
+    assert f"corpus {tsv}: 270 train / 30 eval pairs" in capsys.readouterr().err
+    cfg = tcfg.validate(coerce_overrides(
+        tcfg.get_preset("tiny"), dict(a[2:].split("=", 1) for a in flags)))
+    j_train, j_eval, _, _ = jcorpus.load_file_corpus(
+        jcfg.TowerConfig(**dataclasses.asdict(cfg.tower)),
+        jcfg.DataConfig(**dataclasses.asdict(cfg.data)), tsv)
+
+    def port(h):
+        return HashedPairs(**{f: getattr(h, f)
+                              for f in HashedPairs.__dataclass_fields__})
+
+    stream = batch_iterator(
+        port(j_train), BATCH, seed=cfg.train.seed,
+        dedup_unique=cfg.data.max_unique, dedup_group=8,
+        dedup_unique_rows=cfg.data.max_unique_rows, dedup_joint=True,
+        wire_compress=True, sort_rows=True)
+    state = create_run_state(cfg, tbase.init_params(
+        cfg.tower, seed=cfg.train.seed, device="cpu"))
+    step_fn = make_train_step(cfg)
+    for _ in range(2):
+        state, _ = step_fn(state, batch_to_torch(next(stream), "cpu"))
+    got = Checkpointer(work).restore(device="cpu")
+    assert got.step == 2
+    for k, v in state.params["shared"].items():
+        assert torch.equal(got.params["shared"][k], v), k
+    with open(f"{work}/metrics.jsonl") as f:
+        final = [json.loads(line) for line in f][-1]
+    want = evaluate(got.params, cfg, port(j_eval), BATCH)
+    assert final["tag"] == "eval_final" and final["num_queries"] == 30
+    for k in ("recall@1", "recall@10", "ndcg@10", "mrr"):
+        assert final[k] == want[k], k
