@@ -67,6 +67,22 @@ write_tsv) for --preset=full at pool widths 0 and 8 and with the epoch
 batch cache, and --preset=cnn at 0 and 8 (steps/s from metrics.jsonl),
 with cli.eval on the 8-thread runs' workdirs.
 
+The dense-table step (off the sparse path: the whole tree differentiated
+on raw-index batches, the dense optimizer over the table too) at the
+`full` width: DENSE_STEPS sgd steps through the kernels and the plain
+versions from one state; the same steps against the sparse joint step
+under f32 compute, on the raw lookups of its dedupe batches (rtol 1e-4);
+adam with the first batch's loss falling and the peak device memory; the
+table gradient's time alone; traced busy ms and steps/s at K = 1 and
+K_CALL steps a call, beside the sparse f32 joint step's. Then K_CALL steps
+a call (make_multi_train_step) against one from one state: bit-equal on
+the joint step's f32, bf16 and int8 tables, within 1e-4 of the update on
+the dense step; the raw bag on live lookups outside the table (refused on
+the host; the kernel reads nothing for them, as its plain version). At the
+end, cli.train --train.steps_per_call=K_CALL and 1 over CLI_K_STEPS steps,
+its records, evals and checkpoints on the steps dssm_tpu's rule gives, and
+cli.train --train.optimizer=adam with cli.eval on its workdir.
+
 It checks that every kernel was launched by the path it belongs to. The
 next-to-last line is a JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -112,6 +128,13 @@ FILE_STEPS = 96        # cli.train --preset=full on a corpus file, per run
 FILE_LOG_EVERY = 16
 SEQ_FILE_STEPS = 40    # cli.train --preset=cnn on a corpus file, per run
 SEQ_FILE_LOG_EVERY = 8
+DENSE_STEPS = 3        # the dense-table step, kernels against plain, etc.
+ADAM_LR = 1e-3         # the dense adam runs' learning rate
+K_CALL = 4             # steps a call, against 1
+K_CHECK_STEPS = 8      # from one state, K_CALL a call against 1
+K_TIMED_STEPS = 48     # steps/s at K = 1 and K_CALL, per step kind
+CLI_K_STEPS = 22       # cli.train at K_CALL: 5 blocks and a tail of 2
+CLI_ADAM_STEPS = 4     # cli.train --train.optimizer=adam
 
 
 def check(ok: bool, msg: str) -> None:
@@ -137,7 +160,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from dssm_tpu_torch.config import get_preset, validate
-    from dssm_tpu_torch.bridge import batch_to_torch
+    from dssm_tpu_torch.bridge import batch_to_torch, check_raw_rows
     from dssm_tpu_torch.data import (
         ToyPairs, batch_iterator, eval_batches, hash_pairs, make_toy_pairs,
         prefetch, train_eval_split, write_tsv)
@@ -152,9 +175,8 @@ def main() -> int:
     from dssm_tpu_torch.device import resolve_device
     from dssm_tpu_torch.io.checkpoint import Checkpointer
     from dssm_tpu_torch.kernels import _build
-    from dssm_tpu_torch.kernels import embed as embed_mod
     from dssm_tpu_torch.kernels.embed import (
-        check_rows, embedding_bag, embedding_bag_dwgt,
+        embedding_bag, embedding_bag_dwgt,
         embedding_bag_dwgt_plain, embedding_bag_plain)
     from dssm_tpu_torch.kernels.count import (
         count_lookup, count_lookup_bwd, count_lookup_bwd_plain,
@@ -1410,18 +1432,20 @@ def main() -> int:
             dedup_unique=c.data.max_unique if dedup else None, dedup_group=8,
             dedup_unique_rows=c.data.max_unique_rows, dedup_joint=True)
 
-    raw_seq = batch_to_torch(next(seq_stream("cnn", False)), dev)
-    raw_full = batch_to_torch(next(batch_iterator(
-        hashed_train, cfg.train.batch_size, seed=cfg.train.seed)), dev)
+    raw_seq_np = next(seq_stream("cnn", False))
+    raw_full_np = next(batch_iterator(
+        hashed_train, cfg.train.batch_size, seed=cfg.train.seed))
+    raw_seq = batch_to_torch(raw_seq_np, dev)
+    raw_full = batch_to_torch(raw_full_np, dev)
     bag_inputs = {
         "cnn": (seq_params["cnn"]["shared"]["Wc"], raw_seq["d_idx"],
-                raw_seq["d_wgt"]),
+                raw_seq["d_wgt"], raw_seq_np),
         "lstm": (seq_params["lstm"]["shared"]["Win"], raw_seq["d_idx"],
-                 raw_seq["d_wgt"]),
-        "full": (table, raw_full["d_idx"], raw_full["d_wgt"]),
+                 raw_seq["d_wgt"], raw_seq_np),
+        "full": (table, raw_full["d_idx"], raw_full["d_wgt"], raw_full_np),
     }
     bag_cases = {}
-    for case, (tbl32, b_idx, b_wgt) in bag_inputs.items():
+    for case, (tbl32, b_idx, b_wgt, b_np) in bag_inputs.items():
         hh, kk = tbl32.shape[1], b_idx.shape[-1]
         rows_b = b_idx.numel() // kk
         g_b = torch.from_numpy(rng.normal(size=(*b_idx.shape[:-1], hh)).astype(
@@ -1484,19 +1508,18 @@ def main() -> int:
                                + uniq_all * hh * isz, 2.0 * b_idx.numel() * hh,
                                "f32")
             w2 = b_wgt.reshape(rows_b, kk).to(tbl.dtype)
-            # The wrapper's range check reads a flag back from the card,
-            # which a graph cannot capture: the graph replays the kernel's
-            # launch (counted as the wrapper counts it), and the check is
-            # timed alone on the host clock, its read-back included.
+            # The range check runs on the host, on the numpy batch before
+            # it is moved (bridge.check_raw_rows, both sides): timed alone
+            # on the host clock. The wrapper reads nothing back on the card.
             check_ms = []
             for _ in range(21):
                 t0 = time.perf_counter()
-                check_rows(b_idx, b_wgt, tbl.shape[0])
+                check_raw_rows(b_np, tbl.shape[0])
                 check_ms.append((time.perf_counter() - t0) * 1e3)
             bag_cases[(case, dname)] = dict(
-                fwd_ms=graph_ms(lambda: embed_mod._forward_kernel(
-                    tbl, b_idx, b_wgt)),
-                check_rows_host_ms=statistics.median(check_ms),
+                fwd_ms=graph_ms(lambda: embedding_bag(tbl, b_idx, b_wgt,
+                                                      impl="kernel")),
+                host_check_ms=statistics.median(check_ms),
                 fwd_plain_ms=graph_ms(lambda: embedding_bag_plain(
                     tbl, b_idx, b_wgt)),
                 fwd_library_ms=graph_ms(lambda: F.embedding_bag(
@@ -1985,7 +2008,8 @@ def main() -> int:
         """Device busy time a step of `batches_` from `state_`, traced
         (their wire fields moved to the card first), the top kernels, and
         the device time a step of the kernels whose names hold one of
-        `names_`, together and each with its share of the busy time."""
+        `names_`, together and each with its share of the busy time;
+        returns the state after the steps and those numbers."""
         tb_ = [batch_to_torch(b_, dev) for b_ in batches_]
         step_ = make_train_step(cfg_, "auto")
         state_, _ = step_(state_, tb_[0])  # warm
@@ -2000,18 +2024,20 @@ def main() -> int:
         us_, top_ = device_time_us(prof_, 10)
         by_name = kernel_ms(prof_, names_)
         named_ms = sum(by_name.values())
-        print(f"{what}, traced ({len(tb_)} steps, on {card}): " + json.dumps(
-            dict(device_busy_ms_per_step=(
-                None if us_ is None else us_ / 1e3 / len(tb_)),
-                 wall_ms_per_step=wall_ * 1e3 / len(tb_),
-                 named_kernels=list(names_),
-                 named_kernels_ms_per_step=(
-                     None if us_ is None else named_ms / len(tb_)),
-                 by_kernel=None if us_ is None else {
-                     n_: dict(ms_per_step=ms_ / len(tb_),
-                              share_of_busy=ms_ * 1e3 / us_)
-                     for n_, ms_ in by_name.items()},
-                 top_kernels_us=top_)))
+        out_ = dict(device_busy_ms_per_step=(
+            None if us_ is None else us_ / 1e3 / len(tb_)),
+            wall_ms_per_step=wall_ * 1e3 / len(tb_),
+            named_kernels=list(names_),
+            named_kernels_ms_per_step=(
+                None if us_ is None else named_ms / len(tb_)),
+            by_kernel=None if us_ is None else {
+                n_: dict(ms_per_step=ms_ / len(tb_),
+                         share_of_busy=ms_ * 1e3 / us_)
+                for n_, ms_ in by_name.items()},
+            top_kernels_us=top_)
+        print(f"{what}, traced ({len(tb_)} steps, on {card}): "
+              + json.dumps(out_))
+        return state_, out_
 
     # The per-side branch (separate towers, per-side dedupe): the path of
     # the count lookup's backward kernel.
@@ -2854,6 +2880,302 @@ def main() -> int:
           f"as cli.train; on {card}): " + json.dumps(stream_runs))
     del state_s, seq_state, state_, serial_ref, pooled_cached, fixed_
 
+    # ---- phase 6d: the dense-table step and K steps a call ---------------
+    # The full preset off the sparse path (train.sparse_embed_update=False,
+    # or adam with the sgd table optimizer), on raw-index batches of the
+    # smoke's stream, as cli.train feeds it: both towers from the table on,
+    # the whole tree differentiated (the table's gradient is the bag's
+    # dense [V, H] f32 d_table, a segment sum), the dense optimizer over
+    # all of it. sgd: DENSE_STEPS through the kernels and through the plain
+    # versions from one state (compare_training), then the same steps
+    # against the sparse joint step, under f32 compute, on the dedupe
+    # batches of the same pairs (the dense step on each one's raw lookups:
+    # the same mathematics, held to dssm_tpu's rtol 1e-4); adam (lr
+    # ADAM_LR): DENSE_STEPS with the first batch's loss falling, the peak
+    # memory. Then K_CALL steps a call against one (make_multi_train_step):
+    # K_CHECK_STEPS from one state bit-equal on the joint step's f32, bf16
+    # and int8 tables, the dense step within its atomics' f32 noise; and
+    # steps/s at K = 1 and K_CALL on batches made ahead.
+    from dssm_tpu_torch.kernels.embed import embedding_bag_grad_plain
+    from dssm_tpu_torch.train.loop import (
+        make_loss_fn, make_multi_train_step, stack_batches)
+
+    dense_kernels = {"embedding_bag": 2, "dense_tower_residuals": 2,
+                     "in_batch_loss": 1, "in_batch_loss_dq": 1,
+                     "in_batch_loss_dd": 1}
+    cfg_dense = validate(cfg.replace(
+        data=cfg.data.replace(dedup_lookup=False),
+        train=cfg.train.replace(sparse_embed_update=False)))
+    cfg_adam = validate(cfg_dense.replace(train=cfg.train.replace(
+        optimizer="adam", learning_rate=ADAM_LR)))
+    vocab = t.vocab_size
+    raw_it = batch_iterator(hashed_train, cfg.train.batch_size,
+                            seed=cfg.train.seed)
+    dense_np = [next(raw_it) for _ in range(2 * DENSE_STEPS + K_TIMED_STEPS)]
+    params_d = model_base.init_params(t, seed=cfg.train.seed, device=dev)
+    dn = compare_training(cfg_dense, params_d, dense_np[:DENSE_STEPS],
+                          "dense-table step (sgd)", dense_kernels)
+    print(f"dense-table step, sgd, {DENSE_STEPS} steps: loss {dn['loss']}; "
+          f"launches {json.dumps({k: dn['counts'][k] for k in dense_kernels})}"
+          f"; kernel vs plain: {json.dumps(gaps(dn))}")
+
+    def raw_from_dedupe(b_):
+        """The raw-index batch a joint dedupe batch stands for: each
+        lookup's table row and its weight, as the dedupe kept it (a lookup
+        whose group overflowed the slots has weight 0)."""
+        uq_, sl_ = b_["uniq"].astype(np.int64), b_["sel"].astype(np.int64)
+        out_ = {}
+        for s_ in "qd":
+            c_ = sl_[b_[f"{s_}_inv"].astype(np.int64)]
+            w_ = b_[f"{s_}_wgt"].astype(np.float32)
+            rows_ = uq_[c_ // group] * group + c_ % group
+            out_[f"{s_}_idx"] = np.where(w_ != 0, rows_, 0).astype(np.int32)
+            out_[f"{s_}_wgt"] = w_
+        return out_
+
+    cfg32 = validate(cfg.replace(tower=t.replace(compute_dtype="float32")))
+    cfg32_dense = validate(cfg_dense.replace(tower=cfg32.tower))
+    ded_it = batch_iterator(
+        hashed_train, cfg.train.batch_size, seed=cfg.train.seed,
+        dedup_unique=cfg.data.max_unique, dedup_group=group,
+        dedup_unique_rows=cfg.data.max_unique_rows, dedup_joint=True,
+        wire_compress=True, sort_rows=False)
+    ded_np = [next(ded_it) for _ in range(DENSE_STEPS)]
+    kept = sum(float((b_[f"{s_}_wgt"] != 0).sum()) for b_ in ded_np
+               for s_ in "qd") / sum(float((b_[f"{s_}_wgt"] != 0).sum())
+                                     for b_ in dense_np[:DENSE_STEPS]
+                                     for s_ in "qd")
+    s_dense = create_run_state(cfg32_dense, clone_params(params_d))
+    s_sparse = create_run_state(cfg32, clone_params(params_d))
+    step_d, step_s = make_train_step(cfg32_dense), make_train_step(cfg32)
+    ds_loss_gap = 0.0
+    for b_ in ded_np:
+        s_dense, a_d = step_d(s_dense, batch_to_torch(
+            raw_from_dedupe(b_), dev, vocab_size=vocab))
+        s_sparse, a_s = step_s(s_sparse, batch_to_torch(b_, dev))
+        ds_loss_gap = max(ds_loss_gap, abs(float(a_d["loss"])
+                                           - float(a_s["loss"])))
+    ds_gap = 0.0
+    for k_, want in s_sparse.params["shared"].items():
+        got = s_dense.params["shared"][k_]
+        ds_gap = max(ds_gap, float((got - want).abs().max()))
+        check(torch.allclose(got, want, rtol=1e-4, atol=1e-6),
+              f"dense vs sparse step (f32 compute): {k_} differs by "
+              f"{float((got - want).abs().max())} (rtol 1e-4, atol 1e-6)")
+    check(ds_loss_gap <= 1e-5 * float(a_s["loss"]),
+          f"dense vs sparse step: losses differ by {ds_loss_gap}")
+    del s_dense, s_sparse
+    print(f"dense-table step against the sparse joint step, f32 compute, "
+          f"{DENSE_STEPS} steps on the same lookups (the dedupe kept "
+          f"{kept:.4f} of the raw batches' live lookups): loss gap "
+          f"{ds_loss_gap:.3g}, largest parameter gap {ds_gap:.3g} "
+          "(rtol 1e-4, atol 1e-6)")
+
+    # adam: the table's moments live beside it; the peak of the step.
+    loss_fn = make_loss_fn(cfg_adam)
+    first_tb = batch_to_torch(dense_np[0], dev, vocab_size=vocab)
+    with torch.no_grad():
+        adam_before = float(loss_fn(params_d, first_tb)[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident_a = torch.cuda.memory_allocated()
+    s_adam = create_run_state(cfg_adam, clone_params(params_d))
+    _build.reset_launch_counts()
+    s_adam, adam_losses, adam_wall = run_steps(
+        cfg_adam, s_adam, dense_np[:DENSE_STEPS], "auto")
+    adam_counts = _build.launch_counts()
+    peak_a = torch.cuda.max_memory_allocated()
+    for name, n in adam_counts.items():
+        check(n == dense_kernels.get(name, 0) * DENSE_STEPS,
+              f"dense-table step (adam): kernel {name} launched {n} times "
+              f"in {DENSE_STEPS} steps")
+    with torch.no_grad():
+        adam_after = float(loss_fn(s_adam.params, first_tb)[0])
+    check(all(np.isfinite(adam_losses)) and adam_after < adam_before,
+          f"dense-table step (adam): losses {adam_losses}, the first "
+          f"batch's loss {adam_before} -> {adam_after}")
+    check(s_adam.opt_state["count"] == DENSE_STEPS
+          and s_adam.opt_state["mu"]["shared"]["W0"].shape
+          == params_d["shared"]["W0"].shape,
+          "dense-table step (adam): no moments over the table")
+
+    # The table gradient alone (PyTorch, as in dssm_tpu: outside any
+    # kernel): the doc side's d_table of the first raw batch, eager.
+    tb_raw = batch_to_torch(dense_np[0], dev, vocab_size=vocab)
+    w_cols = params_d["shared"]["W0"].shape[1]
+    g_dt = torch.from_numpy(rng.normal(
+        size=(cfg.train.batch_size, w_cols)).astype(np.float32)).to(dev)
+    dtable_ms = eager_ms(lambda: embedding_bag_grad_plain(
+        g_dt, tb_raw["d_idx"], tb_raw["d_wgt"], vocab), reps=5, trials=5)
+    # Its least bytes: the [V, H] f32 output written once, idx, wgt, g read.
+    dtable_bound, _ = bound_ms(vocab * w_cols * 4
+                               + tb_raw["d_idx"].numel() * 8
+                               + g_dt.numel() * 4, 0.0, "f32")
+    del g_dt
+
+    # Traced: busy ms a step of the dense sgd and adam steps, with the
+    # d_table's segment sum and zero fill (index_add_, fill) and the
+    # elementwise kernels (the optimizer over the table), beside the sparse
+    # f32 joint step's (phase 4).
+    dense_names = ("indexFunc", "FillFunctor", "elementwise_kernel")
+    dn["state"], tr_sgd = traced_step(
+        "dense-table step, sgd", cfg_dense, dn["state"],
+        dense_np[DENSE_STEPS:2 * DENSE_STEPS], dense_names)
+    s_adam, tr_adam = traced_step(
+        "dense-table step, adam", cfg_adam, s_adam,
+        dense_np[DENSE_STEPS:2 * DENSE_STEPS], dense_names)
+
+    def timed_steps(run_cfg, state_, batches_np, k_):
+        """steps/s over batches made ahead, each batch (k_ = 1) or block
+        of k_ stacked batches moved and stepped as cli.train does it (the
+        stacking, cli.train's background thread's work, done ahead)."""
+        fn_ = (make_train_step(run_cfg) if k_ == 1
+               else make_multi_train_step(run_cfg))
+        units_ = (batches_np if k_ == 1 else [
+            stack_batches(batches_np[i_:i_ + k_])
+            for i_ in range(0, len(batches_np), k_)])
+        state_, _ = fn_(state_, batch_to_torch(units_[0], dev))  # warm
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        for u_ in units_:
+            state_, _ = fn_(state_, batch_to_torch(u_, dev,
+                                                   vocab_size=vocab))
+        torch.cuda.synchronize()
+        return state_, len(batches_np) / (time.perf_counter() - t0_)
+
+    rates = {}
+    timed_np = dense_np[2 * DENSE_STEPS:]
+    for what, run_cfg, state_fn, b_np in (
+            ("sparse f32 joint", cfg,
+             lambda: create_run_state(cfg, clone_params(params_d)),
+             list(itertools.islice(itertools.cycle(host_batches_t),
+                                   K_TIMED_STEPS))),
+            ("dense sgd", cfg_dense, lambda: dn["state"], timed_np),
+            ("dense adam", cfg_adam, lambda: s_adam, timed_np)):
+        for k_ in (1, K_CALL):
+            st_, rates[f"{what}, K={k_}"] = timed_steps(run_cfg, state_fn(),
+                                                        b_np, k_)
+            del st_
+    dense_summary = dict(
+        card=card, steps=DENSE_STEPS, adam_lr=ADAM_LR,
+        sgd_loss=dn["loss"], adam_loss=adam_losses,
+        adam_first_batch_loss_before_after=[adam_before, adam_after],
+        adam_peak_mem_gb=peak_a / 1e9,
+        adam_resident_before_gb=resident_a / 1e9,
+        adam_peak_above_resident_gb=(peak_a - resident_a) / 1e9,
+        sgd_peak_mem_gb=dn["peak"] / 1e9,
+        sgd_peak_above_resident_gb=(dn["peak"] - dn["resident"]) / 1e9,
+        sgd_steps_per_s_first_run=DENSE_STEPS / dn["wall_s"],
+        adam_steps_per_s_first_run=DENSE_STEPS / adam_wall,
+        traced_busy_ms_per_step=dict(
+            dense_sgd=tr_sgd["device_busy_ms_per_step"],
+            dense_adam=tr_adam["device_busy_ms_per_step"],
+            sparse_f32_joint=traced_summary["full f32 joint step"][
+                "device_busy_ms"]),
+        traced_wall_ms_per_step=dict(
+            dense_sgd=tr_sgd["wall_ms_per_step"],
+            dense_adam=tr_adam["wall_ms_per_step"]),
+        d_table_ms=dtable_ms, d_table_bound_ms=dtable_bound,
+        steps_per_s_made_ahead=rates)
+    print("dense-table path: " + json.dumps(dense_summary))
+    del dn, s_adam, first_tb, tb_raw
+
+    # K_CALL steps a call against one step a call, K_CHECK_STEPS steps from
+    # one state; every count set to 0 before the K-step run and read after.
+    joint_counts = {k: 1 for k in joint_kernels}
+    k_cases = [("f32 joint", cfg, lambda: clone_params(params_d),
+                host_batches_t[:K_CHECK_STEPS], joint_counts, True)]
+    for tname, sr_name in (("bfloat16", "scatter_sr_row_groups"),
+                           ("int8", "scatter_sr_int8_row_groups")):
+        cfg_lp = validate(cfg.replace(tower=t.replace(table_dtype=tname)))
+        lp_kernels = joint_kernels[:-1] + (sr_name,)
+        if tname == "int8":
+            lp_kernels = ("gather_row_groups", "joint_lookup") + lp_kernels[1:]
+        k_cases.append((
+            f"{tname} joint", cfg_lp,
+            lambda c_=cfg_lp: model_base.init_params(
+                c_.tower, seed=cfg.train.seed, device=dev),
+            lowprec[tname]["batches"][:K_CHECK_STEPS],
+            {k: 1 for k in lp_kernels}, True))
+    k_cases.append(("dense f32 compute", cfg32_dense,
+                    lambda: clone_params(params_d),
+                    dense_np[:K_CHECK_STEPS], dense_kernels, False))
+    k_check = {}
+    for what, run_cfg, make_params, b_np, want_counts, exact in k_cases:
+        init_ = make_params()
+        ends = {}
+        for k_ in (1, K_CALL):
+            st_ = create_run_state(run_cfg, clone_params(init_))
+            _build.reset_launch_counts()
+            if k_ == 1:
+                fn_ = make_train_step(run_cfg)
+                for b_ in b_np:
+                    st_, _ = fn_(st_, batch_to_torch(b_, dev,
+                                                     vocab_size=vocab))
+            else:
+                fn_ = make_multi_train_step(run_cfg)
+                for i_ in range(0, len(b_np), k_):
+                    st_, aux_ = fn_(st_, batch_to_torch(
+                        stack_batches(b_np[i_:i_ + k_]), dev,
+                        vocab_size=vocab))
+                    check(aux_["loss"].shape == (k_,),
+                          f"K = {k_} ({what}): aux not stacked [K]")
+            counts_ = _build.launch_counts()
+            for name, n in counts_.items():
+                check(n == want_counts.get(name, 0) * len(b_np),
+                      f"K = {k_} ({what}): kernel {name} launched {n} "
+                      f"times in {len(b_np)} steps")
+            check(st_.step == len(b_np), f"K = {k_} ({what}): step count")
+            ends[k_] = st_.params
+        worst = 0.0
+        for tw, tp_ in ends[1].items():
+            for k2, v in tp_.items():
+                if exact:
+                    check(torch.equal(v, ends[K_CALL][tw][k2]),
+                          f"K = {K_CALL} against K = 1 ({what}): {tw}/{k2} "
+                          "differs (bit-equal expected)")
+                else:
+                    worst = max(worst, update_gap(ends[K_CALL][tw][k2], v,
+                                                  init_[tw][k2]))
+        check(worst <= 1e-4, f"K = {K_CALL} against K = 1 ({what}): "
+              f"updates {worst} of themselves apart > 1e-4")
+        k_check[what] = "bit-equal" if exact else dict(update_gap=worst)
+        del init_, ends, st_
+    print(f"{K_CALL} steps a call against 1, {K_CHECK_STEPS} steps from one "
+          f"state (launches as K single steps): " + json.dumps(k_check))
+
+    # The raw bag on a batch with live lookups outside the table: the host
+    # refuses the batch; the kernel, given it anyway, reads nothing for
+    # them and adds nothing, as its plain version (and as the same lookups
+    # at weight 0).
+    w0_d = params_d["shared"]["W0"]
+    oob_np = {k: v.copy() for k, v in dense_np[0].items()}
+    live_ = np.argwhere(oob_np["d_wgt"] != 0)[::97]
+    oob_np["d_idx"][tuple(live_[0::2].T)] = vocab + 5
+    oob_np["d_idx"][tuple(live_[1::2].T)] = -3
+    try:
+        check_raw_rows(oob_np, vocab)
+        check(False, "check_raw_rows passed live lookups outside the table")
+    except IndexError:
+        pass
+    oob = batch_to_torch(oob_np, dev)
+    dead_np = dict(oob_np, d_wgt=oob_np["d_wgt"].copy())
+    dead_np["d_wgt"][tuple(live_.T)] = 0.0
+    oob_k = embedding_bag(w0_d, oob["d_idx"], oob["d_wgt"], impl="kernel")
+    oob_dead = embedding_bag(w0_d, oob["d_idx"],
+                             batch_to_torch(dead_np, dev)["d_wgt"],
+                             impl="kernel")
+    oob_p = embedding_bag_plain(w0_d, oob["d_idx"], oob["d_wgt"])
+    oob_err = float((oob_k - oob_p).abs().max())
+    check(torch.equal(oob_k, oob_dead) and oob_err <= 1e-5 * float(
+        oob_p.abs().max()), f"embedding_bag on lookups outside the table: "
+          f"max err {oob_err} against the plain version")
+    print(f"embedding_bag with {len(live_)} live lookups outside the table "
+          f"(of {int((oob_np['d_wgt'] != 0).sum())}): refused on the host; "
+          f"the kernel equals itself with them at weight 0, and the plain "
+          f"version to {oob_err:.3g}")
+    del params_d, oob, oob_k, oob_dead, oob_p
+
     # ---- phase 7: the same path through the command-line entry points ----
     # cli.train in this process: the full preset on a toy corpus cut to
     # CLI_PAIRS pairs, first on the f32 table (CLI_STEPS steps and the final
@@ -3131,6 +3453,133 @@ def main() -> int:
         cli_dir.cleanup()
     corpus_dir.cleanup()
     print(f"cli.train on a corpus file (on {card}): " + json.dumps(file_runs))
+
+    # K steps a call and the dense-table step through cli.train: the full
+    # preset at --train.steps_per_call=K_CALL over CLI_K_STEPS steps (5
+    # blocks and a tail of 2), its records, evals and checkpoints on the
+    # steps dssm_tpu's rule gives (a block's last step, where step % every
+    # < K); the same flags at K = 1 beside it; then --train.optimizer=adam
+    # (the dense-table step on raw batches) for CLI_ADAM_STEPS steps and
+    # cli.eval on its workdir.
+    def block_rule(max_steps, k_, log_every, eval_every, ckpt_every):
+        """dssm_tpu/cli/train.py's record steps at k_ steps a call: (train
+        records, evals, checkpoints, the final one included)."""
+        step_, stride_ = 0, k_
+        logs_, evals_, ckpts_ = [], [], []
+        while step_ < max_steps:
+            if k_ > 1 and max_steps - step_ >= k_:
+                step_ += k_ - 1
+            if step_ % log_every < stride_:
+                logs_.append(step_)
+            if eval_every and step_ and step_ % eval_every < stride_:
+                evals_.append(step_)
+            if ckpt_every and step_ and step_ % ckpt_every < stride_:
+                ckpts_.append(step_)
+            step_ += 1
+        return logs_, evals_, ckpts_ + [max_steps]
+
+    saved_steps = []
+    checkpoint_save = Checkpointer.save
+
+    def recording_save(self, step_, state_):
+        saved_steps.append(step_)
+        return checkpoint_save(self, step_, state_)
+
+    k_runs = {}
+    Checkpointer.save = recording_save
+    try:
+        for k_ in (K_CALL, 1):
+            cli_dir = tempfile.TemporaryDirectory(prefix=f"dssm_smoke_k{k_}_")
+            k_flags = ["--preset=full", f"--io.workdir={cli_dir.name}",
+                       f"--data.toy_num_pairs={CLI_PAIRS}",
+                       f"--train.steps_per_call={k_}", "--train.log_every=5",
+                       "--train.eval_every=10", "--train.checkpoint_every=10",
+                       f"--train.max_steps={CLI_K_STEPS}"]
+            saved_steps.clear()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            cli_train.main(k_flags)
+            torch.cuda.synchronize()
+            wall_k = time.perf_counter() - t0
+            counts_k = _build.launch_counts()
+            logs_, evals_, ckpts_ = block_rule(CLI_K_STEPS, k_, 5, 10, 10)
+            records = cli_records(cli_dir.name)
+            got_ = ([r["step"] for r in records if r["tag"] == "train"],
+                    [r["step"] for r in records if r["tag"] == "eval"],
+                    list(saved_steps))
+            check(got_ == (logs_, evals_, ckpts_) and records[-1]["tag"]
+                  == "eval_final" and records[-1]["step"] == CLI_K_STEPS,
+                  f"cli.train at K = {k_}: train / eval / checkpoint steps "
+                  f"{got_}, dssm_tpu's rule gives {(logs_, evals_, ckpts_)}")
+            for name, n in cli_expected(CLI_K_STEPS, len(evals_) + 1,
+                                        "scatter_add_row_groups").items():
+                check(counts_k[name] == n, f"cli.train at K = {k_}: kernel "
+                      f"{name} launched {counts_k[name]} times, expected {n}")
+            check(Checkpointer(cli_dir.name).latest_step() == CLI_K_STEPS,
+                  f"cli.train at K = {k_}: no checkpoint of its last step")
+            k_runs[k_] = dict(
+                train_steps=logs_, eval_steps=evals_, checkpoint_steps=ckpts_,
+                losses=[r["loss"] for r in records if r["tag"] == "train"],
+                steps_per_sec_records=[r["steps_per_sec"] for r in records
+                                       if r["tag"] == "train"],
+                wall_s_hashing_and_evals_included=wall_k)
+            cli_dir.cleanup()
+    finally:
+        Checkpointer.save = checkpoint_save
+    print(f"cli.train --preset=full, {CLI_K_STEPS} steps at K = {K_CALL} "
+          f"and 1 (records and checkpoints on dssm_tpu's steps; steps/s "
+          f"between records, evals and checkpoints included; on {card}): "
+          + json.dumps(k_runs))
+
+    cli_dir = tempfile.TemporaryDirectory(prefix="dssm_smoke_adam_")
+    adam_flags = ["--preset=full", f"--io.workdir={cli_dir.name}",
+                  f"--data.toy_num_pairs={CLI_PAIRS}",
+                  "--train.optimizer=adam", f"--train.learning_rate={ADAM_LR}"]
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_train.main(adam_flags + [f"--train.max_steps={CLI_ADAM_STEPS}",
+                                 "--train.log_every=1",
+                                 "--train.eval_every=0"])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    counts_a = _build.launch_counts()
+    for name, n in dense_kernels.items():
+        check(counts_a[name] == n * CLI_ADAM_STEPS, f"cli.train (adam): "
+              f"kernel {name} launched {counts_a[name]} times, expected "
+              f"{n * CLI_ADAM_STEPS}")
+    for name in ("scatter_add_row_groups", "fused_gather_joint_lookup",
+                 "joint_lookup_bwd", "embedding_bag_bwd"):
+        check(counts_a[name] == 0,
+              f"cli.train (adam) launched {name} (the dense step has none)")
+    records = cli_records(cli_dir.name)
+    adam_cli_losses = [r["loss"] for r in records if r["tag"] == "train"]
+    check(len(adam_cli_losses) == CLI_ADAM_STEPS
+          and all(np.isfinite(adam_cli_losses)),
+          f"cli.train (adam): records {records}")
+    state_a = Checkpointer(cli_dir.name).restore(device=dev)
+    check(state_a.step == CLI_ADAM_STEPS
+          and state_a.opt_state["count"] == CLI_ADAM_STEPS
+          and state_a.opt_state["nu"]["shared"]["W0"].shape
+          == state_a.params["shared"]["W0"].shape,
+          "cli.train (adam): the checkpoint holds no moments over the table")
+    del state_a
+    final = records[-1]
+    out_eval = io.StringIO()
+    with contextlib.redirect_stdout(out_eval):
+        cli_eval.main(adam_flags)
+    reported = json.loads(out_eval.getvalue().strip().splitlines()[-1])
+    check(reported["step"] == CLI_ADAM_STEPS and all(
+        reported[k] == final[k] for k in ("recall@1", "ndcg@10", "mrr",
+                                          "num_queries")),
+        f"cli.eval after cli.train (adam) reports {reported}, the run's "
+        f"final eval was {final}")
+    print(f"cli.train --preset=full --train.optimizer=adam (lr {ADAM_LR}): "
+          f"{CLI_ADAM_STEPS} steps in {t1 - t0:.1f} s (hashing and the final "
+          f"eval and checkpoint of the table and its moments included), "
+          f"losses {adam_cli_losses}; cli.eval restored step "
+          f"{reported['step']} and reported the run's final eval "
+          f"(recall@1 {reported['recall@1']:.4f}) on {card}")
+    cli_dir.cleanup()
 
     # ---- phase 8: the kernels line, then the result line ----------------
     # Every kernel of the build holds its comparison and a launch count from

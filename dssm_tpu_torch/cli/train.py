@@ -22,12 +22,21 @@ at the step it left off. The batches are built by the C++ host data plane
 above 1; --data.reshuffle_each_epoch=False --data.cache_epoch_batches=True
 replays the first epoch's batches after it.
 
-Not ported yet: the multi-step dispatch (train.steps_per_call > 1) and the
-multi-device path.
+Off the sparse path (--train.optimizer=momentum|adam with the sgd table
+optimizer, or --train.sparse_embed_update=False) it trains with the
+dense-table step on raw-index batches of an f32 table. With
+--train.steps_per_call=K > 1 it runs blocks of K steps (stacked in a
+background thread) while K steps remain, then single steps; its log, eval
+and checkpoint records land on a block's last step, where step % every < K,
+as dssm_tpu's do. At most train.max_inflight_steps steps or blocks are
+queued on the card before the loop waits for the oldest.
+
+Not ported yet: the multi-device path.
 """
 
 from __future__ import annotations
 
+import collections
 import sys
 import time
 from typing import List, Optional
@@ -48,25 +57,21 @@ def main(argv: Optional[List[str]] = None) -> None:
         batch_iterator, hash_pairs, load_file_corpus, make_toy_pairs,
         prefetch, train_eval_split,
     )
+    from dssm_tpu_torch.data.loader import LockedIterator
     from dssm_tpu_torch.device import resolve_device
     from dssm_tpu_torch.io.checkpoint import Checkpointer
     from dssm_tpu_torch.io.metrics import MetricsWriter
     from dssm_tpu_torch.kernels.gather import sublane_group
     from dssm_tpu_torch.models import base as model_base
     from dssm_tpu_torch.train.eval import evaluate
-    from dssm_tpu_torch.train.loop import add_rotation_offsets, make_train_step
+    from dssm_tpu_torch.train.loop import (
+        add_rotation_offsets, make_multi_train_step, make_train_step,
+        stack_batches)
     from dssm_tpu_torch.train.sparse_update import uses_sparse_update
     from dssm_tpu_torch.train.state import create_run_state
 
     device = resolve_device(cpu)
     cfg = validate_cfg(coerce_overrides(get_preset(preset), raw_overrides))
-    if cfg.train.steps_per_call > 1:
-        # dssm_tpu runs K steps a dispatch and writes its records and
-        # checkpoints on the last step of each block, not on this loop's.
-        raise NotImplementedError(
-            f"train.steps_per_call={cfg.train.steps_per_call}: K steps a "
-            "dispatch are not ported yet (ROADMAP.md, Queue 1: the "
-            "multi-step dispatch)")
     if cfg.mesh.model_parallel > 1:
         raise NotImplementedError(
             "the multi-device path is not ported yet (ROADMAP.md, Queue 1: "
@@ -135,7 +140,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     # Every step consumes one batch, so the restored step count is the data
     # cursor (loader.batch_iterator).
     sequence = cfg.tower.is_sequence_model
-    batches = prefetch(batch_iterator(
+    # LockedIterator: the block-stacking thread (below) and the loop's
+    # single steps both pull from this stream.
+    batches = LockedIterator(prefetch(batch_iterator(
         hashed_train,
         cfg.train.batch_size,
         sequence,
@@ -154,15 +161,55 @@ def main(argv: Optional[List[str]] = None) -> None:
         start_batch=start_step,
         reshuffle_each_epoch=cfg.data.reshuffle_each_epoch,
         cache_epoch_batches=cfg.data.cache_epoch_batches,
-    ), depth=2)
+    ), depth=2))
+    spc = cfg.train.steps_per_call
     step_fn = make_train_step(cfg)
+    multi_fn = make_multi_train_step(cfg) if spc > 1 else None
+    rows = table.shape[0]
+    # The bounded in-flight window (train.max_inflight_steps): an event
+    # after each step or block; the loop waits for the oldest while more
+    # are queued. On the CPU a step is done when it returns.
+    inflight: "collections.deque" = collections.deque()
+
+    # K-step blocks are stacked in a background thread, ahead of the loop.
+    # It stacks exactly the run's full blocks and stops, so the ragged
+    # tail's single steps take the batches after them in order (dssm_tpu's
+    # thread stacks on past the last block, and its tail takes batches
+    # from further on). Rotate mode stacks inline: its offsets follow the
+    # step counter.
+    stacked_blocks = None
+    if multi_fn is not None and cfg.loss.mode != "rotate":
+        def _stacked_stream():
+            for _ in range((cfg.train.max_steps - start_step) // spc):
+                yield stack_batches(next(batches) for _ in range(spc))
+
+        stacked_blocks = prefetch(_stacked_stream(), depth=2)
 
     t_last = time.perf_counter()
     step = last_log_step = start_step
     while step < cfg.train.max_steps:
-        batch = add_rotation_offsets(next(batches), cfg, step)
-        state, aux = step_fn(state, batch_to_torch(batch, device))
-        if step % cfg.train.log_every == 0:
+        if multi_fn is not None and cfg.train.max_steps - step >= spc:
+            if stacked_blocks is not None:
+                stacked = next(stacked_blocks)
+            else:
+                stacked = stack_batches(
+                    add_rotation_offsets(next(batches), cfg, step + j)
+                    for j in range(spc))
+            state, auxes = multi_fn(
+                state, batch_to_torch(stacked, device, vocab_size=rows))
+            aux = {k: v[-1] for k, v in auxes.items()}
+            step += spc - 1  # the records below land on the block's last step
+        else:
+            batch = add_rotation_offsets(next(batches), cfg, step)
+            state, aux = step_fn(
+                state, batch_to_torch(batch, device, vocab_size=rows))
+        if device.type == "cuda":
+            inflight.append(torch.cuda.Event())
+            inflight[-1].record()
+            while len(inflight) > cfg.train.max_inflight_steps:
+                inflight.popleft().synchronize()
+        stride = spc if multi_fn is not None else 1
+        if step % cfg.train.log_every < stride:
             metrics = {k: float(v) for k, v in aux.items()}  # waits
             now = time.perf_counter()
             metrics["steps_per_sec"] = (
@@ -175,7 +222,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             print(f"step {step}: loss={metrics['loss']:.4f} "
                   f"r@1={metrics['in_batch_recall@1']:.3f}", file=sys.stderr)
         if (cfg.train.eval_every and step
-                and step % cfg.train.eval_every == 0):
+                and step % cfg.train.eval_every < stride):
             # The eval corpus's prepared batches are cached on the device
             # after the first eval (train/eval.py).
             ev = evaluate(state.params, cfg, hashed_eval,
@@ -184,7 +231,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             print(f"eval@{step}: recall@1={ev['recall@1']:.3f} "
                   f"ndcg@10={ev['ndcg@10']:.3f}", file=sys.stderr)
         if (cfg.train.checkpoint_every and step
-                and step % cfg.train.checkpoint_every == 0):
+                and step % cfg.train.checkpoint_every < stride):
             ckpt.save(step, state)
         step += 1
 

@@ -12,7 +12,9 @@
 // Semantics: the table is f32 or bf16, idx int32 and wgt f32 [rows, k],
 // out f32. A lookup with weight 0 (hash padding, trigram.PAD_INDEX) is
 // skipped without a read, and so is one whose index is outside [0, v): the
-// wrapper raises on a live lookup outside the table before it launches.
+// entry points refuse a live lookup outside the table on the host, before
+// its batch is moved (bridge.check_raw_rows), so the kernel reads nothing
+// back.
 // The forward sums the live lookups in k order. d_wgt is written for every
 // lookup, padding included (its row is read; the reference's gradient has
 // it too); a lookup whose index is outside [0, v) gets 0.

@@ -17,8 +17,12 @@ training step never differentiates through the table (it updates the table
 from the gradient at the lookup output), and no step asks for d_wgt: the
 weights are data.
 
-A live lookup (weight not 0) must name a row of the table: both versions
-raise otherwise (check_rows). Lookups of weight 0 contribute nothing.
+A live lookup (weight not 0) must name a row of the table. On CPU tensors
+the wrapper raises otherwise (check_rows). On the card it reads nothing
+back: the entry points check a numpy raw batch on the host before moving it
+(bridge.check_raw_rows), and a lookup outside the table that reaches the
+kernel anyway reads nothing and adds nothing, as in the plain version.
+Lookups of weight 0 contribute nothing.
 """
 
 from __future__ import annotations
@@ -37,8 +41,9 @@ def _in_range(idx: torch.Tensor, v: int) -> torch.Tensor:
 
 
 def check_rows(idx: torch.Tensor, wgt: torch.Tensor, v: int) -> None:
-    """Raise when a live lookup names no row of a [v, H] table. Reads one
-    flag back from the device (a synchronisation)."""
+    """Raise when a live lookup names no row of a [v, H] table. On CUDA
+    tensors this reads a flag back (a synchronisation), so the wrapper
+    checks only CPU tensors."""
     bad = (wgt != 0) & ~_in_range(idx, v)
     if bool(bad.any()):
         first = int(idx[bad].reshape(-1)[0])
@@ -50,7 +55,7 @@ def embedding_bag_plain(table: torch.Tensor, idx: torch.Tensor,
                         wgt: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version (dssm_tpu's embedding_bag_xla): the rows, then
     the weighted sum, in f32 as the kernel sums. Lookups outside the table
-    (dead ones, as check_rows leaves them) read row 0 at weight 0."""
+    read row 0 at weight 0: they add nothing, as in the kernel."""
     ok = _in_range(idx, table.shape[0])
     rows = table[torch.where(ok, idx, 0).long()].float()
     return torch.einsum("...k,...kh->...h", wgt.float() * ok, rows)
@@ -159,7 +164,8 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
                   *, impl: str = "auto") -> torch.Tensor:
     """table [V, H] f32/bf16, idx [..., K] int32, wgt [..., K] f32 ->
     [..., H] f32; differentiable in table and wgt."""
-    check_rows(idx, wgt, table.shape[0])
+    if not table.is_cuda:
+        check_rows(idx, wgt, table.shape[0])
     if _build.resolve_impl(impl, table, _NAME) == "plain":
         return embedding_bag_plain(table, idx, wgt)
     _check(_NAME, table, idx)

@@ -67,7 +67,8 @@ def _embed_side(
             sequence=cfg.tower.is_sequence_model,
         ):
             n = batch["q_wgt"].shape[0]
-            tb = batch_to_torch(pad_batch(batch, batch_size), dev)
+            tb = batch_to_torch(pad_batch(batch, batch_size), dev,
+                                vocab_size=table.shape[0])
             outs.append(tower(tb, side, impl=impl)[:n])
     if not outs:
         return np.zeros((0, cfg.tower.semantic_dim), dtype=np.float32)

@@ -38,13 +38,15 @@ DeviceBatch = Dict[str, torch.Tensor]
 
 def _host_batches(cfg: RunConfig, hashed: HashedPairs, batch_size: int,
                   group: int, device: torch.device,
+                  vocab_size: Optional[int] = None,
                   ) -> Iterator[Tuple[DeviceBatch, int]]:
     """(batch on `device` padded to batch_size rows, live rows) through the
     whole host pipeline: slicing, two-level dedupe, wire compression
     (sequence batches keep their full layout, as in dssm_tpu). As in
     dssm_tpu, the batches are built on a pool of at least 2 threads
     (data.pipeline_workers) and a prefetch thread 4 batches ahead, beside
-    the device's work on the batches before."""
+    the device's work on the batches before. Given the table's vocab_size
+    rows, a raw batch's lookups are checked against them on the host."""
     dedup = cfg.data.dedup_lookup
     sequence = cfg.tower.is_sequence_model
     for batch in prefetch(eval_batches(
@@ -58,7 +60,8 @@ def _host_batches(cfg: RunConfig, hashed: HashedPairs, batch_size: int,
         pipeline_workers=max(2, cfg.data.pipeline_workers),
     ), depth=4):
         n = batch["q_wgt"].shape[0]
-        yield batch_to_torch(pad_batch(batch, batch_size), device), n
+        yield batch_to_torch(pad_batch(batch, batch_size), device,
+                             vocab_size=vocab_size), n
 
 
 class EvalCache:
@@ -127,7 +130,8 @@ def embed_corpus(params: model_base.Params, cfg: RunConfig,
     table = next(iter(params.values()))[model_base.TABLE_KEY[cfg.tower.arch]]
     device = table.device
     group = sublane_group(table.dtype)
-    fresh = _host_batches(cfg, hashed, batch_size, group, device)
+    fresh = _host_batches(cfg, hashed, batch_size, group, device,
+                          table.shape[0])
     hit = False
     if cache is True:
         key = _cache_key(cfg, hashed, batch_size, group, device)

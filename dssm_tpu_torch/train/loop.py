@@ -1,26 +1,40 @@
-"""Single-device train step and loop.
+"""Single-device train steps and loop.
 
-make_train_step routes a config to its step; train drives it over a batch
-stream, moving each numpy batch to the parameters' device. PyTorch runs the
-step eagerly, so there is no compiled K-steps-per-dispatch variant:
-train.steps_per_call > 1 runs the single step K times in a Python loop, with
-the same semantics as dssm_tpu's scanned multi-step. Counterpart of
-dssm_tpu/train/loop.py.
+make_train_step routes a config to its step: the sparse-table-update step
+(train/sparse_update.py) under sgd or the row-wise AdaGrad table optimizer
+with train.sparse_embed_update, else the dense-table step, which
+differentiates the whole parameter tree, table included, and runs the dense
+optimizer over all of it (momentum's trace and adam's moments cover the
+table). train drives a step over a stream of numpy batches, moving each to
+the parameters' device.
+
+train.steps_per_call = K > 1 dispatches blocks of K steps:
+make_multi_train_step takes a batch whose every field has a leading [K]
+axis (stack_batches) and runs the step K times on views of it, returning
+the aux values stacked [K]. dssm_tpu compiles the K steps into one
+executable with lax.scan; PyTorch runs them eagerly, so a block is the same
+K steps in a Python loop, with the same results. train runs full blocks
+while K steps remain, then single steps, and reports a block's last step.
+Counterpart of dssm_tpu/train/loop.py.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from dssm_tpu_torch.bridge import batch_to_torch
 from dssm_tpu_torch.config import RunConfig
+from dssm_tpu_torch.loss.cosine_softmax import in_batch_loss, rotate_loss
+from dssm_tpu_torch.models import base as model_base
 from dssm_tpu_torch.train.sparse_update import (
     make_sparse_train_step, uses_sparse_update)
-from dssm_tpu_torch.train.state import TrainState
+from dssm_tpu_torch.train.state import (
+    TrainState, apply_updates, check_dense_table, optimizer_update)
 
 
 def rotation_offsets(batch_size: int, num_negatives: int,
@@ -34,15 +48,106 @@ def rotation_offsets(batch_size: int, num_negatives: int,
                       replace=False)
 
 
+def make_loss_fn(cfg: RunConfig, impl: str = "auto") -> Callable:
+    """(params, batch) -> (loss, aux): both towers from the table on, each
+    side its own tower call, then the loss. Differentiable in every
+    parameter, the table included. With train.remat each side's embed is
+    recomputed in the backward pass instead of keeping its activations."""
+
+    def embed(params, side, batch):
+        lookup = model_base.embed_table_lookup(params, cfg.tower, side, batch,
+                                               impl=impl)
+        return model_base.embed_from_lookup(params, cfg.tower, side, batch,
+                                            lookup, impl=impl)
+
+    def loss_fn(params, batch):
+        if cfg.train.remat:
+            q = checkpoint(embed, params, "q", batch, use_reentrant=False)
+            d = checkpoint(embed, params, "d", batch, use_reentrant=False)
+        else:
+            q, d = embed(params, "q", batch), embed(params, "d", batch)
+        if cfg.loss.mode == "rotate":
+            return rotate_loss(q, d, batch["rot_offsets"], cfg.loss.gamma)
+        return in_batch_loss(q, d, cfg.loss.gamma, impl=impl)
+
+    return loss_fn
+
+
+def make_dense_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
+    """(state, batch) -> (state, aux): one step of the dense optimizer over
+    the whole parameter tree. The batch is a raw-index batch on the
+    parameters' device (bridge.batch_to_torch), as cli.train builds it off
+    the sparse path; the table must be f32. The table's gradient is the
+    embedding bag's d_table, a dense [V, H] f32 segment sum."""
+    table_key = model_base.TABLE_KEY[cfg.tower.arch]
+    loss_fn = make_loss_fn(cfg, impl)
+
+    def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        if "uniq" in batch or "q_uniq" in batch:
+            raise ValueError(
+                "the dense-table step takes raw-index batches: dedupe "
+                "batches (data.dedup_lookup) belong to the sparse path")
+        check_dense_table(state.params, table_key)
+        params = {tower: {k: v.detach().requires_grad_(True)
+                          for k, v in tp.items()}
+                  for tower, tp in state.params.items()}
+        loss, aux = loss_fn(params, batch)
+        leaves = [v for tp in params.values() for v in tp.values()]
+        it = iter(torch.autograd.grad(loss, leaves))
+        grads = {tower: {k: next(it) for k in tp}
+                 for tower, tp in params.items()}
+        with torch.no_grad():
+            updates, new_opt = optimizer_update(cfg.train, grads,
+                                                state.opt_state)
+            new_params = apply_updates(state.params, updates)
+        return TrainState(step=state.step + 1, params=new_params,
+                          opt_state=new_opt), aux
+
+    return step
+
+
 def make_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
-    """(state, batch) -> (state, aux). SGD + sparse_embed_update (the
-    default) is the sparse-table-update step."""
+    """(state, batch) -> (state, aux). SGD (or the AdaGrad table optimizer)
+    with sparse_embed_update, the default, is the sparse-table-update step;
+    the rest is the dense-table step."""
     if uses_sparse_update(cfg):
         return make_sparse_train_step(cfg, impl)
-    raise NotImplementedError(
-        "the dense-table train step (train.sparse_embed_update=False, or "
-        "momentum/adam with the sgd table optimizer) is not ported yet "
-        "(ROADMAP.md, Queue 1: the dense-table train step)")
+    return make_dense_train_step(cfg, impl)
+
+
+def make_multi_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
+    """(state, stacked batch) -> (state, aux stacked [K]): the step K times
+    over the [K, ...] fields of a stacked batch on the parameters' device,
+    step j on the views [j] of every field. The same K steps as K calls of
+    make_train_step's step, state threaded through (a bf16 or int8 table's
+    scatter seeds come from each step's own state.step, as in dssm_tpu's
+    scan)."""
+    step_fn = make_train_step(cfg, impl)
+
+    def multi_step(state: TrainState, batches: Dict
+                   ) -> Tuple[TrainState, Dict]:
+        k = next(iter(batches.values())).shape[0]
+        auxes = []
+        for j in range(k):
+            state, aux = step_fn(state, {key: v[j]
+                                         for key, v in batches.items()})
+            auxes.append(aux)
+        return state, {key: torch.stack([a[key] for a in auxes])
+                       for key in auxes[0]}
+
+    return multi_step
+
+
+def stack_batches(batches: Iterable[Dict]) -> Dict:
+    """Stack K host batch dicts into one dict of [K, ...] arrays for
+    make_multi_train_step. All batches must share keys (same loader config).
+    A copy of dssm_tpu/train/loop.py::stack_batches."""
+    batches = list(batches)
+    keys = batches[0].keys()
+    for b in batches[1:]:
+        if b.keys() != keys:
+            raise ValueError("cannot stack batches with differing keys")
+    return {k: np.stack([np.asarray(b[k]) for b in batches]) for k in keys}
 
 
 def add_rotation_offsets(batch: Dict, cfg: RunConfig, step: int) -> Dict:
@@ -71,13 +176,45 @@ def train(
     metrics_cb: Optional[Callable[[int, Dict], None]] = None,
 ) -> TrainState:
     """Drive num_steps steps from a stream of numpy batches. The rotation
-    offsets of step i use seed train.seed + i (i counted from 0 here)."""
-    step_fn = make_train_step(cfg)
+    offsets of step i use seed train.seed + i (i counted from 0 here). At
+    train.steps_per_call = K > 1, full blocks of K steps run while K steps
+    remain, then single steps; metrics_cb gets a block's last step, i + K -
+    1, with that step's aux when i % log_every < K, and nothing of the
+    single steps of the ragged tail (dssm_tpu's train)."""
     dev = state_device(state)
+    # A raw batch's live lookups must lie in the table (bridge.check_raw_rows).
+    rows = next(iter(state.params.values()))[
+        model_base.TABLE_KEY[cfg.tower.arch]].shape[0]
+    k = cfg.train.steps_per_call
+    if k > 1:
+        multi_fn = make_multi_train_step(cfg)
+        single_fn = make_train_step(cfg)
+        i = 0
+        while i < num_steps:
+            if num_steps - i >= k:
+                stacked = stack_batches(
+                    add_rotation_offsets(next(batches), cfg, i + j)
+                    for j in range(k))
+                t0 = time.perf_counter()
+                state, auxes = multi_fn(
+                    state, batch_to_torch(stacked, dev, vocab_size=rows))
+                if metrics_cb is not None and (i % cfg.train.log_every < k):
+                    aux = {key: float(v[-1]) for key, v in auxes.items()}
+                    aux["step_ms"] = (time.perf_counter() - t0) * 1e3 / k
+                    metrics_cb(i + k - 1, aux)
+                i += k
+            else:
+                batch = add_rotation_offsets(next(batches), cfg, i)
+                state, _ = single_fn(
+                    state, batch_to_torch(batch, dev, vocab_size=rows))
+                i += 1
+        return state
+    step_fn = make_train_step(cfg)
     for i in range(num_steps):
         batch = add_rotation_offsets(next(batches), cfg, i)
         t0 = time.perf_counter()
-        state, aux = step_fn(state, batch_to_torch(batch, dev))
+        state, aux = step_fn(state, batch_to_torch(batch, dev,
+                                                   vocab_size=rows))
         if metrics_cb is not None and (i % cfg.train.log_every == 0):
             aux = {k: float(v) for k, v in aux.items()}  # waits for the step
             aux["step_ms"] = (time.perf_counter() - t0) * 1e3

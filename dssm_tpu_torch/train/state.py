@@ -1,7 +1,8 @@
 """TrainState and the dense optimizers.
 
-The dense parameters (everything but the embedding table under sparse
-updates) are optimized by sgd, sgd with momentum, or adam, written as plain
+The densely optimized parameters (everything but the embedding table under
+sparse updates; the whole tree, table included, on the dense-table step)
+are optimized by sgd, sgd with momentum, or adam, written as plain
 functions on tensors that reproduce optax.sgd(lr), optax.sgd(lr, momentum)
 and optax.adam(lr) step for step, so a state carried over from dssm_tpu
 continues identically. Counterpart of dssm_tpu/train/state.py.
@@ -82,16 +83,32 @@ def apply_updates(params: Tree, updates: Tree) -> Tree:
 def create_run_state(cfg: RunConfig, params: Tree) -> TrainState:
     """Fresh state for a run: under sparse table updates the optimizer state
     covers only the dense subtree (the table's optimizer state, if any,
-    rides inside the table: train/sparse_update.table_update_vals)."""
+    rides inside the table: train/sparse_update.table_update_vals); off the
+    sparse path it covers the whole tree, so momentum's trace and adam's
+    moments include [V, H] tensors for the table."""
     from dssm_tpu_torch.models.base import TABLE_KEY
     from dssm_tpu_torch.train.sparse_update import (
         _dense_subtree, uses_sparse_update)
 
-    if not uses_sparse_update(cfg):
-        raise NotImplementedError(
-            "the dense-table train step (train.sparse_embed_update=False, or "
-            "momentum/adam with the sgd table optimizer) is not ported yet "
-            "(ROADMAP.md, Queue 1: the dense-table train step)")
-    tree = _dense_subtree(params, TABLE_KEY[cfg.tower.arch])
+    key = TABLE_KEY[cfg.tower.arch]
+    if uses_sparse_update(cfg):
+        tree = _dense_subtree(params, key)
+    else:
+        check_dense_table(params, key)
+        tree = params
     return TrainState(step=0, params=params,
                       opt_state=init_opt_state(cfg.train, tree))
+
+
+def check_dense_table(params: Tree, table_key: str) -> None:
+    """The dense-table step differentiates the table, in f32 only: bf16 and
+    int8 tables train on the sparse path (config.validate asks
+    train.sparse_embed_update of them, as dssm_tpu's does)."""
+    for tower, tp in params.items():
+        if tp[table_key].dtype != torch.float32:
+            raise ValueError(
+                f"the dense-table step trains an f32 table; {tower}/"
+                f"{table_key} is {tp[table_key].dtype} (a bf16 or int8 table "
+                "trains on the sparse path: train.optimizer=sgd or "
+                "train.table_optimizer=adagrad, with "
+                "train.sparse_embed_update)")

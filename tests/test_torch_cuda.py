@@ -34,7 +34,7 @@ import numpy as np
 import pytest
 import torch
 
-from dssm_tpu_torch.bridge import batch_to_torch
+from dssm_tpu_torch.bridge import batch_to_torch, check_raw_rows
 from dssm_tpu_torch.config import (
     DataConfig, LossConfig, RunConfig, TowerConfig, TrainConfig)
 from dssm_tpu_torch.data.dedupe import SKIP_SENTINEL_GID
@@ -65,7 +65,8 @@ from dssm_tpu_torch.kernels.tower import (
 from dssm_tpu_torch.models import base as model_base
 from dssm_tpu_torch.serve import build_doc_index
 from dssm_tpu_torch.train.eval import evaluate
-from dssm_tpu_torch.train.loop import make_train_step
+from dssm_tpu_torch.train.loop import (
+    make_multi_train_step, make_train_step, stack_batches)
 from dssm_tpu_torch.train.state import create_run_state
 
 V, H, GROUP, SLOTS = 4096, 128, 8, 64
@@ -1013,11 +1014,23 @@ def test_embedding_bag_kernels_match_plain(dev, dtype, shape):
         dw_p = embedding_bag_dwgt_plain(table, idx, g)
         torch.testing.assert_close(dw, dw_p, rtol=1e-5,
                                    atol=1e-5 * float(dw_p.abs().max()))
-    # A live lookup outside the table is an error, not a clamp.
+    # A live lookup outside the table is refused on the host, where the
+    # entry points check the numpy batch (bridge.check_raw_rows); the
+    # kernel reads nothing back, and a lookup outside the table that
+    # reaches it reads nothing and adds nothing, as in the plain version.
     idx_bad, wgt_bad = idx.clone(), wgt.clone()
     idx_bad.view(-1)[0], wgt_bad.view(-1)[0] = V + 7, 1.0
     with pytest.raises(IndexError):
-        embedding_bag(table, idx_bad, wgt_bad, impl="kernel")
+        check_raw_rows({"q_idx": idx_bad.cpu().numpy(),
+                        "q_wgt": wgt_bad.cpu().numpy()}, V)
+    got = embedding_bag(table, idx_bad, wgt_bad, impl="kernel")
+    wgt_dead = wgt_bad.clone()
+    wgt_dead.view(-1)[0] = 0.0
+    assert torch.equal(got, embedding_bag(table, idx_bad, wgt_dead,
+                                          impl="kernel"))
+    want = embedding_bag_plain(table, idx_bad, wgt_bad)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
 
 
 # (rows shape + K, width): the `full` raw batch's q and d sides, the cnn and
@@ -1197,3 +1210,120 @@ def test_sequence_and_raw_train_steps_kernels_match_plain(dev, arch, dedup):
                               cache=False) for impl in ("auto", "plain")}
     for k, v in metrics["plain"].items():
         assert abs(metrics["auto"][k] - v) <= 2e-2, (k, metrics)
+
+
+def _step_case(dev, kind, n, table_dtype="float32"):
+    """A small config of one step kind and n numpy batches of its stream:
+    "dense" (the dense-table step with sgd, sparse_embed_update=False, raw
+    batches), "dense_adam" (adam with the sgd table optimizer: the dense
+    step too), "raw" (the sparse raw branch) or "joint" (the sparse joint
+    branch on dedupe batches)."""
+    raw = kind != "joint"
+    adam = kind == "dense_adam"
+    cfg = RunConfig(
+        tower=TowerConfig(vocab_size=V, embed_width=100, hidden_dims=(64,),
+                          semantic_dim=32, compute_dtype="bfloat16",
+                          table_dtype=table_dtype),
+        data=DataConfig(max_trigrams=16, max_trigrams_query=8,
+                        max_unique=1024, max_unique_rows=128,
+                        dedup_lookup=not raw),
+        loss=LossConfig(),
+        train=TrainConfig(batch_size=128, learning_rate=0.01 if adam else 0.1,
+                          optimizer="adam" if adam else "sgd",
+                          sparse_embed_update=kind != "dense"))
+    hashed = hash_pairs(make_toy_pairs(640, 96, 7), cfg.tower, cfg.data)
+    group = {"int8": 32, "bfloat16": 16}.get(table_dtype, 8)
+    it = batch_iterator(hashed, 128, seed=3,
+                        dedup_unique=None if raw else 1024,
+                        dedup_group=group, dedup_unique_rows=128,
+                        dedup_joint=True, wire_compress=not raw,
+                        sort_rows=not raw)
+    return cfg, [next(it) for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "dense_adam", "raw", "joint"])
+def test_train_step_reads_nothing_back(dev, kind):
+    """A step and the move of its batch (pinned, queued behind the steps
+    before it) under torch.cuda.set_sync_debug_mode("error"): a
+    synchronising call raises. The range check of a raw batch runs on the
+    host, on the numpy batch, so the dense and the raw sparse step wait for
+    the card nowhere; so does the joint step."""
+    cfg, batches = _step_case(dev, kind, 2)
+    state = create_run_state(cfg, model_base.init_params(
+        cfg.tower, seed=0, device=dev))
+    step = make_train_step(cfg, "auto")
+    state, _ = step(state, batch_to_torch(batches[0], dev, vocab_size=V))
+    torch.cuda.synchronize()  # warm: the kernel library, cuBLAS handles
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, aux = step(state, batch_to_torch(batches[1], dev,
+                                                vocab_size=V))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(aux["loss"])) and state.step == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
+def test_multi_step_bit_equal_to_single_steps(dev, table_dtype):
+    """K = 3 steps a call against 3 single steps from one state, on the
+    joint branch: the same kernels in the same order on views of the
+    stacked batch (a bf16 table's stochastic-rounding seeds from each
+    step's own state.step), so the tables and dense parameters are
+    bit-equal."""
+    cfg, batches = _step_case(dev, "joint", 3, table_dtype)
+    runs = {}
+    for k in (1, 3):
+        state = create_run_state(cfg, model_base.init_params(
+            cfg.tower, seed=0, device=dev))
+        _build.reset_launch_counts()
+        if k == 1:
+            step = make_train_step(cfg, "auto")
+            for b in batches:
+                state, _ = step(state, batch_to_torch(b, dev))
+        else:
+            state, auxes = make_multi_train_step(cfg, "auto")(
+                state, batch_to_torch(stack_batches(batches), dev))
+            assert auxes["loss"].shape == (3,)
+        assert _build.launch_counts()["fused_gather_joint_lookup"] == 3
+        runs[k] = state
+    assert runs[3].step == runs[1].step == 3
+    for tower, tp in runs[1].params.items():
+        for key, v in tp.items():
+            assert torch.equal(v, runs[3].params[tower][key]), (tower, key)
+
+
+@pytest.mark.cuda
+def test_dense_step_kernels_match_plain(dev):
+    """3 dense-table sgd steps through the kernels and through the plain
+    versions from one state: the bag forward twice a step (q and d), the
+    tower with residuals once a side, the three loss kernels; no scatter
+    (the optimizer updates the table). The plain table gradient is
+    autograd's, the kernel path's the bag's d_table (an index_add_, with
+    atomics): parameters to 2e-3 as the sparse steps' test, losses 1e-2."""
+    cfg, batches = _step_case(dev, "dense", 3)
+    batches = [batch_to_torch(b, dev, vocab_size=V) for b in batches]
+    states = {impl: create_run_state(cfg, model_base.init_params(
+        cfg.tower, seed=0, device=dev)) for impl in ("auto", "plain")}
+    losses = {}
+    for impl in states:
+        step = make_train_step(cfg, impl)
+        _build.reset_launch_counts()
+        losses[impl] = []
+        for batch in batches:
+            states[impl], aux = step(states[impl], batch)
+            losses[impl].append(float(aux["loss"]))
+        counts = _build.launch_counts()
+        if impl == "auto":
+            want = {"embedding_bag": 6, "dense_tower_residuals": 6,
+                    "in_batch_loss": 3, "in_batch_loss_dq": 3,
+                    "in_batch_loss_dd": 3}
+            assert {k: v for k, v in counts.items() if v} == want, counts
+    np.testing.assert_allclose(losses["auto"], losses["plain"], rtol=0,
+                               atol=1e-2)
+    for tower, tp in states["plain"].params.items():
+        for k, want in tp.items():
+            torch.testing.assert_close(states["auto"].params[tower][k], want,
+                                       rtol=0, atol=2e-3)
+    assert states["auto"].step == 3

@@ -96,9 +96,11 @@ def test_not_ported_messages_name_roadmap_items():
             r"ROADMAP\.md, Queue (\d): ?([^)\"]+)\)", text)]
     # Every queue the port refers to still holds items, and the messages
     # that named the items ported since (the low-precision tables, eval,
-    # the cnn / lstm towers, the raw-index embedding bag) are gone with them.
+    # the cnn / lstm towers, the raw-index embedding bag, the multi-step
+    # dispatch, the dense-table step) are gone with them.
     assert refs and all(titles.get(n) for _, n, _ in refs)
-    gone = ("int8", "eval", "cnn", "lstm", "embedding_bag")
+    gone = ("int8", "eval", "cnn", "lstm", "embedding_bag", "multi-step",
+            "dense-table")
     assert not [r for r in refs if any(g in r[2].lower() for g in gone)]
     for path, n, name in refs:
         name = re.sub(r"\s+", " ", name).strip().lower()

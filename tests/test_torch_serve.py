@@ -317,11 +317,7 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path):
         r = _train(f"--io.workdir={tmp_path}", "--train.max_steps=1",
                    cpu=False)
         assert r.returncode != 0 and "no CUDA device" in r.stderr
-    for flag, what in (("--train.steps_per_call=2",
-                        "Queue 1: the multi-step dispatch"),
-                       ("--train.sparse_embed_update=false",
-                        "dense-table train step"),
-                       ("--io.tensorboard=true", "tooling")):
+    for flag, what in (("--io.tensorboard=true", "tooling"),):
         r = _train(f"--io.workdir={tmp_path}", "--train.max_steps=1", flag)
         assert r.returncode != 0 and "NotImplementedError" in r.stderr
         assert what in r.stderr and "ROADMAP.md" in r.stderr

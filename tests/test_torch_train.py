@@ -208,12 +208,24 @@ def test_sparse_update_predicates_and_refusals():
         assert (tsparse.uses_sparse_update(tc.replace(train=tc.train.replace(**kw)))
                 == jsparse.uses_sparse_update(jc.replace(train=jc.train.replace(**kw))))
     assert tsparse.logical_table_width(tc) == jsparse.logical_table_width(jc)
-    dense_cfg = tc.replace(train=tc.train.replace(sparse_embed_update=False))
-    with pytest.raises(NotImplementedError, match="dense-table train step"):
-        make_train_step(dense_cfg)
+    # Off the sparse path: the dense-table step, its optimizer state over
+    # the whole tree, table included.
     params = tbase.init_params(tc.tower, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense-table train step"):
-        tstate.create_run_state(dense_cfg, params)
+    for kw in (dict(sparse_embed_update=False),
+               dict(optimizer="adam", table_optimizer="sgd")):
+        dense_cfg = tc.replace(train=tc.train.replace(**kw))
+        assert make_train_step(dense_cfg).__qualname__.startswith(
+            "make_dense_train_step")
+        dense = tstate.create_run_state(dense_cfg, params)
+        if dense_cfg.train.optimizer == "adam":
+            assert dense.opt_state["count"] == 0
+            for tree in (dense.opt_state["mu"], dense.opt_state["nu"]):
+                assert {t: sorted(tp) for t, tp in tree.items()} == {
+                    t: sorted(tp) for t, tp in params.items()}
+                assert tree["shared"]["W0"].shape == params["shared"][
+                    "W0"].shape
+        else:
+            assert dense.opt_state == {}
     state = tstate.create_run_state(tc, params)
     assert state.step == 0 and state.opt_state == {}
     raw = {"q_idx": torch.zeros((4, 8), dtype=torch.int32),
