@@ -83,6 +83,18 @@ end, cli.train --train.steps_per_call=K_CALL and 1 over CLI_K_STEPS steps,
 its records, evals and checkpoints on the steps dssm_tpu's rule gives, and
 cli.train --train.optimizer=adam with cli.eval on its workdir.
 
+The multi-device path on one card (phase 6e): the multihost preset at
+model_parallel = 1 (500k x 384 table, batch 65,536, one per-shard slot
+space of 2048 a batch, sel_local [1, 2048]) on its own corpus: the first
+batch's host prep uncached and split, its kernels at the step's shapes
+against their plain versions, MH_STEPS steps through the kernels (steps/s,
+peak memory) and MH_TRACED traced; the parallel step over an NCCL group of
+one process against the single-device step (bit-equal, f32 wire); the
+shard-local bodies of an mp = 2 table summed by hand against the unsharded
+gather and scatters (bit-equal). At the end, cli.train
+--preset=multihost --mesh.model_parallel=1 for MH_CLI_STEPS steps and
+cli.eval on its workdir.
+
 It checks that every kernel was launched by the path it belongs to. The
 next-to-last line is a JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -135,6 +147,9 @@ K_CHECK_STEPS = 8      # from one state, K_CALL a call against 1
 K_TIMED_STEPS = 48     # steps/s at K = 1 and K_CALL, per step kind
 CLI_K_STEPS = 22       # cli.train at K_CALL: 5 blocks and a tail of 2
 CLI_ADAM_STEPS = 4     # cli.train --train.optimizer=adam
+MH_STEPS = 5           # multihost at mp = 1, 65,536 rows, through the kernels
+MH_TRACED = 3          # then traced
+MH_CLI_STEPS = 3       # cli.train --preset=multihost --mesh.model_parallel=1
 
 
 def check(ok: bool, msg: str) -> None:
@@ -3176,6 +3191,379 @@ def main() -> int:
           f"version to {oob_err:.3g}")
     del params_d, oob, oob_k, oob_dead, oob_p
 
+    # ---- phase 6e: the multi-device path on one card ---------------------
+    # The multihost preset at model_parallel = 1 (what dssm_tpu runs on one
+    # device): its full width (500k x 384 f32 table, 300->300->128 bf16),
+    # its full 65,536-row batch and caps, the union dedupe with one
+    # per-shard slot space of max_unique_rows_local = 2048 (sel_local
+    # [1, 2048]), on its own toy corpus (131,072 pairs, 8192 words, the
+    # frequency remap) built as cli.train builds it: the epoch holds one
+    # batch, so the epoch cache replays the first. The path's kernels at
+    # its shapes against their plain versions; MH_STEPS steps through the
+    # kernels (the counts reset just before and read just after), their
+    # steps/s and peak memory; MH_TRACED more traced. Then the parallel
+    # step over a real NCCL group of one process against the
+    # single-device step from one state (f32 wire: bit-equal), and the
+    # shard-local bodies of the mp = 2 table (kernels/sharded_embed.py),
+    # both shards in this process, summed by hand against the unsharded
+    # kernels.
+    from dssm_tpu_torch.data.loader import reslot_local
+    from dssm_tpu_torch.kernels.gather import sublane_group
+    from dssm_tpu_torch.kernels.sharded_embed import (
+        embedding_bag_local, gather_compact_local, scatter_add_groups_local,
+        scatter_sr_groups_local)
+    from dssm_tpu_torch.parallel import dist as pdist
+    from dssm_tpu_torch.parallel.mesh import make_mesh
+    from dssm_tpu_torch.parallel.train_step import (
+        create_sharded_state, make_parallel_train_step)
+
+    cfg_mh = validate(get_preset("multihost").replace(
+        mesh=get_preset("multihost").mesh.replace(model_parallel=1)))
+    tm, dm = cfg_mh.tower, cfg_mh.data
+    bm = cfg_mh.train.batch_size
+    t0 = time.perf_counter()
+    mh_pairs = make_toy_pairs(dm.toy_num_pairs, dm.toy_vocab_words, dm.seed)
+    mh_train_p, mh_eval_p = train_eval_split(mh_pairs, eval_frac=dm.eval_frac,
+                                             seed=dm.seed)
+    mh_train = hash_pairs(mh_train_p, tm, dm)
+    mh_remap = build_freq_remap(mh_train, tm.vocab_size, num_shards=1)
+    mh_train = apply_remap(mh_train, mh_remap)
+    mh_hash_s = time.perf_counter() - t0
+    params_mh = model_base.init_params(tm, seed=cfg_mh.train.seed, device=dev)
+    table_mh = params_mh["shared"]["W0"]
+    group_mh = sublane_group(table_mh.dtype)
+
+    def mh_stream(**kw):
+        return batch_iterator(
+            mh_train, bm, seed=cfg_mh.train.seed,
+            dedup_unique=dm.max_unique, dedup_group=group_mh,
+            dedup_unique_rows=dm.max_unique_rows, dedup_joint=True,
+            wire_compress=True, sort_rows=True,
+            local_sel_cap=dm.max_unique_rows_local,
+            reshuffle_each_epoch=False, cache_epoch_batches=True, **kw)
+
+    mh_it = mh_stream()
+    t0 = time.perf_counter()
+    mh_np = next(mh_it)
+    mh_prep_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    check(next(mh_it) is mh_np, "multihost: the epoch cache did not replay "
+          "the epoch's one batch")
+    mh_cached_ms = (time.perf_counter() - t0) * 1e3
+    # The first batch's prep split: the global dedupe (select_batch), the
+    # row sort, the slot space, the wire compression.
+    rows_mh = np.random.default_rng((cfg_mh.train.seed, 0)).permutation(
+        len(mh_train))[:bm]
+    mh_split = {}
+    t0 = time.perf_counter()
+    b_ = select_batch(mh_train, rows_mh, dm.max_unique, group_mh,
+                      dm.max_unique_rows, True)
+    mh_split["select_and_dedupe"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    b_ = sort_batch_rows(b_)
+    mh_split["row_sort"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    b_ = reslot_local(b_, dm.max_unique_rows_local)
+    mh_split["reslot_local"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    b_ = compress_wire(b_, wire_dtype_plan(mh_train, dm.max_unique,
+                                           dm.max_unique_rows))
+    mh_split["compress_wire"] = (time.perf_counter() - t0) * 1e3
+    check(all(np.array_equal(b_[k], mh_np[k]) for k in mh_np),
+          "multihost: the batch built step by step differs from the loader's")
+    del b_
+    live_local = np.unique(np.concatenate([
+        mh_np[f"{s_}_inv"][mh_np[f"{s_}_wgt"] != 0].astype(np.int64)
+        for s_ in "qd"])).size
+    print(f"multihost corpus: {len(mh_train)} train pairs hashed + remapped "
+          f"in {mh_hash_s:.1f} s; the first batch ({bm} rows, sel_local "
+          f"{list(mh_np['sel_local'].shape)}, {live_local} of "
+          f"{dm.max_unique_rows_local} local slots used, "
+          f"{int((mh_np['uniq'] < tm.vocab_size // group_mh).sum())} of "
+          f"{mh_np['uniq'].shape[0]} groups real) built in {mh_prep_ms:.1f} "
+          f"ms uncached, {mh_cached_ms:.3f} ms from the epoch cache; split "
+          f"(ms): {json.dumps({k: round(v, 2) for k, v in mh_split.items()})}")
+
+    tbm = batch_to_torch(mh_np, dev)
+    from dssm_tpu_torch.train.sparse_update import joint_fields, joint_row_sel
+
+    mh_fields = joint_fields(tbm, joint_row_sel(tbm))
+    row_sel_mh, qi_m, qw_m, di_m, dw_m = mh_fields
+    n_gr = tbm["uniq"].shape[0] * group_mh
+    mh_kern = {}
+
+    def mh_time(fn, reps=5):
+        return eager_ms(fn, reps=reps, trials=3)
+
+    def mh_record(name, err, ms, plain_ms, nbytes, flops, kind="f32"):
+        b_ms, b_by = bound_ms(nbytes, flops, kind)
+        mh_kern[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by)
+        results[name].update({"ms_multihost": ms, "plain_ms_multihost":
+                              plain_ms, "bound_ms_multihost": b_ms,
+                              "max_abs_err_multihost": err})
+
+    # The fused gather + joint lookup (its outputs two [65536, 384] f32).
+    lq_mk, ld_mk, c_mk = fused_gather_joint_lookup(
+        table_mh, tbm["uniq"], *mh_fields, group_mh, impl="kernel")
+    lq_mp, ld_mp, c_mp = fused_gather_joint_lookup_plain(
+        table_mh, tbm["uniq"], *mh_fields, group_mh)
+    err = max(float((lq_mk - lq_mp).abs().max()),
+              float((ld_mk - ld_mp).abs().max()))
+    check(torch.equal(c_mk, c_mp) and err <= 1e-5 * max(
+        1.0, float(lq_mp.abs().max()), float(ld_mp.abs().max())),
+        f"multihost: fused_gather_joint_lookup differs by {err}")
+    hm = table_mh.shape[1]
+    mh_record("fused_gather_joint_lookup", err,
+              mh_time(lambda: fused_gather_joint_lookup(
+                  table_mh, tbm["uniq"], *mh_fields, group_mh,
+                  impl="kernel")),
+              mh_time(lambda: fused_gather_joint_lookup_plain(
+                  table_mh, tbm["uniq"], *mh_fields, group_mh), reps=1),
+              c_mk.numel() * 4 * 2 + (qi_m.numel() + di_m.numel()) * 8
+              + (lq_mk.numel() + ld_mk.numel()) * 4,
+              2.0 * int((qw_m != 0).sum() + (dw_m != 0).sum()) * hm)
+    # Its backward at the step's gradients (f32 [65536, 384] a side).
+    gen_ = torch.Generator(device=dev).manual_seed(SEED)
+    g_lqm = torch.randn(lq_mk.shape, device=dev, generator=gen_) * 1e-3
+    g_ldm = torch.randn(ld_mk.shape, device=dev, generator=gen_) * 1e-3
+    dc_k = joint_lookup_bwd(*mh_fields, g_lqm, g_ldm, n_gr, impl="kernel")
+    dc_p = joint_lookup_bwd_plain(*mh_fields, g_lqm, g_ldm, n_gr)
+    err = float((dc_k - dc_p).abs().max())
+    check(err <= 1e-5 * max(1.0, float(dc_p.abs().max())),
+          f"multihost: joint_lookup_bwd differs by {err}")
+    check(torch.equal(dc_k, joint_lookup_bwd(*mh_fields, g_lqm, g_ldm, n_gr,
+                                             impl="kernel")),
+          "multihost: two joint_lookup_bwd calls differ")
+    mh_record("joint_lookup_bwd", err,
+              mh_time(lambda: joint_lookup_bwd(*mh_fields, g_lqm, g_ldm,
+                                               n_gr, impl="kernel")),
+              mh_time(lambda: joint_lookup_bwd_plain(
+                  *mh_fields, g_lqm, g_ldm, n_gr), reps=1),
+              (g_lqm.numel() + g_ldm.numel() + dc_k.numel()) * 4
+              + (qi_m.numel() + di_m.numel()) * 8,
+              2.0 * int((qw_m != 0).sum() + (dw_m != 0).sum()) * hm)
+    # The loss kernels at 65,536 x 65,536: the plain version on slices of
+    # 4096 query rows against the whole pool (the full logits would be 17
+    # GB), dd summed over the slices.
+    gq_ = torch.randn(bm, tm.semantic_dim, device=dev, generator=gen_)
+    gd_ = torch.randn(bm, tm.semantic_dim, device=dev, generator=gen_)
+    qm_, dm_ = F.normalize(gq_, dim=1), F.normalize(gd_, dim=1)
+    lab_ = torch.arange(bm, device=dev, dtype=torch.int32)
+    gam = cfg_mh.loss.gamma
+    nll_k, lse_k, _, _ = in_batch_nll_kernel(qm_, dm_, lab_, gam)
+    gnl = torch.full((bm,), 1.0 / bm, device=dev)
+    dq_k = in_batch_loss_dq(qm_, dm_, lab_, gam, lse_k, gnl)
+    dd_k = in_batch_loss_dd(qm_, dm_, lab_, gam, lse_k, gnl)
+    errs_l = dict(nll=0.0, dq=0.0, dd=0.0)
+    dd_p = torch.zeros_like(dd_k)
+    t0 = time.perf_counter()
+    for lo in range(0, bm, 4096):
+        sl_ = slice(lo, lo + 4096)
+        nll_p, lse_p, _, _ = in_batch_nll_plain(qm_[sl_], dm_, lab_[sl_], gam)
+        dq_p, dd_part = in_batch_loss_grads_plain(
+            qm_[sl_], dm_, lab_[sl_], gam, lse_p, gnl[sl_])
+        dd_p += dd_part
+        errs_l["nll"] = max(errs_l["nll"],
+                            float((nll_k[sl_] - nll_p).abs().max()))
+        errs_l["dq"] = max(errs_l["dq"], float((dq_k[sl_] - dq_p).abs().max()))
+    torch.cuda.synchronize()
+    loss_plain_ms = (time.perf_counter() - t0) * 1e3
+    errs_l["dd"] = float((dd_k - dd_p).abs().max())
+    check(errs_l["nll"] <= 1e-4
+          and errs_l["dq"] <= 1e-4 * float(dq_k.abs().max())
+          and errs_l["dd"] <= 1e-4 * float(dd_p.abs().max()),
+          f"multihost: the loss kernels differ from plain (1e-4; grads 1e-4 "
+          f"x max |grad|): {errs_l}")
+    loss_flops = 2.0 * bm * bm * tm.semantic_dim
+    for name, fn, err in (
+            ("in_batch_loss", lambda: in_batch_nll_kernel(qm_, dm_, lab_,
+                                                          gam), errs_l["nll"]),
+            ("in_batch_loss_dq", lambda: in_batch_loss_dq(
+                qm_, dm_, lab_, gam, lse_k, gnl), errs_l["dq"]),
+            ("in_batch_loss_dd", lambda: in_batch_loss_dd(
+                qm_, dm_, lab_, gam, lse_k, gnl), errs_l["dd"])):
+        mh_record(name, err, mh_time(fn, reps=2), loss_plain_ms,
+                  (qm_.numel() + dm_.numel()) * 4 + bm * 12,
+                  loss_flops * (1 if name == "in_batch_loss" else 2))
+    # The tower with residuals, both sides stacked (131,072 rows), on the
+    # step's layer-0 activations: y and the residuals against the plain
+    # version (bf16 compute: 2e-2, as at `full`).
+    cdt = model_base.torch_dtype(tm.compute_dtype)
+    sh_ = params_mh["shared"]
+    x_m = torch.tanh(torch.cat([lq_mk, ld_mk])[:, :tm.embed_width].to(cdt)
+                     + sh_["b0"].to(cdt)).contiguous()
+    layers_m = [(sh_[f"W{i}"].to(cdt), sh_[f"b{i}"].to(cdt))
+                for i in range(1, len(tm.hidden_dims) + 2)]
+    y_k, hs_k = dense_tower_residuals(x_m, layers_m, "tanh", False,
+                                      impl="kernel")
+    y_p, hs_p = dense_tower_residuals(x_m, layers_m, "tanh", False,
+                                      impl="plain")
+    err = max(float((a_ - b_).abs().max())
+              for a_, b_ in zip([y_k, *hs_k], [y_p, *hs_p]))
+    check(err <= 2e-2, f"multihost: dense_tower_residuals differs by {err}")
+    tw_dims = [x_m.shape[1]] + [w_.shape[1] for w_, _ in layers_m]
+    mh_record("dense_tower_residuals", err,
+              mh_time(lambda: dense_tower_residuals(
+                  x_m, layers_m, "tanh", False, impl="kernel")),
+              mh_time(lambda: dense_tower_residuals(
+                  x_m, layers_m, "tanh", False, impl="plain"), reps=1),
+              x_m.numel() * 2 + x_m.shape[0] * sum(tw_dims[1:]) * 4 * 2,
+              2.0 * x_m.shape[0] * sum(a_ * b_ for a_, b_ in
+                                       zip(tw_dims, tw_dims[1:])), "bf16")
+    del x_m, y_k, hs_k, y_p, hs_p
+    # The scatter-add of the step's compact update.
+    vals_m = torch.randn(n_gr, hm, device=dev, generator=gen_) * 1e-3
+    tk_, tp_ = table_mh.clone(), table_mh.clone()
+    scatter_add_row_groups(tk_, tbm["uniq"], vals_m, group_mh, impl="kernel")
+    scatter_add_row_groups_plain(tp_, tbm["uniq"], vals_m, group_mh)
+    err = float((tk_ - tp_).abs().max())
+    check(err == 0.0, f"multihost: scatter_add_row_groups differs by {err}")
+    real_g = int((tbm["uniq"] < tm.vocab_size // group_mh).sum())
+    mh_record("scatter_add_row_groups", err,
+              mh_time(lambda: scatter_add_row_groups(
+                  tk_, tbm["uniq"], vals_m, group_mh, impl="kernel")),
+              mh_time(lambda: scatter_add_row_groups_plain(
+                  tp_, tbm["uniq"], vals_m, group_mh), reps=1),
+              real_g * group_mh * hm * 4 * 3, real_g * group_mh * hm * 1.0)
+    del tk_, tp_, dc_k, dc_p, lq_mp, ld_mp, c_mp, g_lqm, g_ldm, dd_p
+    print(f"multihost kernels at the step's shapes, kernel vs plain on "
+          f"{card}: " + json.dumps(mh_kern))
+
+    # MH_STEPS steps through the kernels, as cli.train runs them.
+    mh_path = ("fused_gather_joint_lookup", "joint_lookup_bwd",
+               "dense_tower_residuals", "in_batch_loss", "in_batch_loss_dq",
+               "in_batch_loss_dd", "scatter_add_row_groups")
+    torch.cuda.synchronize()
+    resident_mh = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    s_mh = create_run_state(cfg_mh, clone_params(params_mh))
+    _build.reset_launch_counts()
+    s_mh, mh_losses, mh_wall = run_steps(cfg_mh, s_mh, [mh_np] * MH_STEPS,
+                                         "auto")
+    mh_counts = _build.launch_counts()
+    peak_mh = torch.cuda.max_memory_allocated()
+    for name, n in mh_counts.items():
+        want = MH_STEPS if name in mh_path else 0
+        check(n == want, f"multihost step: kernel {name} launched {n} times "
+              f"in {MH_STEPS} steps, expected {want}")
+    for name in mh_path:
+        results[name]["launches_multihost"] = mh_counts[name]
+    # Five sgd steps at lr 0.1 on the epoch's one batch overshoot and
+    # recover (10.95 -> 8.05 -> 10.62 on an H100); the loss must fall below
+    # the first step's.
+    check(all(np.isfinite(mh_losses)) and min(mh_losses[1:]) < mh_losses[0],
+          f"multihost steps: losses {mh_losses}")
+    s_mh, mh_traced = traced_step(
+        "multihost step (mp = 1, 65,536 rows)", cfg_mh, s_mh,
+        [mh_np] * MH_TRACED,
+        # The loss kernel's forward, dq and dd instances (<0>, <1>, <2>).
+        ("fused_gather", "bwd_", "in_batch_loss_kernel<0",
+         "in_batch_loss_kernel<1", "in_batch_loss_kernel<2",
+         "dense_tower", "scatter_add"))
+    mh_summary = dict(
+        card=card, steps=MH_STEPS, losses=mh_losses,
+        steps_per_s=MH_STEPS / mh_wall, wall_ms_per_step=mh_wall * 1e3
+        / MH_STEPS, peak_above_resident_gb=(peak_mh - resident_mh) / 1e9,
+        peak_gb=peak_mh / 1e9, first_batch_prep_ms=mh_prep_ms,
+        cached_batch_ms=mh_cached_ms,
+        traced_busy_ms_per_step=mh_traced["device_busy_ms_per_step"],
+        traced_wall_ms_per_step=mh_traced["wall_ms_per_step"])
+    print("multihost training path, mp = 1: " + json.dumps(mh_summary))
+
+    # The parallel step over an NCCL group of one against the single-device
+    # step, from one state, on an f32 wire: bit-equal.
+    import socket
+
+    cfg_w = validate(cfg_mh.replace(mesh=cfg_mh.mesh.replace(
+        collective_dtype="float32")))
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port_ = s_.getsockname()[1]
+    t0 = time.perf_counter()
+    pdist.initialize(f"127.0.0.1:{port_}", 1, 0)
+    mesh1 = make_mesh(cfg_w.mesh, dev)
+    nccl_init_s = time.perf_counter() - t0
+    try:
+        check(mesh1.groups["data"] is not None
+              and torch.distributed.get_backend() == "nccl",
+              "world-1 parallel step: no NCCL group")
+        s_a = create_run_state(cfg_w, clone_params(params_mh))
+        s_b = create_sharded_state(cfg_w, mesh1, clone_params(params_mh))
+        single_fn = make_train_step(cfg_w)
+        par_fn = make_parallel_train_step(cfg_w, mesh1)
+        w1_ms = {"single": [], "parallel": []}
+        for _ in range(2):
+            for what, fn in (("single", single_fn), ("parallel", par_fn)):
+                st_ = s_a if what == "single" else s_b
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st_, aux_ = fn(st_, batch_to_torch(mh_np, dev))
+                torch.cuda.synchronize()
+                w1_ms[what].append((time.perf_counter() - t0) * 1e3)
+                if what == "single":
+                    s_a, loss_a = st_, float(aux_["loss"])
+                else:
+                    s_b, loss_b = st_, float(aux_["loss"])
+            check(loss_a == loss_b, f"world-1 parallel step: loss {loss_b} "
+                  f"against the single-device step's {loss_a}")
+        for k_, v_ in s_a.params["shared"].items():
+            check(torch.equal(v_, s_b.params["shared"][k_]),
+                  f"world-1 parallel step: {k_} differs from the "
+                  "single-device step's")
+    finally:
+        pdist.shutdown()
+    del s_a, s_b
+    print(f"parallel step over an NCCL group of one, f32 wire, 2 steps from "
+          f"one state: bit-equal to the single-device step; wall ms a step "
+          f"{json.dumps(w1_ms)} (NCCL init and groups {nccl_init_s:.2f} s) "
+          f"on {card}")
+
+    # The shard-local bodies of the mp = 2 table, both shards here.
+    rows_half = tm.vocab_size // 2
+    shards = [table_mh[m * rows_half:(m + 1) * rows_half].clone()
+              for m in range(2)]
+    whole_c = gather_row_groups(table_mh, tbm["uniq"], group_mh)
+    check(torch.equal(sum(gather_compact_local(s_, tbm["uniq"], group_mh, m)
+                          for m, s_ in enumerate(shards)), whole_c),
+          "mp = 2: the shards' gathers summed differ from the gather")
+    want_t = scatter_add_row_groups(table_mh.clone(), tbm["uniq"], vals_m,
+                                    group_mh)
+    check(torch.equal(torch.cat([scatter_add_groups_local(
+        s_.clone(), tbm["uniq"], vals_m, group_mh, m)
+        for m, s_ in enumerate(shards)]), want_t),
+        "mp = 2: the shards' scatter-adds differ from the scatter-add")
+    del want_t
+    t16 = table_mh.to(torch.bfloat16)
+    # The batch's groups as 16-row groups (distinct: set semantics).
+    uniq16 = torch.unique(torch.div(tbm["uniq"], 2, rounding_mode="floor")
+                          ).to(torch.int32)
+    vals16 = vals_m[: uniq16.numel() * 16]
+    for m in range(2):
+        want_sr = scatter_sr_row_groups(t16.clone(), uniq16, vals16, 16,
+                                        7 * 2 + m)
+        got_sr = scatter_sr_groups_local(
+            t16[m * rows_half:(m + 1) * rows_half].clone(), uniq16, vals16,
+            16, 7, m, 2)
+        check(torch.equal(got_sr, want_sr[m * rows_half:(m + 1) * rows_half]),
+              f"mp = 2: shard {m}'s stochastic-rounding scatter differs")
+    del t16, want_sr, got_sr
+    raw_q = torch.randint(0, tm.vocab_size, (4096, 32), device=dev,
+                          generator=gen_, dtype=torch.int32)
+    raw_w = torch.rand(4096, 32, device=dev, generator=gen_)
+    bag_gap = float((sum(embedding_bag_local(s_, raw_q, raw_w, m)
+                         for m, s_ in enumerate(shards))
+                     - embedding_bag(table_mh, raw_q, raw_w)).abs().max())
+    check(bag_gap <= 1e-5, f"mp = 2: the shards' bags differ by {bag_gap}")
+    del shards, whole_c, vals_m
+    print(f"mp = 2 shard-local bodies on the multihost table, both shards on "
+          f"this card: gathers summed and scatter-adds bit-equal to the "
+          f"unsharded kernels, stochastic-rounding scatters (bf16, seed "
+          f"* 2 + shard) bit-equal to the unsharded kernel on each shard's "
+          f"rows, bags summed within {bag_gap:.3g} of the bag")
+    del s_mh, params_mh, table_mh, tbm, mh_fields, lq_mk, ld_mk, c_mk
+
+
     # ---- phase 7: the same path through the command-line entry points ----
     # cli.train in this process: the full preset on a toy corpus cut to
     # CLI_PAIRS pairs, first on the f32 table (CLI_STEPS steps and the final
@@ -3481,9 +3869,9 @@ def main() -> int:
     saved_steps = []
     checkpoint_save = Checkpointer.save
 
-    def recording_save(self, step_, state_):
+    def recording_save(self, step_, state_, mesh_=None):
         saved_steps.append(step_)
-        return checkpoint_save(self, step_, state_)
+        return checkpoint_save(self, step_, state_, mesh_)
 
     k_runs = {}
     Checkpointer.save = recording_save
@@ -3581,6 +3969,60 @@ def main() -> int:
           f"(recall@1 {reported['recall@1']:.4f}) on {card}")
     cli_dir.cleanup()
 
+    # cli.train --preset=multihost --mesh.model_parallel=1: the preset's
+    # corpus, remap, 65,536-row batches with their slot spaces (the epoch
+    # cache, 8 pipeline threads), MH_CLI_STEPS steps, its checkpoint and
+    # final eval (13,107 pairs); then cli.eval on its workdir.
+    mh_dir = tempfile.TemporaryDirectory(prefix="dssm_smoke_mh_")
+    mh_flags = ["--preset=multihost", "--mesh.model_parallel=1",
+                f"--io.workdir={mh_dir.name}"]
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    cli_train.main(mh_flags + [f"--train.max_steps={MH_CLI_STEPS}",
+                               "--train.log_every=1"])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    counts_mh = _build.launch_counts()
+    for name in mh_path:
+        check(counts_mh[name] == MH_CLI_STEPS, f"cli.train (multihost): "
+              f"kernel {name} launched {counts_mh[name]} times, expected "
+              f"{MH_CLI_STEPS}")
+    for name in ("gather_row_groups", "count_lookup", "dense_tower",
+                 "rank_counts"):
+        check(counts_mh[name] > 0, f"cli.train (multihost): its final eval "
+              f"launched no {name}")
+    records = cli_records(mh_dir.name)
+    mh_cli_losses = [r["loss"] for r in records if r["tag"] == "train"]
+    mh_cli_rates = [r["steps_per_sec"] for r in records
+                    if r["tag"] == "train"]
+    final = records[-1]
+    check(len(mh_cli_losses) == MH_CLI_STEPS
+          and all(np.isfinite(mh_cli_losses))
+          and final["tag"] == "eval_final" and 0 < final["recall@1"] <= 1,
+          f"cli.train (multihost): records {records}")
+    check(Checkpointer(mh_dir.name).latest_step() == MH_CLI_STEPS,
+          "cli.train (multihost) wrote no checkpoint of its last step")
+    out_eval = io.StringIO()
+    t2 = time.perf_counter()
+    with contextlib.redirect_stdout(out_eval):
+        cli_eval.main(mh_flags)
+    t3 = time.perf_counter()
+    reported = json.loads(out_eval.getvalue().strip().splitlines()[-1])
+    check(reported["step"] == MH_CLI_STEPS and all(
+        reported[k] == final[k] for k in ("recall@1", "ndcg@10", "mrr",
+                                          "num_queries")),
+        f"cli.eval after cli.train (multihost) reports {reported}, the "
+        f"run's final eval was {final}")
+    print(f"cli.train --preset=multihost --mesh.model_parallel=1: "
+          f"{MH_CLI_STEPS} steps of {cfg_mh.train.batch_size} rows in "
+          f"{t1 - t0:.1f} s (hashing {dm.toy_num_pairs} pairs, the remap, "
+          f"the first batch, the checkpoint and the final eval of "
+          f"{final['num_queries']} pairs included), losses {mh_cli_losses}, "
+          f"steps/s between records {mh_cli_rates[1:]}; cli.eval restored "
+          f"step {reported['step']} in {t3 - t2:.1f} s and reported the "
+          f"run's final eval (recall@1 {reported['recall@1']:.4f}) on {card}")
+    mh_dir.cleanup()
+
     # ---- phase 8: the kernels line, then the result line ----------------
     # Every kernel of the build holds its comparison and a launch count from
     # a main path's run.
@@ -3595,7 +4037,8 @@ def main() -> int:
         row = {k: r[k] for k in keys}
         row["kernel_ms"] = r["ms"]
         row["eager_ms"] = r["eager_ms"]
-        row.update({k: v for k, v in r.items() if k.startswith("ms_")})
+        row.update({k: v for k, v in r.items() if k.startswith("ms_")
+                    or k.endswith("_multihost")})
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

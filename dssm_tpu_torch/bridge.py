@@ -6,7 +6,9 @@ parameters with the same keys, dtypes (an f32, bf16 or int8 table; an int8
 table with its `<table>_scale`) and padded shapes, for the mlp, cnn and
 lstm towers; state_from_jax does the same for a whole TrainState (step,
 params, the optax state of the tree its optimizer covers), and
-params_to_numpy is the way back. batch_to_torch moves a numpy batch from
+params_to_numpy is the way back; shard_state cuts a state carried across
+whole to one rank of a mesh (its rows of the vocab table and of the table's
+optimizer state). batch_to_torch moves a numpy batch from
 the loader onto a device, widening the compressed wire fields there as
 dssm_tpu's lookup does; given the table's rows it first checks a raw-index
 batch's lookups on the host (check_raw_rows), so that the lookup kernel on
@@ -185,3 +187,15 @@ def params_to_numpy(params: Params) -> Dict[str, Dict[str, np.ndarray]]:
     return {tower: {k: (v.detach() if v.dtype == torch.int8
                         else v.detach().float()).cpu().numpy()
                     for k, v in tp.items()} for tower, tp in params.items()}
+
+
+def shard_state(state: TrainState, mesh) -> TrainState:
+    """This rank's part of a whole TrainState (e.g. state_from_jax's): the
+    rows of every vocab table (and of the optimizer state over it) that its
+    model coordinate holds (parallel/train_step.py::param_pspec), every
+    other tensor whole."""
+    from dssm_tpu_torch.parallel.train_step import shard_tree
+
+    return TrainState(step=state.step,
+                      params=shard_tree(state.params, mesh),
+                      opt_state=shard_tree(state.opt_state, mesh))

@@ -1,4 +1,4 @@
-"""Training entry point on one GPU.
+"""Training entry point, on one GPU or one process a GPU.
 
     python -m dssm_tpu_torch.cli.train --preset=full --io.workdir=$RUN \
         [--cpu] [--resume] [--train.max_steps=1000] [...]
@@ -31,7 +31,18 @@ and checkpoint records land on a block's last step, where step % every < K,
 as dssm_tpu's do. At most train.max_inflight_steps steps or blocks are
 queued on the card before the loop waits for the oldest.
 
-Not ported yet: the multi-device path.
+With the variables DSSM_COORDINATOR (host:port of process 0),
+DSSM_NUM_PROCS and DSSM_PROC_ID set, one process a GPU runs the same command
+(parallel/dist.py: NCCL on the GPU, gloo with --cpu): the processes form a
+data_parallel x model_parallel mesh (--mesh.*), each loads its data
+coordinate's shard of every batch and, at model_parallel > 1, its rows of
+the table, and trains with the parallel step (parallel/train_step.py);
+process 0 saves the remap, writes the records and the checkpoints (the
+table gathered whole, so cli.eval and cli.export read the workdir as a
+single-device one) and runs the evals. A joint-dedupe batch gets a
+per-shard slot space data.max_unique_rows_local wide when that is set (the
+multihost preset; on one device too). --preset=multihost needs
+model_parallel ranks: on one GPU, --mesh.model_parallel=1.
 """
 
 from __future__ import annotations
@@ -58,11 +69,15 @@ def main(argv: Optional[List[str]] = None) -> None:
         prefetch, train_eval_split,
     )
     from dssm_tpu_torch.data.loader import LockedIterator
-    from dssm_tpu_torch.device import resolve_device
     from dssm_tpu_torch.io.checkpoint import Checkpointer
     from dssm_tpu_torch.io.metrics import MetricsWriter
     from dssm_tpu_torch.kernels.gather import sublane_group
     from dssm_tpu_torch.models import base as model_base
+    from dssm_tpu_torch.parallel import dist
+    from dssm_tpu_torch.parallel.mesh import make_mesh
+    from dssm_tpu_torch.parallel.train_step import (
+        create_sharded_state, gather_tree, make_parallel_multi_step,
+        make_parallel_train_step)
     from dssm_tpu_torch.train.eval import evaluate
     from dssm_tpu_torch.train.loop import (
         add_rotation_offsets, make_multi_train_step, make_train_step,
@@ -70,12 +85,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     from dssm_tpu_torch.train.sparse_update import uses_sparse_update
     from dssm_tpu_torch.train.state import create_run_state
 
-    device = resolve_device(cpu)
+    joined = not torch.distributed.is_initialized()
+    device = dist.initialize(cpu=cpu)
+    joined = joined and torch.distributed.is_initialized()
     cfg = validate_cfg(coerce_overrides(get_preset(preset), raw_overrides))
-    if cfg.mesh.model_parallel > 1:
-        raise NotImplementedError(
-            "the multi-device path is not ported yet (ROADMAP.md, Queue 1: "
-            "multi-device)")
     if cfg.io.tensorboard or cfg.io.profile_dir:
         raise NotImplementedError(
             "TensorBoard summaries and the profiler hook (io.tensorboard, "
@@ -83,9 +96,16 @@ def main(argv: Optional[List[str]] = None) -> None:
             "tooling); metrics go to " + cfg.io.metrics_file)
     if cfg.io.debug_nans:
         torch.autograd.set_detect_anomaly(True)
-    kind = (torch.cuda.get_device_name(0) if device.type == "cuda"
+    kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"preset={cfg.name} device={kind}", file=sys.stderr)
+    multi_device = (torch.distributed.is_initialized()
+                    or cfg.mesh.model_parallel > 1)
+    mesh = make_mesh(cfg.mesh, device) if multi_device else None
+    lead = mesh is None or mesh.rank == 0  # records, checkpoints, evals
+    print(f"preset={cfg.name} device={kind} processes="
+          f"{dist.process_count()} multi_device={multi_device}"
+          + (f" mesh={mesh.shape} rank={mesh.rank}" if mesh else ""),
+          file=sys.stderr)
 
     if cfg.data.path:
         hashed_train, hashed_eval, _, _ = load_file_corpus(cfg.tower,
@@ -111,27 +131,34 @@ def main(argv: Optional[List[str]] = None) -> None:
                                  num_shards=cfg.mesh.model_parallel)
         hashed_train = apply_remap(hashed_train, remap)
         hashed_eval = apply_remap(hashed_eval, remap)
-        save_remap(cfg.io.workdir, remap)
+        if lead:
+            save_remap(cfg.io.workdir, remap)
         print("freq_remap: vocab permutation built from the train corpus, "
               f"saved to {cfg.io.workdir}", file=sys.stderr)
 
-    writer = MetricsWriter(f"{cfg.io.workdir}/{cfg.io.metrics_file}")
+    writer = MetricsWriter(f"{cfg.io.workdir}/{cfg.io.metrics_file}"
+                           if lead else None)
     ckpt = Checkpointer(cfg.io.workdir, keep=cfg.train.keep_checkpoints)
     state = None
     if resume:
-        state = ckpt.restore(device=device)
+        state = ckpt.restore(device=device, mesh=mesh)
         if state is not None:
             print(f"resumed from step {state.step}", file=sys.stderr)
-    elif ckpt.all_steps():
-        # A fresh run into a workdir with checkpoints: stale later-step
-        # files would be what a later --resume or export picks up.
-        print(f"WARNING: fresh run (no --resume): clearing the checkpoints "
-              f"under {ckpt.directory}", file=sys.stderr)
-        ckpt.clear()
+    else:
+        if lead and ckpt.all_steps():
+            # A fresh run into a workdir with checkpoints: stale later-step
+            # files would be what a later --resume or export picks up.
+            print(f"WARNING: fresh run (no --resume): clearing the "
+                  f"checkpoints under {ckpt.directory}", file=sys.stderr)
+            ckpt.clear()
+        # Every process waits here, whether or not it saw checkpoints, so
+        # none can read the workdir before process 0 has cleared it.
+        dist.barrier()
     if state is None:
         params = model_base.init_params(cfg.tower, seed=cfg.train.seed,
                                         device=device)
-        state = create_run_state(cfg, params)
+        state = (create_sharded_state(cfg, mesh, params) if mesh
+                 else create_run_state(cfg, params))
 
     table = next(iter(state.params.values()))[
         model_base.TABLE_KEY[cfg.tower.arch]]
@@ -147,6 +174,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         cfg.train.batch_size,
         sequence,
         seed=cfg.train.seed,
+        # One process a data coordinate's shard: the mp processes of one
+        # data coordinate build the same batches.
+        process_index=mesh.coords["data"] if mesh else 0,
+        process_count=mesh.shape["data"] if mesh else 1,
         dedup_unique=cfg.data.max_unique if dedup else None,
         dedup_group=sublane_group(table.dtype),
         dedup_unique_rows=cfg.data.max_unique_rows,
@@ -157,15 +188,23 @@ def main(argv: Optional[List[str]] = None) -> None:
         # position.
         sort_rows=dedup and not sequence and cfg.loss.mode != "rotate",
         pipeline_workers=cfg.data.pipeline_workers,
-        local_sel_cap=cfg.data.max_unique_rows_local if dedup else 0,
+        # The third dedupe level: one slot space for the process's shard.
+        local_sel_cap=(cfg.data.max_unique_rows_local
+                       if dedup and cfg.tower.shared_weights else 0),
+        local_sel_shards=1,
         start_batch=start_step,
         reshuffle_each_epoch=cfg.data.reshuffle_each_epoch,
         cache_epoch_batches=cfg.data.cache_epoch_batches,
     ), depth=2))
     spc = cfg.train.steps_per_call
-    step_fn = make_train_step(cfg)
-    multi_fn = make_multi_train_step(cfg) if spc > 1 else None
-    rows = table.shape[0]
+    if mesh:
+        step_fn = make_parallel_train_step(cfg, mesh)
+        multi_fn = make_parallel_multi_step(cfg, mesh) if spc > 1 else None
+    else:
+        step_fn = make_train_step(cfg)
+        multi_fn = make_multi_train_step(cfg) if spc > 1 else None
+    # The table's global rows, which a raw batch's lookups must lie in.
+    rows = cfg.tower.vocab_size
     # The bounded in-flight window (train.max_inflight_steps): an event
     # after each step or block; the loop waits for the oldest while more
     # are queued. On the CPU a step is done when it returns.
@@ -184,6 +223,14 @@ def main(argv: Optional[List[str]] = None) -> None:
                 yield stack_batches(next(batches) for _ in range(spc))
 
         stacked_blocks = prefetch(_stacked_stream(), depth=2)
+
+    def run_eval():
+        """The eval on process 0, of the whole parameters (the table
+        gathered over the model group, which every process joins)."""
+        params = gather_tree(state.params, mesh) if mesh else state.params
+        if not lead:
+            return None
+        return evaluate(params, cfg, hashed_eval, cfg.train.batch_size)
 
     t_last = time.perf_counter()
     step = last_log_step = start_step
@@ -219,28 +266,36 @@ def main(argv: Optional[List[str]] = None) -> None:
                 metrics["steps_per_sec"] * cfg.train.batch_size)
             t_last, last_log_step = now, step
             writer.write("train", step, metrics)
-            print(f"step {step}: loss={metrics['loss']:.4f} "
-                  f"r@1={metrics['in_batch_recall@1']:.3f}", file=sys.stderr)
+            if lead:
+                print(f"step {step}: loss={metrics['loss']:.4f} "
+                      f"r@1={metrics['in_batch_recall@1']:.3f}",
+                      file=sys.stderr)
         if (cfg.train.eval_every and step
                 and step % cfg.train.eval_every < stride):
             # The eval corpus's prepared batches are cached on the device
             # after the first eval (train/eval.py).
-            ev = evaluate(state.params, cfg, hashed_eval,
-                          cfg.train.batch_size)
-            writer.write("eval", step, ev)
-            print(f"eval@{step}: recall@1={ev['recall@1']:.3f} "
-                  f"ndcg@10={ev['ndcg@10']:.3f}", file=sys.stderr)
+            ev = run_eval()
+            if ev is not None:
+                writer.write("eval", step, ev)
+                print(f"eval@{step}: recall@1={ev['recall@1']:.3f} "
+                      f"ndcg@10={ev['ndcg@10']:.3f}", file=sys.stderr)
         if (cfg.train.checkpoint_every and step
                 and step % cfg.train.checkpoint_every < stride):
-            ckpt.save(step, state)
+            ckpt.save(step, state, mesh)
         step += 1
 
-    ckpt.save(cfg.train.max_steps, state)
-    ev = evaluate(state.params, cfg, hashed_eval, cfg.train.batch_size)
-    writer.write("eval_final", cfg.train.max_steps, ev)
-    print(f"final eval: recall@1={ev['recall@1']:.3f} "
-          f"ndcg@10={ev['ndcg@10']:.3f} mrr={ev['mrr']:.3f}", file=sys.stderr)
+    ckpt.save(cfg.train.max_steps, state, mesh)
+    ev = run_eval()
+    if ev is not None:
+        writer.write("eval_final", cfg.train.max_steps, ev)
+        print(f"final eval: recall@1={ev['recall@1']:.3f} "
+              f"ndcg@10={ev['ndcg@10']:.3f} mrr={ev['mrr']:.3f}",
+              file=sys.stderr)
     writer.close()
+    if joined:
+        # The others wait for process 0's last checkpoint and eval.
+        dist.barrier()
+        dist.shutdown()
 
 
 if __name__ == "__main__":

@@ -9,10 +9,11 @@ bridge.batch_to_torch moves them to the device. Hashing and the dedupe run
 on the C++ host data plane (data/native.py), which releases the GIL, so
 batch_iterator's and eval_batches' thread pools (pipeline_workers) build
 several batches at once, handed back in order: bit-identical to the serial
-path. A copy of the single-process path of dssm_tpu/data/loader.py,
-bit-identical to it (tests/test_torch_data.py, tests/test_torch_pipeline.py):
-the multi-host shards and the per-shard slot spaces come with the
-multi-device path.
+path. A copy of dssm_tpu/data/loader.py, bit-identical to it
+(tests/test_torch_data.py, tests/test_torch_pipeline.py,
+tests/test_torch_parallel.py), with its process shards (a batch's rows cut
+into contiguous shards, the dedupe over the whole batch) and its per-shard
+slot spaces (reslot_local).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from dssm_tpu_torch.data.toy import ToyPairs
 Batch = Dict[str, np.ndarray]
 
 # Dedupe fields that describe the whole batch rather than one row each.
-_BATCH_WIDE = ("uniq", "sel")
+_BATCH_WIDE = ("uniq", "sel", "sel_local")
 
 
 @dataclass
@@ -191,6 +192,112 @@ def eval_batches(
 
     yield from map_in_order(make, ((s, s) for s in range(0, n, batch)),
                             pipeline_workers)
+
+
+def _global_dedup_local_batch(
+    hashed: HashedPairs,
+    rows: np.ndarray,
+    sequence: bool,
+    dedup_unique: int,
+    dedup_group: int,
+    dedup_unique_rows: Optional[int],
+    dedup_joint: bool,
+    lo: int,
+    local: int,
+    impl: str = "auto",
+) -> Batch:
+    """One process's shard, rows [lo, lo + local) of the batch of corpus
+    rows `rows`, with the dedupe fields of the WHOLE batch: the dedupe sees
+    every row's indices, so `uniq` / `sel` (or {q,d}_uniq / _sel) are the
+    same in every process, while the weights, masks and slots are sliced to
+    the shard. Bit-identical to select_batch of the whole batch, sliced."""
+    if sequence:
+        q_idx_g, d_idx_g = hashed.q_seq_idx[rows], hashed.d_seq_idx[rows]
+    else:
+        q_idx_g, d_idx_g = hashed.q_idx[rows], hashed.d_idx[rows]
+    if dedup_unique_rows is None:
+        dedup_unique_rows = max(256, dedup_unique // 8)
+    max_u = (dedup_unique // 8) * dedup_group
+    sl = slice(lo, lo + local)
+    loc = rows[sl]
+    out: Batch = {"q_idx": q_idx_g[sl], "d_idx": d_idx_g[sl]}
+    if sequence:
+        out["q_wgt"] = hashed.q_seq_wgt[loc]
+        out["d_wgt"] = hashed.d_seq_wgt[loc]
+        out["q_mask"] = hashed.q_mask[loc]
+        out["d_mask"] = hashed.d_mask[loc]
+    else:
+        out["q_wgt"] = hashed.q_wgt[loc]
+        out["d_wgt"] = hashed.d_wgt[loc]
+    if dedup_joint:
+        uniq, sel, q_inv, d_inv, q_keep, d_keep = dedupe_two_level_joint(
+            q_idx_g, d_idx_g, max_u, dedup_unique_rows, dedup_group, impl)
+        out["uniq"], out["sel"] = uniq, sel
+        out["q_inv"], out["d_inv"] = q_inv[sl], d_inv[sl]
+        keeps = {"q": q_keep, "d": d_keep}
+    else:
+        keeps = {}
+        for side, idx_g in (("q", q_idx_g), ("d", d_idx_g)):
+            uniq, sel, inv, keep = dedupe_two_level(
+                idx_g, max_u, dedup_unique_rows, dedup_group, impl)
+            out[f"{side}_uniq"] = uniq
+            out[f"{side}_sel"] = sel
+            out[f"{side}_inv"] = inv[sl]
+            keeps[side] = keep
+    for side, keep in keeps.items():
+        kl = keep[sl]
+        if not np.all(kl == 1.0):
+            out[f"{side}_wgt"] = out[f"{side}_wgt"] * kl
+    return out
+
+
+def reslot_local(batch: Batch, cap: int, shards: int = 1) -> Batch:
+    """Third dedupe level: each data shard's lookups re-slotted into a slot
+    space of its own, `cap` wide, so a shard's lookup reads `cap` rows
+    instead of the whole batch's unique-row width.
+
+    The batch's rows are cut into `shards` contiguous blocks (a mesh's
+    data shards). Adds `sel_local` [shards, cap]: sel_local[s, j] is the
+    slot of `sel` (a global unique-row slot) that shard s's local slot j
+    holds; rewrites {q,d}_inv into local slots. A shard's slots are its
+    used global slots in increasing order; past `cap`, the most used are
+    kept (ties to the lower slot) and the others' lookups get weight 0.
+    `sel` is kept: the step selects each shard's rows from compact[sel]."""
+    sel = batch["sel"]
+    out = dict(batch)
+    b = batch["q_inv"].shape[0]
+    if b % shards:
+        raise ValueError(f"batch {b} not divisible by {shards} shards")
+    rows_per = b // shards
+    sel_local = np.zeros((shards, cap), dtype=sel.dtype)
+    q_inv = np.ascontiguousarray(batch["q_inv"]).copy()
+    d_inv = np.ascontiguousarray(batch["d_inv"]).copy()
+    q_wgt = np.array(batch["q_wgt"], copy=True)
+    d_wgt = np.array(batch["d_wgt"], copy=True)
+    for s in range(shards):
+        sl = slice(s * rows_per, (s + 1) * rows_per)
+        qi, di = q_inv[sl], d_inv[sl]
+        qw, dw = q_wgt[sl], d_wgt[sl]
+        both = np.concatenate([qi.reshape(-1), di.reshape(-1)])
+        live = np.concatenate([(qw != 0).reshape(-1), (dw != 0).reshape(-1)])
+        used, counts = np.unique(both[live], return_counts=True)
+        if used.size > cap:
+            keep = np.argsort(-counts, kind="stable")[:cap]
+            keep.sort()
+            used = used[keep]
+        remap = np.zeros((int(sel.shape[0]),), dtype=np.int32)
+        hit = np.zeros((int(sel.shape[0]),), dtype=bool)
+        remap[used] = np.arange(used.size, dtype=np.int32)
+        hit[used] = True
+        sel_local[s, :used.size] = used
+        for inv, wgt in ((qi, qw), (di, dw)):
+            ok = hit[inv]
+            wgt[~ok] = 0
+            inv[...] = np.where(ok, remap[inv], 0)
+    out["sel_local"] = sel_local
+    out["q_inv"], out["d_inv"] = q_inv, d_inv
+    out["q_wgt"], out["d_wgt"] = q_wgt, d_wgt
+    return out
 
 
 def pad_batch(batch: Batch, to_rows: int) -> Batch:
@@ -416,11 +523,18 @@ def batch_iterator(
     *,
     impl: str = "auto",
 ) -> Iterator[Batch]:
-    """Infinite epoch-shuffled iterator over training batches, with
-    dssm_tpu's signature; one process.
+    """Infinite epoch-shuffled iterator over one process's shards of the
+    training batches, with dssm_tpu's signature.
 
-    Each epoch is a seeded permutation of the corpus cut into batches (the
-    ragged tail is dropped). start_batch is the DATA CURSOR: the number of
+    Each epoch is a seeded permutation of the corpus cut into batches of
+    global_batch rows (the ragged tail is dropped); every process computes
+    the same permutation and takes its contiguous shard, rows
+    [process_index * B_local, (process_index + 1) * B_local) of each batch.
+    With dedupe and process_count > 1 the dedupe runs over the whole batch,
+    so the batch-wide fields (`uniq`, `sel`, ...) are the same in every
+    process (_global_dedup_local_batch). local_sel_cap > 0 adds the third
+    dedupe level to a joint batch: local_sel_shards slot spaces of that
+    width over the process's shard (reslot_local), after the row sort. start_batch is the DATA CURSOR: the number of
     batches a previous incarnation of the run consumed. The stream
     fast-forwards by index math on the deterministic per-epoch permutation,
     so a resumed run continues the data stream where the checkpoint left it.
@@ -439,14 +553,11 @@ def batch_iterator(
     batch_to_torch and add_rotation_offsets do). impl picks the dedupe's
     C++ ("auto") or numpy ("plain") version.
     """
-    if process_count != 1 or process_index != 0:
-        raise NotImplementedError(
-            "multi-host batch shards are not ported yet (ROADMAP.md, "
-            "Queue 1: multi-device)")
-    if local_sel_cap:
-        raise NotImplementedError(
-            "per-shard slot spaces (local_sel_cap) are not ported yet "
-            "(ROADMAP.md, Queue 1: multi-device)")
+    if global_batch % process_count != 0:
+        raise ValueError(
+            f"global batch {global_batch} not divisible by {process_count} "
+            "processes")
+    local = global_batch // process_count
     if cache_epoch_batches and reshuffle_each_epoch:
         raise ValueError("cache_epoch_batches requires "
                          "reshuffle_each_epoch=False: a reshuffled epoch is "
@@ -472,11 +583,20 @@ def batch_iterator(
 
     def make(job) -> Batch:
         _, rows = job
-        out = select_batch(hashed, rows, dedup_unique, dedup_group,
-                           dedup_unique_rows, dedup_joint, sequence=sequence,
-                           impl=impl)
+        if dedup_unique and process_count > 1:
+            out = _global_dedup_local_batch(
+                hashed, rows, sequence, dedup_unique, dedup_group,
+                dedup_unique_rows, dedup_joint, process_index * local, local,
+                impl)
+        else:
+            shard = rows[process_index * local:(process_index + 1) * local]
+            out = select_batch(hashed, shard, dedup_unique, dedup_group,
+                               dedup_unique_rows, dedup_joint,
+                               sequence=sequence, impl=impl)
         if sort_rows:
             out = sort_batch_rows(out)
+        if local_sel_cap and "sel" in out:
+            out = reslot_local(out, local_sel_cap, local_sel_shards)
         if wire_compress:
             out = compress_wire(out, plan)
         return out

@@ -3,7 +3,11 @@
 A checkpoint is one file, workdir/torch_checkpoints/step_<N>.pt, holding the
 step, the parameters and the optimizer state as CPU tensors. It is written
 to a temporary name and renamed, so a reader never sees a partial file; the
-newest `keep` are kept. Saving is synchronous. The API follows
+newest `keep` are kept. Saving is synchronous. A state sharded over a
+mesh (parallel/train_step.py) is written whole, in the same format: its
+table is all-gathered over the model group and rank 0 writes; restoring
+onto a mesh cuts it again, so cli.eval and cli.export read a multi-device
+workdir as they read a single-device one. The API follows
 dssm_tpu/io/checkpoint.py (whose orbax checkpoints live under
 workdir/checkpoints and are a different format: the port does not read
 them).
@@ -53,9 +57,19 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state: TrainState) -> None:
+    def save(self, step: int, state: TrainState, mesh=None) -> None:
         """Write the state as step `step`, replacing a checkpoint of the
-        same step, and drop all but the newest `keep`."""
+        same step, and drop all but the newest `keep`. With the mesh a
+        sharded state is on, every rank calls it (the table's all-gather)
+        and rank 0 writes."""
+        if mesh is not None:
+            from dssm_tpu_torch.parallel.train_step import gather_tree
+
+            state = TrainState(step=state.step,
+                               params=gather_tree(state.params, mesh),
+                               opt_state=gather_tree(state.opt_state, mesh))
+            if mesh.rank != 0:
+                return
         payload = {
             "step": int(state.step),
             "params": _map_tensors(state.params, lambda t: t.detach().cpu()),
@@ -70,9 +84,11 @@ class Checkpointer:
                 os.remove(self._path(old))
 
     def restore(self, step: Optional[int] = None,
-                device: DeviceLike = "cuda") -> Optional[TrainState]:
+                device: DeviceLike = "cuda",
+                mesh=None) -> Optional[TrainState]:
         """The checkpoint of `step` (default: the latest) on `device`, or
-        None when the workdir holds none."""
+        None when the workdir holds none; with a mesh, this rank's cut of
+        it (bridge.shard_state)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -80,12 +96,17 @@ class Checkpointer:
         dev = as_device(device)
         payload = torch.load(self._path(step), map_location="cpu",
                              weights_only=True)
-        return TrainState(
+        state = TrainState(
             step=int(payload["step"]),
             params=_map_tensors(payload["params"], lambda t: t.to(dev)),
             opt_state=_map_tensors(payload["opt_state"],
                                    lambda t: t.to(dev)),
         )
+        if mesh is not None:
+            from dssm_tpu_torch.bridge import shard_state
+
+            state = shard_state(state, mesh)
+        return state
 
     def clear(self) -> None:
         for step in self.all_steps():

@@ -29,8 +29,22 @@ from dssm_tpu_torch.kernels.gather import (  # noqa: F401
     expand_group_rows, gather_row_groups)
 from dssm_tpu_torch.kernels.joint import joint_lookup, select_rows_plain
 
-# dssm_tpu's name for the compact gather; here it is the kernel itself.
-gather_compact = gather_row_groups
+
+
+def gather_compact(table: torch.Tensor, uniq_groups: torch.Tensor,
+                   group: int = 8, *, impl: str = "auto") -> torch.Tensor:
+    """compact [G*group, H] = the table rows of each unique group (the
+    gather kernel). Inside a sharded context the table is this rank's
+    shard: each model rank gathers the groups it owns and the partial
+    blocks are summed over the model group (kernels/sharded_embed.py)."""
+    from dssm_tpu_torch.kernels import sharded_embed
+
+    ctx = sharded_embed.current_context()
+    if ctx is not None:
+        mesh, _, coll = ctx
+        return sharded_embed.gather_compact_sharded(
+            table, uniq_groups, group, mesh, impl=impl, collective_dtype=coll)
+    return gather_row_groups(table, uniq_groups, group, impl=impl)
 
 
 def select_rows(compact: torch.Tensor, row_sel: torch.Tensor,
@@ -122,7 +136,7 @@ def dedup_embedding_bag(
 ) -> torch.Tensor:
     """Full forward: gather the compact row groups (dequantized for an int8
     table), then the count lookup."""
-    compact = gather_row_groups(table, uniq_groups, group, impl=impl)
+    compact = gather_compact(table, uniq_groups, group, impl=impl)
     if scale is not None:
         compact = dequant_compact(compact, scale, uniq_groups, group)
     return lookup_from_compact(compact, inv, wgt, compute_dtype, row_sel,

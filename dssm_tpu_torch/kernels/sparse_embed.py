@@ -15,9 +15,26 @@ the port, "auto" launches the CUDA kernel for a CUDA tensor
 (kernels/embed.py) and takes the plain version for a CPU tensor.
 
 embedding_bag_plain is dssm_tpu's embedding_bag_xla; embedding_bag_grad_plain
-its segment-sum table gradient (embedding_bag_grad_reference). All three are
+its segment-sum table gradient (embedding_bag_grad_reference). Both are
 kernels/embed.py's; embedding_bag returns f32 whatever the table's dtype.
+Inside a sharded context (kernels/sharded_embed.py, installed by the
+parallel steps when the table is cut over mp > 1 model ranks) embedding_bag
+takes the local partial bag + the sum over the model group.
 """
 
+import torch
+
+from dssm_tpu_torch.kernels import embed, sharded_embed
 from dssm_tpu_torch.kernels.embed import (  # noqa: F401
-    embedding_bag, embedding_bag_grad_plain, embedding_bag_plain)
+    embedding_bag_grad_plain, embedding_bag_plain)
+
+
+def embedding_bag(table: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
+                  *, impl: str = "auto") -> torch.Tensor:
+    """kernels/embed.py's embedding_bag, or the sharded bag over this
+    rank's table shard inside a sharded context."""
+    ctx = sharded_embed.current_context()
+    if ctx is not None:
+        return sharded_embed.embedding_bag_sharded(table, idx, wgt, ctx[0],
+                                                   impl=impl)
+    return embed.embedding_bag(table, idx, wgt, impl=impl)

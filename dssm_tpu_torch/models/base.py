@@ -22,7 +22,7 @@ from torch import nn
 from dssm_tpu_torch.config import TowerConfig
 from dssm_tpu_torch.device import DeviceLike, as_device
 from dssm_tpu_torch.kernels.dedup_embed import dedup_embedding_bag
-from dssm_tpu_torch.kernels.embed import embedding_bag
+from dssm_tpu_torch.kernels.sparse_embed import embedding_bag
 from dssm_tpu_torch.kernels.gather import sublane_group
 
 Params = Dict[str, Dict[str, torch.Tensor]]

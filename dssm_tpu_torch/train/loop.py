@@ -29,10 +29,9 @@ from torch.utils.checkpoint import checkpoint
 
 from dssm_tpu_torch.bridge import batch_to_torch
 from dssm_tpu_torch.config import RunConfig
-from dssm_tpu_torch.loss.cosine_softmax import in_batch_loss, rotate_loss
 from dssm_tpu_torch.models import base as model_base
 from dssm_tpu_torch.train.sparse_update import (
-    make_sparse_train_step, uses_sparse_update)
+    default_loss, make_sparse_train_step, uses_sparse_update)
 from dssm_tpu_torch.train.state import (
     TrainState, apply_updates, check_dense_table, optimizer_update)
 
@@ -48,11 +47,16 @@ def rotation_offsets(batch_size: int, num_negatives: int,
                       replace=False)
 
 
-def make_loss_fn(cfg: RunConfig, impl: str = "auto") -> Callable:
+def make_loss_fn(cfg: RunConfig, impl: str = "auto",
+                 loss_of: Optional[Callable] = None) -> Callable:
     """(params, batch) -> (loss, aux): both towers from the table on, each
-    side its own tower call, then the loss. Differentiable in every
-    parameter, the table included. With train.remat each side's embed is
-    recomputed in the backward pass instead of keeping its activations."""
+    side its own tower call, then the loss (loss_of(q, d, batch), by
+    default the in-batch or rotate loss on one device). Differentiable in
+    every parameter, the table included. With train.remat each side's
+    embed is recomputed in the backward pass instead of keeping its
+    activations."""
+    if loss_of is None:
+        loss_of = default_loss(cfg, impl)
 
     def embed(params, side, batch):
         lookup = model_base.embed_table_lookup(params, cfg.tower, side, batch,
@@ -66,9 +70,7 @@ def make_loss_fn(cfg: RunConfig, impl: str = "auto") -> Callable:
             d = checkpoint(embed, params, "d", batch, use_reentrant=False)
         else:
             q, d = embed(params, "q", batch), embed(params, "d", batch)
-        if cfg.loss.mode == "rotate":
-            return rotate_loss(q, d, batch["rot_offsets"], cfg.loss.gamma)
-        return in_batch_loss(q, d, cfg.loss.gamma, impl=impl)
+        return loss_of(q, d, batch)
 
     return loss_fn
 
@@ -122,7 +124,13 @@ def make_multi_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
     make_train_step's step, state threaded through (a bf16 or int8 table's
     scatter seeds come from each step's own state.step, as in dssm_tpu's
     scan)."""
-    step_fn = make_train_step(cfg, impl)
+    return repeat_step(make_train_step(cfg, impl))
+
+
+def repeat_step(step_fn: Callable) -> Callable:
+    """(state, stacked batch) -> (state, aux stacked [K]): step_fn on the
+    views [j] of every [K, ...] field, j = 0 .. K - 1, state threaded
+    through."""
 
     def multi_step(state: TrainState, batches: Dict
                    ) -> Tuple[TrainState, Dict]:

@@ -18,6 +18,10 @@ table out of the differentiated function:
      (scatter kernels); the dense parameters take an sgd / momentum / adam
      step.
 
+A joint batch with one per-shard slot space (`sel_local` [1, cap],
+data/loader.reslot_local; the multihost preset) reads its rows through
+sel[sel_local[0]] (joint_row_sel).
+
 A batch without dedupe fields (data.dedup_lookup=False, f32 tables) takes
 the raw-index branch: both sides' lookups run outside autograd through the
 embedding-bag kernel, the lookup outputs are the differentiation boundary,
@@ -164,6 +168,99 @@ def apply_table_update(table: torch.Tensor, uniq: torch.Tensor,
                                   impl=impl)
 
 
+def joint_row_sel(batch: Batch) -> torch.Tensor:
+    """The compact row of each unique-row slot a joint batch's lookups
+    read, int32: `sel`, or with a per-shard slot space (`sel_local` [1,
+    cap], data/loader.reslot_local) sel[sel_local[0]], the one shard's
+    slots composed with the batch's (the same rows the parallel step
+    selects, parallel/sparse_step.py)."""
+    sel = batch["sel"].to(torch.int32)
+    if "sel_local" in batch:
+        sl = batch["sel_local"]
+        if sl.dim() != 2 or sl.shape[0] != 1:
+            raise ValueError(
+                f"sel_local shape {tuple(sl.shape)}: the single-device step "
+                "needs local_sel_shards=1 (multi-shard slot spaces run "
+                "under the parallel step, one shard a process)")
+        sel = sel[sl[0].long()]
+    return sel.contiguous()
+
+
+def default_loss(cfg: RunConfig, impl: str = "auto") -> Callable:
+    """(q, d, batch) -> (loss, aux) on one device: the in-batch loss, or
+    the rotate loss over the batch's rot_offsets."""
+    def loss_of(q, d, batch):
+        if cfg.loss.mode == "rotate":
+            return rotate_loss(q, d, batch["rot_offsets"], cfg.loss.gamma)
+        return in_batch_loss(q, d, cfg.loss.gamma, impl=impl)
+
+    return loss_of
+
+
+def towers_from_lookups(cfg: RunConfig, dense: Dict, lq: torch.Tensor,
+                        ld: torch.Tensor, batch: Batch, impl: str = "auto"
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q, d) unit vectors from the two sides' first-layer lookups."""
+    if cfg.tower.shared_weights and cfg.tower.arch == "mlp":
+        # Shared MLP towers: both sides go through one stacked tower call,
+        # one fused tower kernel on [2B] rows instead of two on [B]. The MLP
+        # tower ignores batch/prefix, so stacking is exact; the sequence
+        # towers read each side's word mask.
+        b = lq.shape[0]
+        qd = model_base.embed_from_lookup(
+            dense, cfg.tower, "q", batch, torch.cat([lq, ld], dim=0),
+            impl=impl)
+        return qd[:b], qd[b:]
+    q = model_base.embed_from_lookup(dense, cfg.tower, "q", batch, lq,
+                                     impl=impl)
+    d = model_base.embed_from_lookup(dense, cfg.tower, "d", batch, ld,
+                                     impl=impl)
+    return q, d
+
+
+def side_lookups(cfg: RunConfig, cq: torch.Tensor, cd: torch.Tensor,
+                 batch: Batch, impl: str = "auto"
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A per-side batch's two lookups from its compact blocks, in the
+    compute dtype."""
+    compute_dtype = torch_dtype(cfg.tower.compute_dtype)
+    lq = lookup_from_compact(cq, batch["q_inv"], batch["q_wgt"],
+                             compute_dtype, batch.get("q_sel"),
+                             impl=impl).to(compute_dtype)
+    ld = lookup_from_compact(cd, batch["d_inv"], batch["d_wgt"],
+                             compute_dtype, batch.get("d_sel"),
+                             impl=impl).to(compute_dtype)
+    return lq, ld
+
+
+def grads_of(loss_fn: Callable, dense: Dict, tensors, batch: Batch):
+    """loss_fn(dense, *tensors, batch) -> (loss, aux), differentiated in
+    the dense parameters and in `tensors` (compact blocks or lookups):
+    (aux, g_dense, g_tensors)."""
+    dense = {tower: {k: v.detach().requires_grad_(True)
+                     for k, v in tp.items()}
+             for tower, tp in dense.items()}
+    tensors = [c.detach().requires_grad_(True) for c in tensors]
+    loss, aux = loss_fn(dense, *tensors, batch)
+    leaves = [v for tp in dense.values() for v in tp.values()]
+    grads = torch.autograd.grad(loss, tensors + leaves)
+    g_tensors, g_leaves = grads[:len(tensors)], grads[len(tensors):]
+    it = iter(g_leaves)
+    g_dense = {tower: {k: next(it) for k in tp}
+               for tower, tp in dense.items()}
+    return aux, g_dense, g_tensors
+
+
+def joint_fields(batch: Batch, row_sel: torch.Tensor) -> Tuple:
+    """(row_sel, q_inv, q_wgt, d_inv, d_wgt) as the joint lookup kernels
+    take them: int32 slots, f32 weights, contiguous."""
+    return (row_sel.to(torch.int32).contiguous(),
+            batch["q_inv"].to(torch.int32).contiguous(),
+            batch["q_wgt"].float().contiguous(),
+            batch["d_inv"].to(torch.int32).contiguous(),
+            batch["d_wgt"].float().contiguous())
+
+
 def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
     """(state, batch) -> (state, aux): one SGD step with sparse table
     updates. The batch is on the parameters' device (bridge.batch_to_torch).
@@ -171,58 +268,21 @@ def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
     tensor as the state passed in."""
     table_key = TABLE_KEY[cfg.tower.arch]
     compute_dtype = torch_dtype(cfg.tower.compute_dtype)
+    loss_of = default_loss(cfg, impl)
 
     def loss_from_lookups(dense, lq, ld, batch):
-        if cfg.tower.shared_weights and cfg.tower.arch == "mlp":
-            # Shared MLP towers: both sides go through one stacked tower
-            # call, one fused tower kernel on [2B] rows instead of two on
-            # [B]. The MLP tower ignores batch/prefix, so stacking is exact;
-            # the sequence towers read each side's word mask.
-            b = lq.shape[0]
-            qd = model_base.embed_from_lookup(
-                dense, cfg.tower, "q", batch, torch.cat([lq, ld], dim=0),
-                impl=impl)
-            q, d = qd[:b], qd[b:]
-        else:
-            q = model_base.embed_from_lookup(dense, cfg.tower, "q", batch,
-                                             lq, impl=impl)
-            d = model_base.embed_from_lookup(dense, cfg.tower, "d", batch,
-                                             ld, impl=impl)
-        if cfg.loss.mode == "rotate":
-            return rotate_loss(q, d, batch["rot_offsets"], cfg.loss.gamma)
-        return in_batch_loss(q, d, cfg.loss.gamma, impl=impl)
+        return loss_of(*towers_from_lookups(cfg, dense, lq, ld, batch, impl),
+                       batch)
 
     def loss_from_compacts(dense, cq, cd, batch):
-        lq = lookup_from_compact(cq, batch["q_inv"], batch["q_wgt"],
-                                 compute_dtype, batch.get("q_sel"),
-                                 impl=impl).to(compute_dtype)
-        ld = lookup_from_compact(cd, batch["d_inv"], batch["d_wgt"],
-                                 compute_dtype, batch.get("d_sel"),
-                                 impl=impl).to(compute_dtype)
-        return loss_from_lookups(dense, lq, ld, batch)
+        return loss_from_lookups(dense, *side_lookups(cfg, cq, cd, batch,
+                                                      impl), batch)
 
     def loss_from_joint_lookups(dense, lq, ld, batch):
         # The joint lookup's f32 outputs, cast to the compute dtype inside
         # the differentiated function, as joint_lookup_from_compact casts.
         return loss_from_lookups(dense, lq.to(compute_dtype),
                                  ld.to(compute_dtype), batch)
-
-    def grads_of(loss_fn, dense, compacts, batch):
-        """loss_fn(dense, *compacts, batch) differentiated in the dense
-        parameters and the compact blocks (the raw and joint-dedupe
-        branches: the lookups)."""
-        dense = {tower: {k: v.detach().requires_grad_(True)
-                         for k, v in tp.items()}
-                 for tower, tp in dense.items()}
-        compacts = [c.detach().requires_grad_(True) for c in compacts]
-        loss, aux = loss_fn(dense, *compacts, batch)
-        leaves = [v for tp in dense.values() for v in tp.values()]
-        grads = torch.autograd.grad(loss, compacts + leaves)
-        g_compacts, g_leaves = grads[:len(compacts)], grads[len(compacts):]
-        it = iter(g_leaves)
-        g_dense = {tower: {k: next(it) for k in tp}
-                   for tower, tp in dense.items()}
-        return aux, g_dense, g_compacts
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict]:
         params = state.params
@@ -233,18 +293,10 @@ def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
             if "shared" not in params:
                 raise ValueError(
                     "joint-dedup batches (`uniq`) require shared_weights")
-            if "sel_local" in batch:
-                raise NotImplementedError(
-                    "per-shard slot spaces (`sel_local`) belong to the "
-                    "multi-device path (ROADMAP.md, Queue 1: multi-device)")
             table = params["shared"][table_key]
             scale = params["shared"].get(f"{table_key}_scale")
             group = sublane_group(table.dtype)
-            fields = (batch["sel"].to(torch.int32).contiguous(),
-                      batch["q_inv"].to(torch.int32).contiguous(),
-                      batch["q_wgt"].float().contiguous(),
-                      batch["d_inv"].to(torch.int32).contiguous(),
-                      batch["d_wgt"].float().contiguous())
+            fields = joint_fields(batch, joint_row_sel(batch))
             with torch.no_grad():
                 if table.dtype == torch.int8:
                     # int8: the compact block is dequantized before the

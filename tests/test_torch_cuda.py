@@ -1327,3 +1327,138 @@ def test_dense_step_kernels_match_plain(dev):
             torch.testing.assert_close(states["auto"].params[tower][k], want,
                                        rtol=0, atol=2e-3)
     assert states["auto"].step == 3
+
+
+# ---- the multi-device path on one card -----------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sharded_bodies_summed_bit_equal_to_unsharded(dev, dtype):
+    """The shard-local bodies of kernels/sharded_embed.py at mp = 2, both
+    shards in this process on the card: the gathers of each shard's owned
+    groups summed by hand are the unsharded gather, bit for bit (each row
+    comes from one shard, the other adds zeros); each shard's scatter-add,
+    and on a bf16 table its stochastic-rounding scatter (seed * 2 + shard),
+    is the unsharded kernel's on that shard's rows; the bag's shard
+    partials sum to the unsharded bag (rtol 1e-5: a row's lookups are
+    summed in two parts). Sentinel and out-of-range slots sit among real
+    ones, and slots land on both shards."""
+    from dssm_tpu_torch.kernels.sharded_embed import (
+        embedding_bag_local, gather_compact_local, scatter_add_groups_local,
+        scatter_sr_groups_local)
+
+    mp, group = 2, 8 if dtype == torch.float32 else 16
+    g = torch.Generator(device="cpu").manual_seed(0)
+    table = torch.randn(V, H, generator=g).to(dtype).to(dev)
+    n_groups = V // group
+    gids = torch.randperm(n_groups, generator=g)[:SLOTS].to(torch.int32)
+    gids[::7] = int(SKIP_SENTINEL_GID)
+    gids[3] = n_groups
+    gids = gids.to(dev)
+    vals = (torch.randn(SLOTS * group, H, generator=g) * 1e-2).to(dev)
+    rows = V // mp
+    shards = [table[m * rows:(m + 1) * rows].clone() for m in range(mp)]
+    whole = gather_row_groups(table, gids, group)
+    summed = sum(gather_compact_local(s, gids, group, m)
+                 for m, s in enumerate(shards))
+    assert torch.equal(summed, whole)
+    if dtype == torch.float32:
+        want = scatter_add_row_groups(table.clone(), gids, vals, group)
+        got = [scatter_add_groups_local(s.clone(), gids, vals, group, m)
+               for m, s in enumerate(shards)]
+        assert torch.equal(torch.cat(got), want)
+        idx = torch.randint(0, V, (64, 16), generator=g,
+                            dtype=torch.int32).to(dev)
+        wgt = torch.rand(64, 16, generator=g).to(dev)
+        parts = sum(embedding_bag_local(s, idx, wgt, m)
+                    for m, s in enumerate(shards))
+        torch.testing.assert_close(parts, embedding_bag(table, idx, wgt),
+                                   rtol=1e-5, atol=1e-6)
+    else:
+        for m, s in enumerate(shards):
+            want = scatter_sr_row_groups(table.clone(), gids, vals, group,
+                                         5 * mp + m)
+            got = scatter_sr_groups_local(s.clone(), gids, vals, group, 5, m,
+                                          mp)
+            assert torch.equal(got, want[m * rows:(m + 1) * rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16", "int8"])
+def test_one_shard_slot_space_steps_bit_equal(dev, table_dtype):
+    """Three joint steps on batches re-slotted into one slot space
+    (sel_local [1, cap]) and on the same batches before it, from one
+    state: the kernels read the same rows in lookup order and the
+    backward sums each row's lookups in the same order, so the tables and
+    dense parameters are bit-equal."""
+    from dssm_tpu_torch.data.loader import reslot_local
+
+    cfg, batches = _step_case(dev, "joint", 3, table_dtype)
+    runs = []
+    for local in (False, True):
+        state = create_run_state(cfg, model_base.init_params(
+            cfg.tower, seed=0, device=dev))
+        step = make_train_step(cfg, "auto")
+        for b in batches:
+            state, _ = step(state, batch_to_torch(
+                reslot_local(b, 128) if local else b, dev))
+        runs.append(state.params)
+    for tower, tp in runs[0].items():
+        for k, v in tp.items():
+            assert torch.equal(v, runs[1][tower][k]), (tower, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["joint_local", "joint", "raw"])
+def test_parallel_step_on_nccl_group_of_one_bit_equal(dev, kind):
+    """The parallel step over a real NCCL group of one process (its data
+    group's sums run on NCCL) against the single-device step from one
+    state, on an f32 wire: bit-equal tables, dense parameters and losses on
+    the joint branch with and without a slot space. A raw batch takes
+    dssm_tpu's dispatch to the dense step, which differentiates the table
+    through the bag (its d_table adds with atomics) and runs each side's
+    tower alone where the single-device sparse step stacks them: held to
+    rtol 1e-4 / atol 1e-6 under f32 compute, as chip_smoke.py holds the
+    dense step to the sparse one (under bf16 compute the two tower calls
+    round to bf16 apart)."""
+    import socket
+
+    from dssm_tpu_torch.data.loader import reslot_local
+    from dssm_tpu_torch.parallel import dist as pdist
+    from dssm_tpu_torch.parallel.mesh import make_mesh
+    from dssm_tpu_torch.parallel.train_step import (
+        create_sharded_state, make_parallel_train_step)
+
+    cfg, batches = _step_case(dev, "raw" if kind == "raw" else "joint", 3)
+    if kind == "raw":
+        cfg = cfg.replace(tower=cfg.tower.replace(compute_dtype="float32"))
+    if kind == "joint_local":
+        batches = [reslot_local(b, 128) for b in batches]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    pdist.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = make_mesh(cfg.mesh, dev)
+        assert mesh.groups["data"] is not None
+        params = model_base.init_params(cfg.tower, seed=0, device=dev)
+        a = create_run_state(cfg, {t: {k: v.clone() for k, v in tp.items()}
+                                   for t, tp in params.items()})
+        b = create_sharded_state(cfg, mesh, params)
+        single = make_train_step(cfg, "auto")
+        par = make_parallel_train_step(cfg, mesh, "auto")
+        for batch in batches:
+            a, aux_a = single(a, batch_to_torch(batch, dev, vocab_size=V))
+            b, aux_b = par(b, batch_to_torch(batch, dev, vocab_size=V))
+            if kind != "raw":
+                assert float(aux_a["loss"]) == float(aux_b["loss"])
+        for tower, tp in a.params.items():
+            for k, v in tp.items():
+                if kind == "raw":
+                    torch.testing.assert_close(v, b.params[tower][k],
+                                               rtol=1e-4, atol=1e-6)
+                else:
+                    assert torch.equal(v, b.params[tower][k]), (tower, k)
+    finally:
+        pdist.shutdown()

@@ -277,9 +277,17 @@ def test_batch_iterator_fixed_epoch_order_and_refusals():
         it = tloader.batch_iterator(th, 64, **kw, **more)
         for a in got:
             _assert_batches_equal(next(it), a)
-    for bad in (dict(process_count=2), dict(local_sel_cap=64)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            next(tloader.batch_iterator(th, 64, **bad))
+    # Process shards and per-shard slot spaces, once refused: dssm_tpu's
+    # stream (tests/test_torch_parallel.py holds them at more settings).
+    for more in (dict(process_count=2, process_index=1),
+                 dict(local_sel_cap=64), dict(local_sel_cap=64,
+                                              local_sel_shards=2)):
+        it = tloader.batch_iterator(th, 64, **kw, **more)
+        jt = jloader.batch_iterator(jh, 64, **kw, **more)
+        for _ in range(3):
+            _assert_batches_equal(next(it), next(jt))
+    with pytest.raises(ValueError, match="not divisible by 3 processes"):
+        next(tloader.batch_iterator(th, 64, process_count=3))
     # Sequence batches, once refused: dssm_tpu's stream, word masks padded
     # like every per-row field.
     tower = jcfg.TowerConfig(arch="lstm", vocab_size=VOCAB)

@@ -39,7 +39,10 @@ def test_port_has_modules():
                  "train.loop", "io.checkpoint", "io.metrics", "cli.train",
                  "kernels.stochastic", "kernels.scatter_sr", "kernels.rank",
                  "train.eval", "cli.eval", "models.cnn", "models.lstm",
-                 "kernels.embed", "kernels.sparse_embed"):
+                 "kernels.embed", "kernels.sparse_embed",
+                 "kernels.sharded_embed", "parallel.mesh", "parallel.dist",
+                 "parallel.sparse_step", "parallel.train_step",
+                 "tools.multihost_worker"):
         assert f"dssm_tpu_torch.{name}" in mods
     assert len(_port_files()) > 30
 
@@ -97,10 +100,11 @@ def test_not_ported_messages_name_roadmap_items():
     # Every queue the port refers to still holds items, and the messages
     # that named the items ported since (the low-precision tables, eval,
     # the cnn / lstm towers, the raw-index embedding bag, the multi-step
-    # dispatch, the dense-table step) are gone with them.
+    # dispatch, the dense-table step, the multi-device path) are gone with
+    # them.
     assert refs and all(titles.get(n) for _, n, _ in refs)
     gone = ("int8", "eval", "cnn", "lstm", "embedding_bag", "multi-step",
-            "dense-table")
+            "dense-table", "multi-device")
     assert not [r for r in refs if any(g in r[2].lower() for g in gone)]
     for path, n, name in refs:
         name = re.sub(r"\s+", " ", name).strip().lower()

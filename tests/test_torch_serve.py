@@ -321,6 +321,12 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path):
         r = _train(f"--io.workdir={tmp_path}", "--train.max_steps=1", flag)
         assert r.returncode != 0 and "NotImplementedError" in r.stderr
         assert what in r.stderr and "ROADMAP.md" in r.stderr
+    # A model-parallel mesh on one process is refused as dssm_tpu refuses
+    # it on one device (the multi-device path runs one process a GPU).
+    r = _train(f"--io.workdir={tmp_path}", "--train.max_steps=1",
+               "--mesh.model_parallel=2")
+    assert r.returncode != 0
+    assert "1 devices not divisible by model_parallel=2" in r.stderr
 
 
 def test_train_cli_on_a_corpus_file(tmp_path, capsys):
