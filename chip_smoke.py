@@ -95,6 +95,15 @@ gather and scatters (bit-equal). At the end, cli.train
 --preset=multihost --mesh.model_parallel=1 for MH_CLI_STEPS steps and
 cli.eval on its workdir.
 
+A dssm_tpu workdir on the card (phase 6f): tests/fixtures/dssm_tpu_workdir,
+the full preset's widths at a 2048-row bf16 table with adam and the
+AdaGrad table, written by dssm_tpu on the CPU with what dssm_tpu computed
+from it. The orbax reader's zstd decoder, its leaves bit-equal to the
+stored state and its read time; cli.export (index against dssm_tpu's),
+cli.eval (against dssm_tpu's eval line) and cli.train --resume (its first
+loss against dssm_tpu's next-step loss) on a copy; approximate against
+exact top-k at TOPK_N docs x TOPK_N queries (ms each, id agreement).
+
 It checks that every kernel was launched by the path it belongs to. The
 next-to-last line is a JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -150,6 +159,10 @@ CLI_ADAM_STEPS = 4     # cli.train --train.optimizer=adam
 MH_STEPS = 5           # multihost at mp = 1, 65,536 rows, through the kernels
 MH_TRACED = 3          # then traced
 MH_CLI_STEPS = 3       # cli.train --preset=multihost --mesh.model_parallel=1
+FX_RESUME_STEPS = 3    # cli.train --resume on the dssm_tpu workdir
+FX_EVAL_TOL = 5e-3     # its cli.eval against dssm_tpu's, each metric
+FX_LOSS_TOL = 1e-2     # its first resumed loss against dssm_tpu's
+TOPK_N = 65536         # docs and queries of approximate against exact top-k
 
 
 def check(ok: bool, msg: str) -> None:
@@ -3563,6 +3576,210 @@ def main() -> int:
           f"rows, bags summed within {bag_gap:.3g} of the bag")
     del s_mh, params_mh, table_mh, tbm, mh_fields, lq_mk, ld_mk, c_mk
 
+
+    # ---- phase 6f: a dssm_tpu workdir on the card ------------------------
+    # tests/fixtures/dssm_tpu_workdir, written by dssm_tpu on the CPU
+    # (tests/fixtures/make_dssm_tpu_workdir.py): the full preset's widths
+    # with the vocabulary cut to 2048 rows, a bf16 table, adam on the dense
+    # subtree and the AdaGrad table, 4 steps; beside it what dssm_tpu
+    # computed from it. (a) the zstd decoder the reader loads; (b) every
+    # leaf the reader returns bit-equal to the stored state; (c) cli.export
+    # on a copy of the workdir through the serving kernels, against
+    # dssm_tpu's index of the same titles (bf16 compute: 2e-2, the serving
+    # tolerance of tests/test_torch_serve.py); (d) cli.eval against
+    # dssm_tpu's eval line (each metric within FX_EVAL_TOL) and cli.train
+    # --resume for FX_RESUME_STEPS steps from the saved step + 1, its first
+    # loss within FX_LOSS_TOL of dssm_tpu's next-step loss; (e) approximate
+    # against exact top_k at TOPK_N docs x TOPK_N queries, k = 10. Each
+    # command line runs with the counts reset just before and read after.
+    import shutil
+
+    from dssm_tpu_torch.cli import eval as cli_eval
+    from dssm_tpu_torch.cli import export as cli_export
+    from dssm_tpu_torch.cli import train as cli_train
+    from dssm_tpu_torch.io import orbax_reader
+    from dssm_tpu_torch.serve import load_index
+    from dssm_tpu_torch.serve.retrieval import approx_bins
+
+    fx_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "fixtures", "dssm_tpu_workdir")
+    with open(os.path.join(fx_root, "reference.json")) as f:
+        fx_ref = json.load(f)
+    print(f"phase 6f, a dssm_tpu workdir ({fx_root}) on {card}")
+    print(f"(a) zstd decoder: {orbax_reader.zstd_library()}")
+
+    def flat_leaves(tree_, path_=""):
+        if isinstance(tree_, dict):
+            items_ = tree_.items()
+        elif isinstance(tree_, list):
+            items_ = enumerate(tree_)
+        else:
+            return {} if tree_ is None else {path_[1:]: tree_}
+        out_ = {}
+        for k_, v_ in items_:
+            out_.update(flat_leaves(v_, f"{path_}/{k_}"))
+        return out_
+
+    fx_src = os.path.join(fx_root, "workdir")
+    fx_bytes = sum(os.path.getsize(os.path.join(d_, n_))
+                   for d_, _, names_ in os.walk(os.path.join(
+                       fx_src, "checkpoints")) for n_ in names_)
+    read_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fx_step, fx_tree = orbax_reader.read_checkpoint(fx_src)
+        read_ms.append((time.perf_counter() - t0) * 1e3)
+    fx_got = flat_leaves(fx_tree)
+    with np.load(os.path.join(fx_root, "reference.npz")) as z_:
+        fx_want = {k_[len("state/"):]: z_[k_] for k_ in z_.files
+                   if k_.startswith("state/")}
+        fx_index_want = z_["index"]
+    check(fx_step == fx_ref["steps"] and sorted(fx_got) == sorted(fx_want),
+          f"phase 6f: the reader read step {fx_step} with leaves "
+          f"{sorted(fx_got)}, the fixture stores {sorted(fx_want)}")
+    for name_, w_ in fx_want.items():
+        g_ = fx_got[name_]
+        check(g_.dtype == w_.dtype and g_.shape == w_.shape
+              and g_.tobytes() == w_.tobytes()
+              and (name_ in fx_ref["bfloat16_leaves"])
+              == isinstance(g_, orbax_reader.BFloat16Array),
+              f"phase 6f: leaf {name_} is not the stored one")
+    print(f"(b) read step {fx_step}: {len(fx_got)} leaves, {fx_bytes} bytes "
+          f"on disk, bit-equal to the stored state; read ms (3 reads, warm "
+          f"file cache) {[round(x_, 2) for x_ in read_ms]} on {card}")
+
+    fx_dir = tempfile.TemporaryDirectory(prefix="dssm_smoke_fx_")
+    fx_work = os.path.join(fx_dir.name, "workdir")
+    shutil.copytree(fx_src, fx_work)
+    fx_flags = list(fx_ref["flags"]) + [f"--io.workdir={fx_work}"]
+
+    def fx_cli(main_, argv_):
+        out_, err_ = io.StringIO(), io.StringIO()
+        _build.reset_launch_counts()
+        t0_ = time.perf_counter()
+        with contextlib.redirect_stdout(out_), contextlib.redirect_stderr(
+                err_):
+            main_(argv_)
+        torch.cuda.synchronize()
+        secs_ = time.perf_counter() - t0_
+        counts_ = _build.launch_counts()
+        check("from the dssm_tpu (orbax) checkpoint" in err_.getvalue()
+              or "(the dssm_tpu (orbax) checkpoint" in err_.getvalue(),
+              f"phase 6f: {main_.__module__} did not read the dssm_tpu "
+              f"checkpoint: {err_.getvalue()[-2000:]}")
+        return out_.getvalue().strip().splitlines(), counts_, secs_
+
+    fx_index = os.path.join(fx_dir.name, "index.npz")
+    _, counts_x, secs_x = fx_cli(cli_export.main, fx_flags + [
+        f"--data.path={os.path.join(fx_root, 'titles.tsv')}",
+        f"--out={fx_index}"])
+    for name in ("gather_row_groups", "count_lookup", "dense_tower"):
+        check(counts_x[name] > 0, f"phase 6f: cli.export launched no {name}")
+    fx_emb, fx_titles = load_index(fx_index)
+    check(fx_titles == fx_ref["titles"] and fx_emb.shape
+          == fx_index_want.shape, "phase 6f: cli.export indexed "
+          f"{len(fx_titles)} titles, dssm_tpu {len(fx_ref['titles'])}")
+    export_gap = float(np.abs(fx_emb - fx_index_want).max())
+    check(export_gap <= 2e-2, f"phase 6f: cli.export's index is "
+          f"{export_gap} from dssm_tpu's (tolerance 2e-2)")
+    serving_launches = {k_: counts_x[k_] for k_ in (
+        "gather_row_groups", "count_lookup", "dense_tower")}
+    print(f"(c) cli.export of {len(fx_titles)} titles from the dssm_tpu "
+          f"checkpoint in {secs_x:.2f} s: max |index - dssm_tpu's| "
+          f"{export_gap:.3g} (tolerance 2e-2); launches {serving_launches} "
+          f"on {card}")
+
+    lines_e, counts_e, secs_e = fx_cli(cli_eval.main, fx_flags)
+    fx_eval = json.loads(lines_e[-1])
+    fx_eval_ref = fx_ref["eval"]
+    eval_gaps = {k_: abs(fx_eval[k_] - fx_eval_ref[k_])
+                 for k_ in ("recall@1", "recall@10", "ndcg@10", "mrr")}
+    check(counts_e["rank_counts"] > 0 and counts_e["count_lookup"] > 0,
+          "phase 6f: cli.eval launched no rank_counts or count_lookup")
+    check(fx_eval["step"] == fx_ref["steps"] and fx_eval["num_queries"]
+          == fx_eval_ref["num_queries"]
+          and max(eval_gaps.values()) <= FX_EVAL_TOL,
+          f"phase 6f: cli.eval reports {fx_eval}, dssm_tpu's eval line is "
+          f"{fx_eval_ref} (tolerance {FX_EVAL_TOL})")
+    print(f"(d) cli.eval of step {fx_eval['step']} in {secs_e:.2f} s: "
+          f"{ {k_: fx_eval[k_] for k_ in eval_gaps} }, |gap| to dssm_tpu's "
+          f"{eval_gaps} (tolerance {FX_EVAL_TOL}) on {card}")
+    resumed_to = fx_ref["steps"] + FX_RESUME_STEPS
+    with open(os.path.join(fx_work, "metrics.jsonl")) as f:
+        fx_before = len(f.readlines())
+    _, counts_t, secs_t = fx_cli(cli_train.main, fx_flags + [
+        "--resume", f"--train.max_steps={resumed_to}",
+        "--train.log_every=1"])
+    with open(os.path.join(fx_work, "metrics.jsonl")) as f:
+        fx_records = [json.loads(line) for line in f.readlines()[fx_before:]]
+    fx_losses = [(r_["step"], r_["loss"]) for r_ in fx_records
+                 if r_["tag"] == "train"]
+    loss_gap = abs(fx_losses[0][1] - fx_ref["next_step_loss"])
+    check([s_ for s_, _ in fx_losses]
+          == list(range(fx_ref["steps"], resumed_to))
+          and all(np.isfinite([l_ for _, l_ in fx_losses]))
+          and loss_gap <= FX_LOSS_TOL,
+          f"phase 6f: cli.train --resume recorded {fx_losses}; dssm_tpu's "
+          f"loss of step {fx_ref['steps']} is {fx_ref['next_step_loss']} "
+          f"(tolerance {FX_LOSS_TOL})")
+    for name in ("fused_gather_joint_lookup", "joint_lookup_bwd",
+                 "dense_tower_residuals", "in_batch_loss"):
+        check(counts_t[name] >= FX_RESUME_STEPS,
+              f"phase 6f: cli.train --resume launched {name} "
+              f"{counts_t[name]} times")
+    check(counts_t["scatter_sr_row_groups"] + counts_t[
+        "scatter_add_row_groups"] >= FX_RESUME_STEPS,
+          "phase 6f: cli.train --resume updated no table rows")
+    check(orbax_reader.checkpoint_steps(fx_work) == [fx_ref["steps"]]
+          and Checkpointer(fx_work).latest_step() == resumed_to,
+          "phase 6f: cli.train --resume did not save its own checkpoint "
+          "beside dssm_tpu's")
+    print(f"(d) cli.train --resume: steps {[s_ for s_, _ in fx_losses]} in "
+          f"{secs_t:.2f} s (hashing, 3 steps, final eval, checkpoint), "
+          f"losses {[l_ for _, l_ in fx_losses]}; first loss "
+          f"{fx_losses[0][1]:.6f} against dssm_tpu's next-step loss "
+          f"{fx_ref['next_step_loss']:.6f}: |gap| {loss_gap:.3g} "
+          f"(tolerance {FX_LOSS_TOL}) on {card}")
+    fx_dir.cleanup()
+
+    # (e) approximate against exact top-k, TOPK_N unit-norm 128-wide docs
+    # and as many queries, k = 10; one call each in turns (exact, approx,
+    # approx, exact, ...), its results copied back to the host.
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    d_top = F.normalize(torch.randn(TOPK_N, 128, device=dev, generator=gen),
+                        dim=1)
+    q_top = F.normalize(torch.randn(TOPK_N, 128, device=dev, generator=gen),
+                        dim=1)
+
+    def timed_top_k(exact_):
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        s_, i_ = top_k(q_top, d_top, k=10, exact=exact_, device=dev)
+        return s_, i_, (time.perf_counter() - t0_) * 1e3
+
+    timed_top_k(True)
+    timed_top_k(False)
+    topk_ms = {True: [], False: []}
+    for exact_ in (True, False, False, True, True, False):
+        s_, i_, ms_ = timed_top_k(exact_)
+        topk_ms[exact_].append(ms_)
+        if exact_:
+            s_exact, i_exact = s_, i_
+        else:
+            s_approx, i_approx = s_, i_
+    agree = float(np.mean(
+        (i_approx[:, :, None] == i_exact[:, None, :]).any(-1).sum(-1) / 10))
+    approx_scores_ok = bool(np.all(np.diff(s_approx, axis=1) <= 0))
+    check(approx_scores_ok and agree >= 0.93,
+          f"phase 6f: approximate top-10 agrees {agree} with the exact one "
+          f"(at least 0.93), rows descending: {approx_scores_ok}")
+    print(f"(e) top_k at {TOPK_N} docs x {TOPK_N} queries, k = 10 (chunks "
+          f"of 1024 queries, results to the host): exact ms "
+          f"{[round(x_, 2) for x_ in topk_ms[True]]}, approximate ms "
+          f"{[round(x_, 2) for x_ in topk_ms[False]]} "
+          f"({approx_bins(TOPK_N, 10)} bins), mean top-10 id agreement "
+          f"{agree:.4f} on {card}")
+    del d_top, q_top
 
     # ---- phase 7: the same path through the command-line entry points ----
     # cli.train in this process: the full preset on a toy corpus cut to

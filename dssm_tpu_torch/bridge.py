@@ -5,7 +5,8 @@ params_from_jax takes dssm_tpu's parameter pytree as numpy arrays (e.g.
 parameters with the same keys, dtypes (an f32, bf16 or int8 table; an int8
 table with its `<table>_scale`) and padded shapes, for the mlp, cnn and
 lstm towers; state_from_jax does the same for a whole TrainState (step,
-params, the optax state of the tree its optimizer covers), and
+params, the optax state of the tree its optimizer covers; as JAX hands it
+out, or as io/orbax_reader.py reads it from dssm_tpu's checkpoint), and
 params_to_numpy is the way back; shard_state cuts a state carried across
 whole to one rank of a mesh (its rows of the vocab table and of the table's
 optimizer state). batch_to_torch moves a numpy batch from
@@ -24,6 +25,7 @@ import torch
 
 from dssm_tpu_torch.config import TowerConfig
 from dssm_tpu_torch.device import DeviceLike, as_device
+from dssm_tpu_torch.io.orbax_reader import BFloat16Array
 from dssm_tpu_torch.models.base import TABLE_KEY, Params, arch_module
 from dssm_tpu_torch.train.state import TrainState
 
@@ -36,8 +38,11 @@ _F32_SUFFIXES = ("_wgt", "_mask")
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
+    # A bfloat16 array: ml_dtypes.bfloat16, as JAX hands it out, or its
+    # bits as the orbax reader returns them.
+    bf16 = isinstance(a, BFloat16Array) or a.dtype.name == "bfloat16"
     a = np.ascontiguousarray(a)
-    if a.dtype.name == "bfloat16":  # ml_dtypes.bfloat16, as JAX hands it out
+    if bf16:
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     return torch.from_numpy(a.copy())
 
@@ -139,10 +144,13 @@ def batch_to_torch(batch: Mapping[str, np.ndarray], device: DeviceLike,
 
 
 def optax_field(opt_state: Any, name: str) -> Any:
-    """The first optax sub-state (a namedtuple in a tuple chain) that has
-    field `name`, e.g. `trace` or `mu`."""
+    """The first optax sub-state that has field `name`, e.g. `trace` or
+    `mu`: a namedtuple in a tuple chain, as JAX hands it out, or a dict in a
+    list, as the orbax reader returns it."""
     if name in getattr(opt_state, "_fields", ()):
         return getattr(opt_state, name)
+    if isinstance(opt_state, Mapping) and name in opt_state:
+        return opt_state[name]
     if isinstance(opt_state, (tuple, list)):
         for sub in opt_state:
             found = optax_field(sub, name)
@@ -160,22 +168,27 @@ def state_from_jax(step: int, np_params: Mapping, np_opt_state: Any,
     covers: the dense subtree on the sparse path, the whole tree, table
     included, on the dense-table step."""
     dev = as_device(device)
-
-    def tree(t):
-        return {tower: {k: _to_tensor(np.asarray(v)).to(dev)
-                        for k, v in tp.items()} for tower, tp in t.items()}
-
     opt = cfg.train.optimizer
-    if opt == "sgd":
-        opt_state: Dict[str, Any] = {}
-    elif opt == "momentum":
-        opt_state = {"trace": tree(optax_field(np_opt_state, "trace"))}
-    elif opt == "adam":
-        opt_state = {"count": int(optax_field(np_opt_state, "count")),
-                     "mu": tree(optax_field(np_opt_state, "mu")),
-                     "nu": tree(optax_field(np_opt_state, "nu"))}
-    else:
+    fields = {"sgd": (), "momentum": ("trace",),
+              "adam": ("count", "mu", "nu")}.get(opt)
+    if fields is None:
         raise ValueError(f"unknown optimizer {opt!r}")
+    found = {f for f in ("trace", "count", "mu", "nu")
+             if optax_field(np_opt_state, f) is not None}
+    if found != set(fields):
+        raise ValueError(
+            f"the optimizer state holds {sorted(found) or 'nothing'}, "
+            f"train.optimizer={opt!r} needs {list(fields) or 'nothing'}: "
+            "pass the --train.optimizer the run was trained with")
+
+    def tree(name):
+        return {tower: {k: _to_tensor(np.asanyarray(v)).to(dev)
+                        for k, v in tp.items()}
+                for tower, tp in optax_field(np_opt_state, name).items()}
+
+    opt_state: Dict[str, Any] = {
+        f: int(optax_field(np_opt_state, f)) if f == "count" else tree(f)
+        for f in fields}
     return TrainState(step=int(step),
                       params=params_from_jax(np_params, cfg.tower, dev),
                       opt_state=opt_state)

@@ -6,11 +6,13 @@ corpus, report Recall@K / NDCG@10 / MRR as one JSON line.
 The flags are dssm_tpu.cli.eval's: any config field is overridable with
 --section.field=value (give the tower.table_dtype the run was trained with).
 It runs on the GPU unless --cpu is given, and fails when there is no GPU. It
-evaluates the latest checkpoint `python -m dssm_tpu_torch.cli.train` wrote
-under --io.workdir, through the vocab remap saved there, or the seeded fresh
-init when the workdir holds no checkpoint. With --data.path=pairs.tsv it
-evaluates the held-out split of that corpus file, the one cli.train held out
-(the same data.seed and data.eval_frac).
+evaluates, through the vocab remap saved in --io.workdir, the weights
+io/checkpoint.py::restore_run reads there: the latest checkpoint
+`python -m dssm_tpu_torch.cli.train` wrote, else the newest orbax
+checkpoint `python -m dssm_tpu.cli.train` wrote, else the seeded fresh init
+(stderr says which; a dssm_tpu checkpoint that cannot be decoded raises).
+With --data.path=pairs.tsv it evaluates the held-out split of that corpus
+file, the one cli.train held out (the same data.seed and data.eval_frac).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         hash_pairs, load_file_corpus, make_toy_pairs, train_eval_split)
     from dssm_tpu_torch.data.remap import apply_remap, load_remap
     from dssm_tpu_torch.device import resolve_device
-    from dssm_tpu_torch.io.checkpoint import Checkpointer
+    from dssm_tpu_torch.io.checkpoint import restore_run
     from dssm_tpu_torch.models import base as model_base
     from dssm_tpu_torch.train.eval import evaluate
 
@@ -57,16 +59,16 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"applied saved vocab remap from {cfg.io.workdir}",
               file=sys.stderr)
 
-    ckpt = Checkpointer(cfg.io.workdir, keep=cfg.train.keep_checkpoints)
-    restored = ckpt.restore(device=device)
+    restored, source = restore_run(cfg.io.workdir, cfg, device,
+                                   opt_state=False)
     if restored is None:
-        print(f"no checkpoint under {ckpt.directory}; evaluating fresh init",
+        print(f"no checkpoint under {cfg.io.workdir}; evaluating fresh init",
               file=sys.stderr)
         params, step = model_base.init_params(
             cfg.tower, seed=cfg.train.seed, device=device), 0
     else:
         params, step = restored.params, restored.step
-        print(f"restored step {step}", file=sys.stderr)
+        print(f"restored step {step} from {source}", file=sys.stderr)
     table = next(iter(params.values()))[model_base.TABLE_KEY[cfg.tower.arch]]
     want = model_base.torch_dtype(cfg.tower.table_dtype_resolved)
     if table.dtype != want:

@@ -11,17 +11,17 @@
 The flags are dssm_tpu.cli.export's. It runs on the GPU unless --cpu is
 given, and fails when there is no GPU; on the GPU it always runs the CUDA
 kernels (there is no use_pallas switch). With --data.path=... the corpus comes
-from the TSV/JSONL file; otherwise the toy corpus. A workdir that
-`python -m dssm_tpu_torch.cli.train` wrote is served from its latest
-checkpoint; one without a checkpoint serves the seeded fresh init; one
-holding only a dssm_tpu (orbax) checkpoint is refused, since the port has no
-reader for it yet.
+from the TSV/JSONL file; otherwise the toy corpus. The weights are those
+io/checkpoint.py::restore_run reads: the latest checkpoint
+`python -m dssm_tpu_torch.cli.train` wrote under --io.workdir, else the
+newest orbax checkpoint `python -m dssm_tpu.cli.train` wrote there, else
+the seeded fresh init; stderr says which. A dssm_tpu checkpoint that cannot
+be decoded raises, naming the file.
 """
 
 from __future__ import annotations
 
 import json
-import os
 import sys
 from typing import List, Optional
 
@@ -48,14 +48,6 @@ def _split_serving_flags(argv: List[str]):
     return out, index, query, query_file, k, rest
 
 
-def checkpoint_steps(workdir: str) -> List[int]:
-    """Steps of the dssm_tpu (orbax) checkpoints under workdir/checkpoints."""
-    path = os.path.join(os.path.abspath(workdir), "checkpoints")
-    if not os.path.isdir(path):
-        return []
-    return sorted(int(n) for n in os.listdir(path) if n.isdigit())
-
-
 def main(argv: Optional[List[str]] = None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     out, index_path, query, query_file, k, rest = _split_serving_flags(argv)
@@ -76,21 +68,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     # no preset or flag changes that.
     impl = "auto"
 
-    from dssm_tpu_torch.io.checkpoint import CHECKPOINT_DIR, Checkpointer
+    from dssm_tpu_torch.io.checkpoint import restore_run
 
-    restored = None
-    if os.path.isdir(os.path.join(cfg.io.workdir, CHECKPOINT_DIR)):
-        restored = Checkpointer(cfg.io.workdir).restore(device=device)
-    steps = checkpoint_steps(cfg.io.workdir)
+    restored, source = restore_run(cfg.io.workdir, cfg, device,
+                                   opt_state=False)
     if restored is not None:
-        print(f"restored step {restored.step} from {cfg.io.workdir}",
+        print(f"restored step {restored.step} from {source}",
               file=sys.stderr)
-    elif steps:
-        raise SystemExit(
-            f"{cfg.io.workdir} holds dssm_tpu checkpoint(s) (steps {steps}); "
-            "dssm_tpu_torch has no orbax checkpoint reader yet (ROADMAP.md, "
-            "Queue 1: the orbax checkpoint reader) and will not serve fresh "
-            "weights in their place")
     else:
         print(f"no checkpoint under {cfg.io.workdir}; using fresh init",
               file=sys.stderr)

@@ -16,8 +16,12 @@ the held-out split every train.eval_every steps and at the end (records
 and checkpoints (io/checkpoint.py) under --io.workdir, and saves the
 frequency remap there when data.freq_remap is set;
 `python -m dssm_tpu_torch.cli.eval` and `cli.export` then read the same
-workdir. --resume continues from the latest checkpoint with the data stream
-at the step it left off. The batches are built by the C++ host data plane
+workdir. --resume continues, with the data stream at the step it left
+off, from what io/checkpoint.py::restore_run reads: the latest checkpoint
+of the port, else the newest orbax checkpoint `python -m
+dssm_tpu.cli.train` wrote in the workdir (its optimizer state too; the
+port then saves its own checkpoints beside it and never deletes dssm_tpu's),
+else the fresh init. The batches are built by the C++ host data plane
 (data/native.py), on a pool of --data.pipeline_workers threads when it is
 above 1; --data.reshuffle_each_epoch=False --data.cache_epoch_batches=True
 replays the first epoch's batches after it.
@@ -69,7 +73,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         prefetch, train_eval_split,
     )
     from dssm_tpu_torch.data.loader import LockedIterator
-    from dssm_tpu_torch.io.checkpoint import Checkpointer
+    from dssm_tpu_torch.io.checkpoint import Checkpointer, restore_run
     from dssm_tpu_torch.io.metrics import MetricsWriter
     from dssm_tpu_torch.kernels.gather import sublane_group
     from dssm_tpu_torch.models import base as model_base
@@ -141,9 +145,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     ckpt = Checkpointer(cfg.io.workdir, keep=cfg.train.keep_checkpoints)
     state = None
     if resume:
-        state = ckpt.restore(device=device, mesh=mesh)
+        state, source = restore_run(cfg.io.workdir, cfg, device, mesh)
         if state is not None:
-            print(f"resumed from step {state.step}", file=sys.stderr)
+            print(f"resumed from step {state.step} ({source})",
+                  file=sys.stderr)
     else:
         if lead and ckpt.all_steps():
             # A fresh run into a workdir with checkpoints: stale later-step

@@ -1,4 +1,5 @@
-"""Checkpoint / resume of a TrainState with torch.save.
+"""Checkpoint / resume of a TrainState with torch.save, and the one restore
+the command lines start from.
 
 A checkpoint is one file, workdir/torch_checkpoints/step_<N>.pt, holding the
 step, the parameters and the optimizer state as CPU tensors. It is written
@@ -8,20 +9,28 @@ mesh (parallel/train_step.py) is written whole, in the same format: its
 table is all-gathered over the model group and rank 0 writes; restoring
 onto a mesh cuts it again, so cli.eval and cli.export read a multi-device
 workdir as they read a single-device one. The API follows
-dssm_tpu/io/checkpoint.py (whose orbax checkpoints live under
-workdir/checkpoints and are a different format: the port does not read
-them).
+dssm_tpu/io/checkpoint.py.
+
+restore_run is what cli.train --resume, cli.eval and cli.export read: the
+port's own newest checkpoint when torch_checkpoints/ holds any step;
+otherwise dssm_tpu's newest orbax checkpoint under workdir/checkpoints
+(io/orbax_reader.py, then bridge.state_from_jax), so a model dssm_tpu
+trained is served, evaluated or trained on; otherwise nothing, and the
+caller starts from the fresh init. The port never writes or deletes
+dssm_tpu's checkpoints, and a dssm_tpu checkpoint that cannot be decoded
+raises, naming the file, rather than giving way to fresh weights.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 import torch
 
 from dssm_tpu_torch.device import DeviceLike, as_device
+from dssm_tpu_torch.io import orbax_reader
 from dssm_tpu_torch.train.state import TrainState
 
 CHECKPOINT_DIR = "torch_checkpoints"
@@ -111,3 +120,62 @@ class Checkpointer:
     def clear(self) -> None:
         for step in self.all_steps():
             os.remove(self._path(step))
+
+
+def _check_opt_trees(state: TrainState, cfg) -> None:
+    """The optimizer state covers the tree the config's step optimizes:
+    the dense subtree on the sparse path, the whole tree off it."""
+    from dssm_tpu_torch.models.base import TABLE_KEY
+    from dssm_tpu_torch.train.sparse_update import (
+        _dense_subtree, uses_sparse_update)
+
+    covered = (_dense_subtree(state.params, TABLE_KEY[cfg.tower.arch])
+               if uses_sparse_update(cfg) else state.params)
+    want = {t: {k: tuple(v.shape) for k, v in tp.items()}
+            for t, tp in covered.items()}
+    for name, tree in state.opt_state.items():
+        if name == "count":
+            continue
+        got = {t: {k: tuple(v.shape) for k, v in tp.items()}
+               for t, tp in tree.items()}
+        if got != want:
+            raise ValueError(
+                f"the checkpoint's optimizer state {name!r} covers "
+                f"{got}, the config's step optimizes {want}: pass the "
+                "--train.* flags the run was trained with (optimizer, "
+                "table_optimizer, sparse_embed_update)")
+
+
+def restore_run(workdir: str, cfg, device: DeviceLike = "cuda", mesh=None,
+                opt_state: bool = True
+                ) -> Tuple[Optional[TrainState], Optional[str]]:
+    """(state, what was read) for a command line over `workdir`: the port's
+    newest checkpoint when torch_checkpoints/ holds any step, else
+    dssm_tpu's newest orbax checkpoint, else (None, None) for the fresh
+    init. With a mesh, this rank's cut of the state. opt_state=False
+    (evaluating, serving) reads the parameters only, whatever optimizer
+    the run used."""
+    own = os.path.join(os.path.abspath(workdir), CHECKPOINT_DIR)
+    if os.path.isdir(own) and any(map(_NAME.match, os.listdir(own))):
+        ckpt = Checkpointer(workdir)
+        return (ckpt.restore(device=device, mesh=mesh),
+                f"the dssm_tpu_torch checkpoint under {ckpt.directory}")
+    if not orbax_reader.has_checkpoint(workdir):
+        return None, None
+    from dssm_tpu_torch.bridge import (
+        params_from_jax, shard_state, state_from_jax)
+
+    step, tree = orbax_reader.read_checkpoint(workdir)
+    if opt_state:
+        state = state_from_jax(tree["step"], tree["params"],
+                               tree["opt_state"], cfg, device)
+        _check_opt_trees(state, cfg)
+    else:
+        state = TrainState(step=int(tree["step"]), opt_state={},
+                           params=params_from_jax(tree["params"], cfg.tower,
+                                                  device))
+    if mesh is not None:
+        state = shard_state(state, mesh)
+    where = os.path.join(os.path.abspath(workdir),
+                         orbax_reader.CHECKPOINT_DIR, str(step))
+    return state, f"the dssm_tpu (orbax) checkpoint {where}"

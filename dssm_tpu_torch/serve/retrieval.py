@@ -2,8 +2,10 @@
 
   build_doc_index: doc-tower forward over the corpus (dedup batches, the
       tail batch padded to the full batch size) -> [N, D] unit-norm f32.
-  top_k: exact brute-force retrieval, chunked over queries; each chunk's
-      [C, N] f32 score block stays on the device and only [C, k] comes back.
+  top_k: brute-force retrieval, chunked over queries; each chunk's [C, N]
+      f32 score block stays on the device and only [C, k] comes back.
+      Exact by default; exact=False is approx_max_k's binned approximation,
+      the function dssm_tpu's lax.approx_max_k computes on a TPU.
 
 Index file format (shared with dssm_tpu.serve): .npz with `doc_emb` [N, D]
 f32 and `titles` [N] (object array of the indexed texts).
@@ -16,6 +18,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from dssm_tpu_torch.bridge import batch_to_torch
 from dssm_tpu_torch.config import RunConfig
@@ -49,8 +52,9 @@ def _embed_side(
     if table.device.type != dev.type:
         raise ValueError(f"parameters are on {table.device}, not {dev}")
     # Hash through the standard pipeline, so the batches (and their union
-    # dedupe) are the loader's own. The unused side is hashed too, which
-    # costs host time (ROADMAP.md, Queue 1: hash only the embedded side).
+    # dedupe) are the loader's own. The unused side is hashed too, as
+    # dssm_tpu's serving path does; hashing only the embedded side would
+    # save that host time.
     hashed = hash_pairs(ToyPairs(queries=list(texts), titles=list(texts)),
                         cfg.tower, cfg.data)
     if remap is not None:
@@ -115,6 +119,37 @@ def load_index(path: str) -> Tuple[np.ndarray, List[str]]:
         return z["doc_emb"], list(z["titles"])
 
 
+def approx_bins(n: int, k: int, recall_target: float = 0.95) -> int:
+    """The bin count L of approx_max_k over n scores: the smallest L at
+    which the expected recall of the binned top-k, with the top k spread at
+    random over the bins, (L / k) * (1 - (1 - 1/L)**k), reaches
+    recall_target (Chern et al. 2022, "TPU-KNN"); at least k, at most n."""
+    bins = k
+    while bins < n and (bins / k) * (1 - (1 - 1 / bins) ** k) < recall_target:
+        bins += 1
+    return min(bins, n)
+
+
+def approx_max_k(scores: torch.Tensor, k: int, recall_target: float = 0.95
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Counterpart of lax.approx_max_k(scores, k, recall_target) with
+    aggregate_to_topk, over the last axis: the N scores of a row, padded
+    with -inf, fall into L = approx_bins(N, k) bins (score j into bin
+    j % L); each bin keeps its best score and its id, and the exact top k
+    of the L winners come back, scores descending, ids int64. Two top-k
+    scores that share a bin lose the lower one, which is the
+    approximation; with L = N every score is its own bin and the result is
+    the exact top k."""
+    n = scores.shape[-1]
+    k = min(k, n)
+    bins = approx_bins(n, k, recall_target)
+    per_bin = -(-n // bins)
+    padded = F.pad(scores, (0, per_bin * bins - n), value=float("-inf"))
+    best, row = padded.view(*scores.shape[:-1], per_bin, bins).max(dim=-2)
+    top, col = torch.topk(best, k, dim=-1)
+    return top, torch.gather(row, -1, col) * bins + col
+
+
 def top_k(
     query_emb,
     doc_emb,
@@ -123,12 +158,12 @@ def top_k(
     exact: bool = True,
     device: DeviceLike = "cuda",
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Exact brute-force retrieval: (scores [Q, k] f32, doc_ids [Q, k] int64),
-    scores descending. Accepts numpy arrays or tensors."""
-    if not exact:
-        raise NotImplementedError(
-            "approximate top-k (dssm_tpu's lax.approx_max_k) is not ported "
-            "yet (ROADMAP.md, Queue 1: approximate top-k)")
+    """Brute-force retrieval: (scores [Q, k] f32, doc_ids [Q, k] int64),
+    scores descending. exact=True: torch.topk of each query's scores.
+    exact=False: approx_max_k at recall_target 0.95, as dssm_tpu's
+    top_k(exact=False) asks lax.approx_max_k (which runs its binned
+    approximation on a TPU and an exact top-k elsewhere). Accepts numpy
+    arrays or tensors."""
     dev = as_device(device)
     q = torch.as_tensor(query_emb, dtype=torch.float32, device=dev)
     d = torch.as_tensor(doc_emb, dtype=torch.float32, device=dev)
@@ -138,7 +173,9 @@ def top_k(
                 np.zeros((0, k), dtype=np.int64))
     scores, ids = [], []
     for lo in range(0, q.shape[0], chunk):
-        s, i = torch.topk(q[lo:lo + chunk] @ d.T, k, dim=1)
+        block = q[lo:lo + chunk] @ d.T
+        s, i = (torch.topk(block, k, dim=1) if exact
+                else approx_max_k(block, k))
         scores.append(s)
         ids.append(i)
     return (torch.cat(scores).cpu().numpy(),

@@ -1,6 +1,6 @@
 """dssm_tpu_torch stands alone: no module of it, nor chip_smoke.py, imports
-jax, optax, flax, orbax or dssm_tpu, and every module imports with them made
-unimportable."""
+jax, optax, flax, orbax, tensorstore, zarr or dssm_tpu, and every module
+imports with them made unimportable."""
 
 import ast
 import os
@@ -12,7 +12,8 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "dssm_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "orbax", "dssm_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "orbax", "tensorstore", "zarr",
+             "dssm_tpu")
 
 
 def _port_files():
@@ -42,7 +43,7 @@ def test_port_has_modules():
                  "kernels.embed", "kernels.sparse_embed",
                  "kernels.sharded_embed", "parallel.mesh", "parallel.dist",
                  "parallel.sparse_step", "parallel.train_step",
-                 "tools.multihost_worker"):
+                 "tools.multihost_worker", "io.orbax_reader"):
         assert f"dssm_tpu_torch.{name}" in mods
     assert len(_port_files()) > 30
 

@@ -1,11 +1,16 @@
 """The serving slice of dssm_tpu_torch against dssm_tpu on the CPU: the same
 weights (carried by bridge.params_from_jax) and the same titles give the same
 doc index, query embeddings and top-k; the export CLI builds and queries an
-index that dssm_tpu reads.
+index that dssm_tpu reads, and serves a workdir dssm_tpu trained as
+dssm_tpu's export CLI serves it; approximate top-k.
 
 Tolerances: f32 1e-5 (sums in another order); bf16 compute 2e-2 (dssm_tpu's
 XLA tower returns its products in bf16, the port keeps them in f32 as the
-Pallas tower does).
+Pallas tower does). Approximate top-k: a mean top-10 id agreement of at
+least 0.93 with dssm_tpu's top_k(exact=False), which is exact off a TPU;
+the bin count is chosen for an expected 0.95 (retrieval.approx_bins), and
+0.02 under it leaves room for the spread of 512 queries (the agreement's
+standard error there is about 0.003).
 """
 
 import json
@@ -34,6 +39,18 @@ from dssm_tpu_torch.device import resolve_device
 from dssm_tpu_torch.models import base as tbase
 
 BATCH = 64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These sizes are far too small to gain from intra-op threads, and the
+    suite runs several worker processes side by side."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 SMALL = ["--tower.vocab_size=4096", "--tower.embed_width=40",
          "--tower.hidden_dims=64", "--tower.semantic_dim=32",
          "--data.max_trigrams=16", "--data.max_trigrams_query=8",
@@ -175,8 +192,73 @@ def test_top_k_matches_dssm_tpu():
     _top_k_agree(q, d, ts, ti, 10)
     es, ei = tserve.top_k(q[:0], d, k=5, device="cpu")
     assert es.shape == ei.shape == (0, 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.top_k(q, d, exact=False, device="cpu")
+
+
+def _unit_rows(rng, n, dim=128):
+    x = rng.standard_normal((n, dim)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def test_approx_top_k_agrees_with_dssm_tpu():
+    """8192 unit-norm docs x 512 queries, k = 10: the binned approximation
+    finds most of dssm_tpu's top 10, each score is its id's dot product,
+    the rows descend and hold no id twice."""
+    rng = np.random.default_rng(11)
+    d, q = _unit_rows(rng, 8192), _unit_rows(rng, 512)
+    js, ji = jserve.top_k(q, d, k=10, exact=False)
+    ts, ti = tserve.top_k(q, d, k=10, chunk=200, exact=False, device="cpu")
+    assert ts.shape == ti.shape == (512, 10)
+    assert ts.dtype == np.float32 and ti.dtype == np.int64
+    agree = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ti, ji)])
+    assert agree >= 0.93, agree
+    assert agree < 1.0  # it is an approximation: 88 bins of 8192 scores
+    np.testing.assert_allclose(
+        ts, np.take_along_axis(q @ d.T, ti, axis=1), rtol=0, atol=1e-6)
+    assert np.all(np.diff(ts, axis=1) <= 0)
+    assert all(len(set(row)) == 10 for row in ti)
+
+
+@pytest.mark.parametrize("k", [1, 5, 10, 40])
+def test_approx_bins_reach_the_recall_target(k):
+    """approx_bins' L is the least bin count whose expected recall, with
+    the top k in random bins, is 0.95: held against a Monte-Carlo of
+    random bin placement (the share of the top k alone in their bin's
+    best-of)."""
+    bins = tserve.retrieval.approx_bins(10 ** 6, k)
+    assert bins >= k and tserve.retrieval.approx_bins(bins // 2, k) <= bins
+    rng = np.random.default_rng(k)
+
+    def recall(n_bins, trials=20000):
+        placed = rng.integers(0, n_bins, size=(trials, k))
+        return np.mean([len(np.unique(row)) for row in placed]) / k
+
+    got = recall(bins)
+    assert got >= 0.95 - 0.004, (bins, got)
+    if bins > k:
+        assert recall(bins - 1) < 0.95 + 0.004
+    formula = (bins / k) * (1 - (1 - 1 / bins) ** k)
+    assert abs(got - formula) < 0.004 and formula >= 0.95
+
+
+def test_approx_top_k_is_exact_where_bins_cover_the_docs():
+    """With no more docs than bins every score is its own bin: the ids are
+    the exact path's (and dssm_tpu's) but at exact ties. Q = 0 and k > N
+    behave as on the exact path."""
+    rng = np.random.default_rng(5)
+    q, d = _unit_rows(rng, 70, 16), _unit_rows(rng, 80, 16)
+    d[7] = d[3]  # an exact tie
+    assert tserve.retrieval.approx_bins(80, 10) == 80
+    ts, ti = tserve.top_k(q, d, k=10, chunk=32, exact=False, device="cpu")
+    _top_k_agree(q, d, ts, ti, 10)
+    es, ei = tserve.top_k(q, d, k=10, exact=True, device="cpu")
+    np.testing.assert_array_equal(ts, es)
+    for k in (100, 5):
+        for qq in (q, q[:0]):
+            a = tserve.top_k(qq, d[:6], k=k, exact=False, device="cpu")
+            e = tserve.top_k(qq, d[:6], k=k, exact=True, device="cpu")
+            assert a[0].shape == e[0].shape == (len(qq), min(k, 6))
+            assert a[1].dtype == e[1].dtype == np.int64
+            np.testing.assert_array_equal(a[0], e[0])
 
 
 def test_no_silent_cpu_fallback(pairs):
@@ -242,13 +324,37 @@ def test_export_cli_impl_does_not_depend_on_preset(tmp_path, monkeypatch,
         texport.main([*common, f"--out={index}", "--train.use_pallas=false"])
 
 
-def test_export_cli_refuses_dssm_tpu_checkpoint(tmp_path):
-    (tmp_path / "checkpoints" / "60").mkdir(parents=True)
-    with pytest.raises(SystemExit, match="no orbax checkpoint reader"):
-        texport.main(["--preset=tiny", "--cpu", *SMALL,
-                      f"--io.workdir={tmp_path}",
-                      f"--out={tmp_path / 'index.npz'}"])
-    assert not (tmp_path / "index.npz").exists()
+def test_export_cli_refuses_dssm_tpu_checkpoint(tmp_path, capsys):
+    """A workdir dssm_tpu trained, once refused, is served: cli.export
+    builds the index dssm_tpu's cli.export builds from its orbax
+    checkpoint. One whose checkpoint cannot be decoded is still refused,
+    naming the file, and no index is written."""
+    from dssm_tpu.cli import export as jexport
+    from dssm_tpu.cli import train as jtrain
+    from dssm_tpu_torch.io.orbax_reader import OrbaxFormatError
+
+    work = str(tmp_path / "run")
+    flags = ["--preset=tiny", "--cpu", *SMALL, "--data.freq_remap=true",
+             f"--io.workdir={work}"]
+    jtrain.main([*flags, "--train.max_steps=2"])
+    want, got = str(tmp_path / "ref.npz"), str(tmp_path / "index.npz")
+    jexport.main([*flags, f"--out={want}"])
+    capsys.readouterr()
+    texport.main([*flags, f"--out={got}"])
+    err = capsys.readouterr().err
+    assert "restored step 2 from the dssm_tpu (orbax) checkpoint" in err
+    assert "applying saved vocab remap" in err
+    emb, titles = tserve.load_index(got)
+    ref_emb, ref_titles = jserve.load_index(want)
+    assert titles == ref_titles and emb.shape == ref_emb.shape
+    np.testing.assert_allclose(emb, ref_emb, rtol=0, atol=1e-5)
+
+    node_dir = tmp_path / "run" / "checkpoints" / "2" / "default" / "d"
+    (node,) = node_dir.iterdir()
+    node.write_bytes(b"\x00" + node.read_bytes()[1:])
+    with pytest.raises(OrbaxFormatError, match=node.name):
+        texport.main([*flags, f"--out={tmp_path / 'refused.npz'}"])
+    assert not (tmp_path / "refused.npz").exists()
 
 
 def _train(*args, cpu=True):
