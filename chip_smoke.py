@@ -104,6 +104,14 @@ cli.eval (against dssm_tpu's eval line) and cli.train --resume (its first
 loss against dssm_tpu's next-step loss) on a copy; approximate against
 exact top-k at TOPK_N docs x TOPK_N queries (ms each, id agreement).
 
+The tooling (phase 7b): cli.train --preset=full with the profiler hook
+and TensorBoard (--io.profile_dir, --io.tensorboard=true, an eval every
+TOOL_EVAL steps) in a process of its own, its trace holding the card's
+kernels (at least 5 fused gather + joint lookup and 5 loss kernel
+launches) and its event files the train, eval and weights tags; the
+weights record (weight_summaries) of the trained `full` model, timed; and
+tools/profile_components.py's stage lines on f32 and bf16 tables.
+
 It checks that every kernel was launched by the path it belongs to. The
 next-to-last line is a JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -163,6 +171,8 @@ FX_RESUME_STEPS = 3    # cli.train --resume on the dssm_tpu workdir
 FX_EVAL_TOL = 5e-3     # its cli.eval against dssm_tpu's, each metric
 FX_LOSS_TOL = 1e-2     # its first resumed loss against dssm_tpu's
 TOPK_N = 65536         # docs and queries of approximate against exact top-k
+TOOL_STEPS = 12        # cli.train with the profiler hook and TensorBoard
+TOOL_EVAL = 6         # its eval (and weights record) every 6 steps
 
 
 def check(ok: bool, msg: str) -> None:
@@ -4239,6 +4249,118 @@ def main() -> int:
           f"step {reported['step']} in {t3 - t2:.1f} s and reported the "
           f"run's final eval (recall@1 {reported['recall@1']:.4f}) on {card}")
     mh_dir.cleanup()
+
+    # ---- phase 7b: the tooling -------------------------------------------
+    # (a) cli.train --preset=full with the profiler hook and TensorBoard,
+    # TOOL_STEPS steps on CLI_PAIRS toy pairs, an eval every TOOL_EVAL
+    # steps, in a process of its own: its trace of steps 5 to 10 must hold
+    # the card's kernels (the fused gather + joint lookup and the loss
+    # kernels once a step or more), its event files the train, eval and
+    # weights tags. (b) weight_summaries on the trained `full` f32 model of
+    # phase 5 (the records cli.train writes at an eval), timed, without and
+    # with a histogram. (c) tools/profile_components.py: the joint step's
+    # stage times on an f32 and on a bf16 table, each in a process of its
+    # own (torch.profiler loses a window's device events in a number that
+    # grows with the time since the process's first window).
+    from dssm_tpu_torch.io.metrics import weight_summaries
+    from tensorboard.backend.event_processing.event_accumulator import (
+        EventAccumulator)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    tool_dir = tempfile.TemporaryDirectory(prefix="dssm_smoke_tool_")
+    prof_dir = os.path.join(tool_dir.name, "prof")
+    tool_work = os.path.join(tool_dir.name, "run")
+    t0 = time.perf_counter()
+    run_ = subprocess.run(
+        [sys.executable, "-m", "dssm_tpu_torch.cli.train", "--preset=full",
+         f"--io.workdir={tool_work}", f"--data.toy_num_pairs={CLI_PAIRS}",
+         f"--train.max_steps={TOOL_STEPS}", "--train.log_every=2",
+         f"--train.eval_every={TOOL_EVAL}", "--io.tensorboard=true",
+         f"--io.profile_dir={prof_dir}"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    tool_s = time.perf_counter() - t0
+    check(run_.returncode == 0 and f"profile written to {prof_dir}"
+          in run_.stderr, f"cli.train with the profiler hook: exit "
+          f"{run_.returncode}, stderr {run_.stderr[-3000:]}")
+    traces = [f_ for f_ in os.listdir(prof_dir)
+              if f_.startswith("rank0.") and f_.endswith(".pt.trace.json")]
+    check(len(traces) == 1, f"cli.train's profile dir holds {traces}")
+    with open(os.path.join(prof_dir, traces[0])) as f:
+        trace_events = json.load(f)["traceEvents"]
+    kernel_events = [e_ for e_ in trace_events if e_.get("cat") == "kernel"]
+    traced_kernels = {}
+    for e_ in kernel_events:
+        k_ = e_["name"].replace("(anonymous namespace)::", "")
+        k_ = k_.removeprefix("void ").split("(")[0].split("<")[0]
+        n_, us_ = traced_kernels.get(k_, (0, 0.0))
+        traced_kernels[k_] = (n_ + 1, us_ + float(e_.get("dur", 0.0)))
+    fused_n = traced_kernels.get("fused_gather_joint_kernel", (0, 0.0))[0]
+    loss_n = traced_kernels.get("in_batch_loss_kernel", (0, 0.0))[0]
+    check(fused_n >= 5 and loss_n >= 5,
+          f"cli.train's trace holds {fused_n} fused gather + joint lookup "
+          f"and {loss_n} loss kernel launches (5 steps traced): "
+          f"{sorted(traced_kernels.items(), key=lambda kv: -kv[1][1])[:12]}")
+    busy_us = sum(us_ for _, us_ in traced_kernels.values())
+    tb_tags = {}
+    for tag_ in sorted(os.listdir(os.path.join(tool_work, "tb"))):
+        acc_ = EventAccumulator(os.path.join(tool_work, "tb", tag_))
+        acc_.Reload()
+        tb_tags[tag_] = len(acc_.Tags()["scalars"])
+    check(all(tb_tags.get(t_, 0) > 0 for t_ in ("train", "eval", "weights")),
+          f"cli.train's TensorBoard event files hold {tb_tags}")
+    with open(os.path.join(tool_work, cfg.io.metrics_file)) as f:
+        tool_records = [json.loads(line) for line in f]
+    weight_steps = [r_["step"] for r_ in tool_records
+                    if r_["tag"] == "weights"]
+    check(weight_steps == list(range(TOOL_EVAL, TOOL_STEPS, TOOL_EVAL)),
+          f"cli.train wrote weights records at steps {weight_steps}")
+    print(f"cli.train --preset=full --io.profile_dir --io.tensorboard=true "
+          f"--train.eval_every={TOOL_EVAL}: {TOOL_STEPS} steps in "
+          f"{tool_s:.1f} s (its own process: start-up, hashing, evals and "
+          f"checkpoint included); trace {traces[0]}: {len(trace_events)} "
+          f"events, {len(kernel_events)} kernel launches, fused gather + "
+          f"joint lookup {fused_n}, loss kernels {loss_n}, device busy "
+          f"{busy_us / 1e3:.3f} ms in the window (steps 5-9 and the eval "
+          f"at {TOOL_EVAL}); TensorBoard scalars a tag {tb_tags}; weights "
+          f"records at steps {weight_steps} on {card}")
+    top_traced = sorted(traced_kernels.items(), key=lambda kv: -kv[1][1])
+    print("traced kernels of cli.train's window (launches, us): "
+          + json.dumps(top_traced[:12]))
+    tool_dir.cleanup()
+
+    for bins_, reps_ in ((0, 3), (32, 1)):
+        wsum_ms = []
+        for _ in range(reps_):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = weight_summaries(params, bins_)
+            wsum_ms.append((time.perf_counter() - t0) * 1e3)
+        check(all(np.isfinite(v_) for v_ in summary.values()
+                  if not isinstance(v_, list)),
+              f"weight_summaries: {summary}")
+        print(f"weights record (weight_summaries, {bins_} histogram bins) of "
+              f"the trained full model ({len(summary)} keys, the f32 table "
+              f"{tuple(params['shared']['W0'].shape)}): ms "
+              f"{[round(x_, 2) for x_ in wsum_ms]} on {card}")
+
+    for table_ in ("f32", "bf16"):
+        t0 = time.perf_counter()
+        run_ = subprocess.run(
+            [sys.executable, "-m", "dssm_tpu_torch.tools.profile_components",
+             table_, "--iters=20", "--traced=5"],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        check(run_.returncode == 0, f"tools/profile_components.py {table_}: "
+              f"exit {run_.returncode}, stderr {run_.stderr[-3000:]}")
+        stage_lines = [l_ for l_ in run_.stdout.splitlines()
+                       if l_.startswith(f"[{table_}]") and "us/iter" in l_]
+        check(len(stage_lines) == 12
+              and all("us busy" in l_ for l_ in stage_lines),
+              f"tools/profile_components.py {table_} printed:\n"
+              + run_.stdout[-4000:])
+        print(f"tools/profile_components.py {table_} "
+              f"({time.perf_counter() - t0:.1f} s, its own process):")
+        print(run_.stdout.strip())
 
     # ---- phase 8: the kernels line, then the result line ----------------
     # Every kernel of the build holds its comparison and a launch count from

@@ -35,6 +35,14 @@ and checkpoint records land on a block's last step, where step % every < K,
 as dssm_tpu's do. At most train.max_inflight_steps steps or blocks are
 queued on the card before the loop waits for the oldest.
 
+--io.tensorboard=true mirrors the records' scalars to TensorBoard event
+files under <workdir>/tb/<tag> and writes a `weights` record
+(io/metrics.py::weight_summaries of the whole parameters, with
+--io.weight_histogram_bins bins) at each periodic eval.
+--io.profile_dir=DIR traces steps start + 5 to start + 10 (the CPU and, on
+the GPU, the card) with torch.profiler into DIR/rank<r>.<ns>.pt.trace.json,
+also when the run ends inside that window.
+
 With the variables DSSM_COORDINATOR (host:port of process 0),
 DSSM_NUM_PROCS and DSSM_PROC_ID set, one process a GPU runs the same command
 (parallel/dist.py: NCCL on the GPU, gloo with --cpu): the processes form a
@@ -74,7 +82,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     )
     from dssm_tpu_torch.data.loader import LockedIterator
     from dssm_tpu_torch.io.checkpoint import Checkpointer, restore_run
-    from dssm_tpu_torch.io.metrics import MetricsWriter
+    from dssm_tpu_torch.io.metrics import MetricsWriter, weight_summaries
     from dssm_tpu_torch.kernels.gather import sublane_group
     from dssm_tpu_torch.models import base as model_base
     from dssm_tpu_torch.parallel import dist
@@ -93,11 +101,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     device = dist.initialize(cpu=cpu)
     joined = joined and torch.distributed.is_initialized()
     cfg = validate_cfg(coerce_overrides(get_preset(preset), raw_overrides))
-    if cfg.io.tensorboard or cfg.io.profile_dir:
-        raise NotImplementedError(
-            "TensorBoard summaries and the profiler hook (io.tensorboard, "
-            "io.profile_dir) are not ported yet (ROADMAP.md, Queue 1: "
-            "tooling); metrics go to " + cfg.io.metrics_file)
     if cfg.io.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -140,8 +143,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         print("freq_remap: vocab permutation built from the train corpus, "
               f"saved to {cfg.io.workdir}", file=sys.stderr)
 
-    writer = MetricsWriter(f"{cfg.io.workdir}/{cfg.io.metrics_file}"
-                           if lead else None)
+    writer = MetricsWriter(
+        f"{cfg.io.workdir}/{cfg.io.metrics_file}" if lead else None,
+        tensorboard_dir=(f"{cfg.io.workdir}/tb"
+                         if cfg.io.tensorboard and lead else None))
     ckpt = Checkpointer(cfg.io.workdir, keep=cfg.train.keep_checkpoints)
     state = None
     if resume:
@@ -229,17 +234,38 @@ def main(argv: Optional[List[str]] = None) -> None:
 
         stacked_blocks = prefetch(_stacked_stream(), depth=2)
 
-    def run_eval():
-        """The eval on process 0, of the whole parameters (the table
-        gathered over the model group, which every process joins)."""
-        params = gather_tree(state.params, mesh) if mesh else state.params
+    def whole_params():
+        """The whole parameters (the table gathered over the model group,
+        which every process joins)."""
+        return gather_tree(state.params, mesh) if mesh else state.params
+
+    def run_eval(params):
+        """The eval on process 0."""
         if not lead:
             return None
         return evaluate(params, cfg, hashed_eval, cfg.train.batch_size)
 
+    # The profiler hook: a window over steps [start + 5, start + 10), as
+    # dssm_tpu traces them; every rank writes its own trace.
+    prof = None
+    profiled = False
+
+    def stop_profile():
+        if device.type == "cuda":
+            torch.cuda.synchronize()  # the window's queued kernels
+        prof.stop()
+        print(f"profile written to {cfg.io.profile_dir}", file=sys.stderr)
+
     t_last = time.perf_counter()
     step = last_log_step = start_step
     while step < cfg.train.max_steps:
+        if (cfg.io.profile_dir and prof is None and not profiled
+                and step >= start_step + 5):
+            prof = start_profile(cfg.io.profile_dir, device,
+                                 dist.process_index())
+        if prof is not None and step >= start_step + 10:
+            stop_profile()
+            prof, profiled = None, True
         if multi_fn is not None and cfg.train.max_steps - step >= spc:
             if stacked_blocks is not None:
                 stacked = next(stacked_blocks)
@@ -279,9 +305,13 @@ def main(argv: Optional[List[str]] = None) -> None:
                 and step % cfg.train.eval_every < stride):
             # The eval corpus's prepared batches are cached on the device
             # after the first eval (train/eval.py).
-            ev = run_eval()
+            params = whole_params()
+            ev = run_eval(params)
             if ev is not None:
                 writer.write("eval", step, ev)
+                if cfg.io.tensorboard:
+                    writer.write("weights", step, weight_summaries(
+                        params, cfg.io.weight_histogram_bins))
                 print(f"eval@{step}: recall@1={ev['recall@1']:.3f} "
                       f"ndcg@10={ev['ndcg@10']:.3f}", file=sys.stderr)
         if (cfg.train.checkpoint_every and step
@@ -289,8 +319,12 @@ def main(argv: Optional[List[str]] = None) -> None:
             ckpt.save(step, state, mesh)
         step += 1
 
+    if prof is not None:
+        # The run ended inside the window: its trace is written all the
+        # same (dssm_tpu never stops its trace then).
+        stop_profile()
     ckpt.save(cfg.train.max_steps, state, mesh)
-    ev = run_eval()
+    ev = run_eval(whole_params())
     if ev is not None:
         writer.write("eval_final", cfg.train.max_steps, ev)
         print(f"final eval: recall@1={ev['recall@1']:.3f} "
@@ -301,6 +335,24 @@ def main(argv: Optional[List[str]] = None) -> None:
         # The others wait for process 0's last checkpoint and eval.
         dist.barrier()
         dist.shutdown()
+
+
+def start_profile(profile_dir: str, device, rank: int):
+    """A started torch.profiler window over the CPU and, on the GPU, the
+    card; stopping it writes <profile_dir>/rank<rank>.<ns>.pt.trace.json
+    (torch.profiler.tensorboard_trace_handler, which TensorBoard's
+    profiler plugin reads)."""
+    from torch.profiler import (
+        ProfilerActivity, profile, tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(
+                       profile_dir, worker_name=f"rank{rank}"))
+    prof.start()
+    return prof
 
 
 if __name__ == "__main__":

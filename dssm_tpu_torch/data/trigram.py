@@ -19,7 +19,7 @@ lowercase is ASCII (the Kelvin sign, U+0130) hashes as that letter on both.
 from __future__ import annotations
 
 import re
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 
@@ -158,3 +158,37 @@ def hash_batch_sequence(
         idx[b], wgt[b], mask[b] = hash_text_sequence(
             text, vocab_size, max_words, max_trigrams_per_word, normalize)
     return idx, wgt, mask
+
+
+def dense_from_fixed(
+    indices: np.ndarray, weights: np.ndarray, vocab_size: int
+) -> np.ndarray:
+    """The dense [B, V] bag vector of fixed-length rows (tests and
+    diagnostics)."""
+    b = indices.shape[0]
+    dense = np.zeros((b, vocab_size), dtype=np.float32)
+    flat_rows = np.repeat(np.arange(b), indices.shape[1])
+    np.add.at(dense, (flat_rows, indices.reshape(-1)), weights.reshape(-1))
+    dense[:, PAD_INDEX] = 0.0
+    return dense
+
+
+def collision_stats(texts: Iterable[str], vocab_size: int) -> Dict[str, float]:
+    """The trigram hash's collisions over a corpus: distinct trigrams, used
+    buckets, buckets holding more than one trigram and their share, and
+    trigram occurrences (tools/vocab_stats.py)."""
+    seen: Dict[int, set] = {}
+    total = 0
+    for text in texts:
+        for word in tokenize(text):
+            for tri in word_trigrams(word):
+                total += 1
+                seen.setdefault(trigram_id(tri, vocab_size), set()).add(tri)
+    collided = sum(1 for tris in seen.values() if len(tris) > 1)
+    return {
+        "distinct_trigrams": float(sum(len(v) for v in seen.values())),
+        "used_buckets": float(len(seen)),
+        "collided_buckets": float(collided),
+        "collision_rate": collided / max(len(seen), 1),
+        "total_occurrences": float(total),
+    }

@@ -24,6 +24,10 @@ numpy inputs, writing this rank's results to <out.npz>:
           and the gradient of the whole batch's sum in its table rows
   eval    make_parallel_eval_fn's (q, d) of this rank's rows of the spec's
           batch ("batch"), from the spec's parameters cut to this rank
+  collectives
+          one parallel train step on the spec's batch ("batch"), with every
+          torch.distributed collective it issues recorded in order (op,
+          mesh axis, ranks, bytes), as JSON under "<name>/log"
 
 The spec is an npz: a JSON string under "spec" ({"dp", "mp", "runs": [{
 "name", "kind", "cfg": {section: {field: value}}, "params", "batches" |
@@ -33,6 +37,7 @@ parameter tree or a batch).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -68,6 +73,40 @@ def run_config(d: Dict):
                     for k, v in d.get(s, {}).items()})
           for s, cls in sections.items()}
     return configs.validate(configs.RunConfig(**kw))
+
+
+@contextlib.contextmanager
+def record_collectives(mesh):
+    """Every all_reduce, all_gather_into_tensor and reduce_scatter_tensor
+    issued inside the block, in order: {"op", "axis" ("data" / "model"),
+    "ranks", "nbytes"}; nbytes is the reduced buffer's, the
+    gathered output's and the scattered input's (the totals
+    parallel/comm_model.py counts)."""
+    import torch.distributed as tdist
+
+    axis_of = {id(g): a for a, g in mesh.groups.items()}
+    log = []
+    # Which positional argument holds the counted tensor.
+    counted = {"all_reduce": 0, "all_gather_into_tensor": 0,
+               "reduce_scatter_tensor": 1}
+    originals = {op: getattr(tdist, op) for op in counted}
+
+    def wrap(op):
+        def wrapped(*args, group=None, **kw):
+            t = args[counted[op]]
+            log.append(dict(op=op, axis=axis_of[id(group)],
+                            ranks=tdist.get_world_size(group),
+                            nbytes=t.numel() * t.element_size()))
+            return originals[op](*args, group=group, **kw)
+        return wrapped
+
+    for op in counted:
+        setattr(tdist, op, wrap(op))
+    try:
+        yield log
+    finally:
+        for op, fn in originals.items():
+            setattr(tdist, op, fn)
 
 
 def parity(spec_path: str, out_path: str, device) -> None:
@@ -167,6 +206,15 @@ def parity(spec_path: str, out_path: str, device) -> None:
                 params, to_dev(_batch(arrays, run["batch"])))
             out[f"{name}/q"] = q.cpu().numpy()
             out[f"{name}/d"] = d.cpu().numpy()
+        elif kind == "collectives":
+            cfg = run_config(run["cfg"])
+            state = create_sharded_state(cfg, mesh, bridge.params_from_jax(
+                _tree(arrays, run["params"]), cfg.tower, device))
+            step = make_parallel_train_step(cfg, mesh)
+            batch = to_dev(_batch(arrays, run["batch"]))
+            with record_collectives(mesh) as log:
+                step(state, batch)
+            out[f"{name}/log"] = np.asarray(json.dumps(log))
         else:
             raise ValueError(f"unknown run kind {kind!r}")
     out["coords"] = np.asarray([mesh.coords["data"], mesh.coords["model"]])

@@ -43,7 +43,9 @@ def test_port_has_modules():
                  "kernels.embed", "kernels.sparse_embed",
                  "kernels.sharded_embed", "parallel.mesh", "parallel.dist",
                  "parallel.sparse_step", "parallel.train_step",
-                 "tools.multihost_worker", "io.orbax_reader"):
+                 "tools.multihost_worker", "io.orbax_reader",
+                 "parallel.comm_model", "tools.vocab_stats",
+                 "tools.profile_components", "tools.host_plane_bench"):
         assert f"dssm_tpu_torch.{name}" in mods
     assert len(_port_files()) > 30
 
@@ -98,14 +100,15 @@ def test_not_ported_messages_name_roadmap_items():
             text = re.sub(r'"\s*\n\s*#?\s*f?"?', "", f.read())
         refs += [(path, n, name) for n, name in re.findall(
             r"ROADMAP\.md, Queue (\d): ?([^)\"]+)\)", text)]
-    # Every queue the port refers to still holds items, and the messages
-    # that named the items ported since (the low-precision tables, eval,
-    # the cnn / lstm towers, the raw-index embedding bag, the multi-step
-    # dispatch, the dense-table step, the multi-device path) are gone with
-    # them.
-    assert refs and all(titles.get(n) for _, n, _ in refs)
+    # Every queue the port still refers to holds items (no reference is
+    # left once the last module is ported), and the messages that named
+    # the items ported since (the low-precision tables, eval, the cnn /
+    # lstm towers, the raw-index embedding bag, the multi-step dispatch,
+    # the dense-table step, the multi-device path, the tooling) are gone
+    # with them.
+    assert all(titles.get(n) for _, n, _ in refs)
     gone = ("int8", "eval", "cnn", "lstm", "embedding_bag", "multi-step",
-            "dense-table", "multi-device")
+            "dense-table", "multi-device", "tooling")
     assert not [r for r in refs if any(g in r[2].lower() for g in gone)]
     for path, n, name in refs:
         name = re.sub(r"\s+", " ", name).strip().lower()

@@ -202,6 +202,15 @@ def _inputs(dp, mp):
     spec_runs += [dict(name="loss", kind="loss", q="q", d="d", gamma=GAMMA),
                   dict(name="bag", kind="bag", table="table", idx="idx",
                        wgt="wgt")]
+    # One step of each with its collectives recorded: slot spaces on a
+    # bf16 wire (the multihost preset's step), and plain joint batches on
+    # an f32 wire.
+    for name, (over, kind) in COLLECTIVE_RUNS.items():
+        cfg = _cfg_dict(dp, mp, **over)
+        batch = (local if kind == "local" else joint)[0]
+        arrays.update({f"{name}/b/{k}": v for k, v in batch.items()})
+        spec_runs.append(dict(name=name, kind="collectives", cfg=cfg,
+                              params="p", batch=f"{name}/b"))
     for name, b in (("eval_joint", joint[0]), ("eval_raw", raw[0])):
         arrays.update({f"{name}/b/{k}": v for k, v in b.items()})
         spec_runs.append(dict(name=name, kind="eval", cfg=base, params="p",
@@ -294,6 +303,12 @@ def ranks(request, tmp_path_factory):
     return dp, mp, [dict(np.load(o)) for o in outs], ref
 
 
+COLLECTIVE_RUNS = {
+    "coll_local_bf16": ({"mesh.collective_dtype": "bfloat16",
+                         "data.max_unique_rows_local": CAP}, "local"),
+    "coll_joint_f32": ({}, "joint"),
+}
+
 RUNS = ["joint_local", "joint", "per_side", "raw_sgd", "dense_adam",
         "multi", "bf16_wire", "rotate"]
 
@@ -358,6 +373,39 @@ def test_sharded_bag_and_grad_match(ranks):
                    if int(o["coords"][0]) == 0)
     np.testing.assert_allclose(np.concatenate([g for _, g in grads]),
                                want["grad"], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("run", list(COLLECTIVE_RUNS))
+def test_collectives_match_comm_model(ranks, run):
+    """The collectives parallel/dist.py issues in one step, recorded on
+    every rank, are parallel/comm_model.py's terms for the mesh and the
+    step's options: the same ops on the same axes with the same bytes, in
+    the same order. A group of one rank (an axis of size 1) still has its
+    all-reduce issued; it moves nothing and the model leaves it out."""
+    from dssm_tpu_torch.parallel import comm_model
+    from dssm_tpu_torch.tools.multihost_worker import run_config
+
+    dp, mp, outs, _ = ranks
+    cfg = run_config(_cfg_dict(dp, mp, **COLLECTIVE_RUNS[run][0]))
+    terms = comm_model.step_collectives(cfg, dp, mp,
+                                        **comm_model.step_options(cfg))
+
+    def kind(t):
+        op = ("all_gather_into_tensor" if "all-gather" in t.name
+              else "reduce_scatter_tensor" if "reduce-scatter" in t.name
+              else "all_reduce")
+        return op, "model" if "(mp)" in t.name else "data"
+
+    want = [(*kind(t), round(t.mbytes * 1e6)) for t in terms]
+    assert len(want) == {(2, 1): 5, (1, 2): 1, (2, 2): 6}[(dp, mp)]
+    for o in outs:
+        log = json.loads(str(o[f"{run}/log"]))
+        assert all(r["ranks"] == {"data": dp, "model": mp}[r["axis"]]
+                   for r in log)
+        moved = [(r["op"], r["axis"], r["nbytes"]) for r in log
+                 if r["ranks"] > 1]
+        assert moved == want, (moved, want)
+        assert len(log) - len(moved) == (2 if dp == 1 else 0)
 
 
 @pytest.mark.parametrize("name", ["eval_joint", "eval_raw"])
