@@ -104,6 +104,22 @@ cli.eval (against dssm_tpu's eval line) and cli.train --resume (its first
 loss against dssm_tpu's next-step loss) on a copy; approximate against
 exact top-k at TOPK_N docs x TOPK_N queries (ms each, id agreement).
 
+Configurations no earlier phase runs (phase 6g), at the presets' widths
+from seeded fresh inits, G_STEPS steps each through the kernels and the
+plain versions from one state with every kernel's launches a step
+checked: per-side cnn and lstm steps; cnn and lstm on bf16 and int8
+tables (int8 at G_INT8_VOCAB rows); the row-wise AdaGrad table with adam
+(lr G_ADAGRAD_LR) on `full`'s f32 and bf16 tables and cnn's f32 table,
+its accumulator column moved on gathered rows only and the dead padding
+columns 0; momentum on `full` (the dense-table step, its trace over the
+table); the rotate loss on `full` (f32, bf16) and cnn, batches unsorted
+with rot_offsets. Each with steps/s on batches made ahead and peak memory;
+G_TRACED steps of each traced in a process of their own (`python3
+chip_smoke.py --trace-steps FILE`); the count lookup backward and the two
+stochastic-rounding scatters timed at the cnn and lstm widths; cli.train
+--loss.mode=rotate at K_CALL steps a call against 1 (the same losses and
+final eval).
+
 The tooling (phase 7b): cli.train --preset=full with the profiler hook
 and TensorBoard (--io.profile_dir, --io.tensorboard=true, an eval every
 TOOL_EVAL steps) in a process of its own, its trace holding the card's
@@ -173,6 +189,11 @@ FX_LOSS_TOL = 1e-2     # its first resumed loss against dssm_tpu's
 TOPK_N = 65536         # docs and queries of approximate against exact top-k
 TOOL_STEPS = 12        # cli.train with the profiler hook and TensorBoard
 TOOL_EVAL = 6         # its eval (and weights record) every 6 steps
+G_STEPS = 3            # phase 6g: each configuration, kernels against plain
+G_TRACED = 3           # then traced in a process of its own, after a warm step
+G_CLI_STEPS = 10       # cli.train --loss.mode=rotate at K = K_CALL and 1
+G_ADAGRAD_LR = 0.01    # the dssm_tpu fixture's (adam + the AdaGrad table)
+G_INT8_VOCAB = 32768   # cnn / lstm int8 tables: 1024 slots of 32-row groups
 
 
 def check(ok: bool, msg: str) -> None:
@@ -184,6 +205,82 @@ def bound_ms(nbytes: float, flops: float, kind: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[kind] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def g_init_params(cache, c, dev):
+    """Phase 6g: the seeded fresh parameters of config c, one init of each
+    tower layout, table shape and dtype."""
+    import torch
+
+    from dssm_tpu_torch.models import base as model_base
+
+    t = c.tower
+    key = (t.arch, t.shared_weights, t.vocab_size, t.table_dtype_resolved)
+    if key not in cache and key[-1] == "bfloat16":
+        # init_params' bf16 table is its f32 table cast: one draw for both.
+        f32 = g_init_params(cache, c.replace(tower=t.replace(
+            table_dtype="float32")), dev)
+        table = model_base.TABLE_KEY[t.arch]
+        cache[key] = {tw: {k: v.to(torch.bfloat16) if k == table else v
+                           for k, v in tp.items()} for tw, tp in f32.items()}
+    if key not in cache:
+        cache[key] = model_base.init_params(t, seed=c.train.seed, device=dev)
+    return cache[key]
+
+
+def trace_steps(cases_path: str) -> int:
+    """`python3 chip_smoke.py --trace-steps FILE`, phase 6g's traced steps in
+    a process of their own: FILE holds [(name, config, numpy batches)].
+    Each configuration takes one step from its seeded fresh init; then, on
+    a line "go" on stdin, the torch.profiler windows run back to back, one
+    a configuration over its other batches. Prints one JSON line: {name:
+    traced device busy ms and wall ms a step, the device's busy share in
+    the window}; busy null where a window recorded no device event."""
+    import pickle
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dssm_tpu_torch.bridge import batch_to_torch
+    from dssm_tpu_torch.train.loop import make_train_step
+    from dssm_tpu_torch.train.state import create_run_state
+
+    with open(cases_path, "rb") as f:
+        cases = pickle.load(f)
+    dev = torch.device("cuda")
+    inits, ready = {}, []
+    for name, c, batches in cases:
+        state = create_run_state(c, {
+            tw: {k: v.clone() for k, v in tp.items()}
+            for tw, tp in g_init_params(inits, c, dev).items()})
+        step = make_train_step(c)
+        tb = [batch_to_torch(b, dev) for b in batches]
+        state, _ = step(state, tb[0])  # warm
+        ready.append((name, step, state, tb[1:]))
+    del inits
+    torch.cuda.synchronize()
+    # The windows wait for the parent to leave the card idle.
+    if sys.stdin.readline().strip() != "go":
+        return 1
+    out = {}
+    for name, step, state, tb in ready:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for b in tb:
+                state, _ = step(state, b)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = sum(float(getattr(e, "self_device_time_total", 0.0))
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        out[name] = dict(
+            traced_device_busy_ms_per_step=busy / 1e3 / len(tb) if busy
+            else None,
+            traced_wall_ms_per_step=wall * 1e3 / len(tb),
+            device_busy_share_traced=busy / 1e6 / wall if busy else None)
+    print(json.dumps(out))
+    return 0
 
 
 def main() -> int:
@@ -1854,14 +1951,14 @@ def main() -> int:
         return a_ / m_ if m_ > 0 else (0.0 if a_ == 0 else float("inf"))
 
     def compare_training(run_cfg, init, batches_np, what, expect,
-                         dedup_group=group, loss_tol=2e-2):
+                         dedup_group=group, loss_tol=2e-2, first_tol=1e-2):
         """The same steps from the same state through the kernels and
         through the plain versions; checks and returns the kernel run.
         ONE step from the same state: every f32 parameter's largest
-        difference is held to 1e-2 of that tensor's largest update (a
-        gradient formed in bf16 compute parts by one bf16 rounding, 2^-8 of
-        itself, where an f32 sum's last bits tip it; 2.3e-3 to 4.6e-3 read
-        on an H100 over every branch), and a
+        difference is held to first_tol (1e-2) of that tensor's largest
+        update (a gradient formed in bf16 compute parts by one bf16
+        rounding, 2^-8 of itself, where an f32 sum's last bits tip it;
+        2.3e-3 to 4.6e-3 read on an H100 over every branch), and a
         bf16 or int8 table is compared in grid steps (both runs draw the
         same random stream, so they part only where the accumulators' last
         bits tip a rounding). The whole run: under bf16 compute the two
@@ -1870,35 +1967,51 @@ def main() -> int:
         the plain versions), so the loss curves are held to loss_tol and each
         parameter's update (the table's on its touched rows) to 0.1 of
         itself, by update_gap: a wrong update reads 1 or more, the sound
-        runs of every branch on an H100 at most 0.039 (the cnn's)."""
+        runs of every branch on an H100 at most 0.039 (the cnn's). Under
+        adam the dense parameters are compared by their first moments (the
+        gradients' running mean) against zero: adam moves a parameter by
+        the sign of a gradient that is f32 noise, +-lr in either run."""
         steps = len(batches_np)
         key = model_base.TABLE_KEY[run_cfg.tower.arch]
+        adam = run_cfg.train.optimizer == "adam"
+
+        def compared(state_, tw, k):
+            """(tensor, its value before the run) two runs' updates of
+            parameter k of tower tw are compared by."""
+            if adam and k != key:
+                mu_ = state_.opt_state["mu"][tw][k]
+                return mu_, torch.zeros_like(mu_)
+            return state_.params[tw][k], init[tw][k]
+
         # Warm-up outside the counted run (cuBLAS handles, allocator): one
         # step of each on copies, kept for the one-step comparison.
         first = {}
         for impl in ("auto", "plain"):
             first[impl] = run_steps(
                 run_cfg, create_run_state(run_cfg, clone_params(init)),
-                batches_np[:1], impl)[0].params
+                batches_np[:1], impl)[0]
         first_gap, first_share, first_param_gap, first_rel = 0.0, 0.0, 0.0, 0.0
         for tw in init:
-            for k, want in first["plain"][tw].items():
+            for k, want in first["plain"].params[tw].items():
                 if want.dtype != torch.float32 or k == f"{key}_scale":
                     continue  # a low-precision table: in grid steps, below
-                apart = float((first["auto"][tw][k] - want).abs().max())
-                moved = float((want - init[tw][k]).abs().max())
+                want, before = compared(first["plain"], tw, k)
+                got = compared(first["auto"], tw, k)[0]
+                apart = float((got - want).abs().max())
+                moved = float((want - before).abs().max())
                 first_param_gap = max(first_param_gap, apart)
                 first_rel = max(first_rel, apart / moved if moved > 0 else (
                     0.0 if apart == 0 else float("inf")))
             if init[tw][key].dtype != torch.float32:
                 hit = touched_rows(tw, init, batches_np[:1], dedup_group, key)
                 first_gap, first_share = grid_steps_apart(
-                    first["auto"][tw][key][hit], first["plain"][tw][key][hit],
-                    init[tw][key][hit])
+                    first["auto"].params[tw][key][hit],
+                    first["plain"].params[tw][key][hit], init[tw][key][hit])
         del first
-        check(first_rel <= 1e-2, f"{what}: after one step from the same "
-              f"state kernel and plain parameters differ by {first_param_gap}"
-              f", {first_rel} of the tensor's largest update > 1e-2")
+        check(first_rel <= first_tol, f"{what}: after one step from the "
+              f"same state kernel and plain parameters differ by "
+              f"{first_param_gap}, {first_rel} of the tensor's largest update"
+              f" > {first_tol}")
         s_p, loss_p, wall_p = run_steps(
             run_cfg, create_run_state(run_cfg, clone_params(init)),
             batches_np, "plain")
@@ -1946,8 +2059,9 @@ def main() -> int:
                 else:
                     dense_gap = max(dense_gap,
                                     float((got - want).abs().max()))
-                    dense_rel = max(dense_rel,
-                                    update_gap(got, want, init[tw][k]))
+                    want, before = compared(s_p, tw, k)
+                    dense_rel = max(dense_rel, update_gap(
+                        compared(s_k, tw, k)[0], want, before))
         check(dense_rel <= 0.1 and table_rel <= 0.1, f"{what}: kernel and "
               f"plain updates lie {dense_rel} (dense) / {table_rel} (table "
               "rows touched) of themselves apart > 0.1")
@@ -3791,6 +3905,357 @@ def main() -> int:
           f"{agree:.4f} on {card}")
     del d_top, q_top
 
+    # ---- phase 6g: configurations no earlier phase ran -------------------
+    # At the presets' widths, from seeded fresh inits: per-side cnn and lstm
+    # steps (the count lookup's backward at Wc's 1024 and Win's 384
+    # columns); cnn and lstm on bf16 and int8 tables (the stochastic-
+    # rounding scatters at those widths; an int8 table's 32-row groups need
+    # a vocabulary that is a multiple of 32 and holds the preset's 1024
+    # slots of them, so G_INT8_VOCAB rows, hashed anew); the row-wise
+    # AdaGrad table with adam on the dense parameters (the dssm_tpu
+    # fixture's optimizers and lr) on `full`'s f32 and bf16 tables and
+    # cnn's f32 table; momentum on `full` (with the sgd table optimizer,
+    # the dense-table step: the table, its d_table and its trace, three
+    # [500000, 384] f32 tensors); the rotate loss on `full` (f32, bf16) and
+    # cnn, its batches unsorted with each step's rot_offsets, as cli.train
+    # makes them. G_STEPS of each through the kernels and the plain
+    # versions from one state (compare_training; the counts reset just
+    # before the kernel run and read just after, every kernel's launches a
+    # step checked); steps/s on batches made ahead and peak memory; then
+    # G_TRACED steps of each traced in a process of its own. Also the
+    # count lookup backward and the two stochastic-rounding scatters timed
+    # at the cnn and lstm widths on those runs' batches, and cli.train
+    # --loss.mode=rotate at K_CALL steps a call (blocks stacked inline)
+    # against K = 1.
+    import pickle
+
+    from dssm_tpu_torch.train.loop import add_rotation_offsets
+    from dssm_tpu_torch.train.sparse_update import logical_table_width
+
+    t0_g = time.perf_counter()
+    loss3 = {"in_batch_loss": 1, "in_batch_loss_dq": 1, "in_batch_loss_dd": 1}
+    fused1 = {"fused_gather_joint_lookup": 1, "joint_lookup_bwd": 1}
+    adam_ada = dict(optimizer="adam", table_optimizer="adagrad",
+                    learning_rate=G_ADAGRAD_LR)
+    seq_int8 = {a: validate(c.replace(tower=c.tower.replace(
+        table_dtype="int8", vocab_size=G_INT8_VOCAB)))
+        for a, c in seq_cfg.items()}
+    seq_train_int8 = hash_pairs(seq_train_p, seq_int8["cnn"].tower, sc.data)
+    g_cases = []
+    per_side = {"gather_row_groups": 2, "count_lookup": 2,
+                "count_lookup_bwd": 2, "scatter_add_row_groups": 2, **loss3}
+    for a, c in seq_cfg.items():
+        g_cases += [
+            (f"{a} per-side", validate(c.replace(tower=c.tower.replace(
+                shared_weights=False))), seq_train, per_side),
+            (f"{a} bf16 table", validate(c.replace(tower=c.tower.replace(
+                table_dtype="bfloat16"))), seq_train,
+             {**fused1, "scatter_sr_row_groups": 1, **loss3}),
+            (f"{a} int8 table", seq_int8[a], seq_train_int8,
+             {"gather_row_groups": 1, "joint_lookup": 1,
+              "joint_lookup_bwd": 1, "scatter_sr_int8_row_groups": 1,
+              **loss3})]
+    # The per-side lstm's first step under f32 compute: the control of its
+    # bf16 one (g_first_tol).
+    g_cases.append(("lstm per-side, f32 compute", validate(
+        seq_cfg["lstm"].replace(tower=seq_cfg["lstm"].tower.replace(
+            shared_weights=False, compute_dtype="float32"))), seq_train,
+        per_side))
+    full_ada = validate(cfg.replace(train=cfg.train.replace(**adam_ada)))
+    full_rot = validate(cfg.replace(loss=cfg.loss.replace(mode="rotate")))
+    bf16_full = t.replace(table_dtype="bfloat16")
+    mlp1 = {**fused1, "dense_tower_residuals": 1}
+    g_cases += [
+        ("full AdaGrad f32 table, adam", full_ada, hashed_train,
+         {**mlp1, "scatter_add_row_groups": 1, **loss3}),
+        ("full AdaGrad bf16 table, adam",
+         validate(full_ada.replace(tower=bf16_full)), hashed_train,
+         {**mlp1, "scatter_sr_row_groups": 1, **loss3}),
+        ("cnn AdaGrad f32 table, adam",
+         validate(sc.replace(train=sc.train.replace(**adam_ada))), seq_train,
+         {**fused1, "scatter_add_row_groups": 1, **loss3}),
+        ("full momentum (dense-table step)", validate(cfg.replace(
+            data=cfg.data.replace(dedup_lookup=False),
+            train=cfg.train.replace(optimizer="momentum"))), hashed_train,
+         {"embedding_bag": 2, "dense_tower_residuals": 2, **loss3}),
+        ("full rotate loss, f32 table", full_rot, hashed_train,
+         {**mlp1, "scatter_add_row_groups": 1}),
+        ("full rotate loss, bf16 table",
+         validate(full_rot.replace(tower=bf16_full)), hashed_train,
+         {**mlp1, "scatter_sr_row_groups": 1}),
+        ("cnn rotate loss",
+         validate(sc.replace(loss=sc.loss.replace(mode="rotate"))),
+         seq_train, {**fused1, "scatter_add_row_groups": 1})]
+
+    def g_group(c):
+        return sublane_group(model_base.torch_dtype(
+            c.tower.table_dtype_resolved))
+
+    def g_stream(c, hashed_):
+        """G_STEPS + G_TRACED + 1 batches of c's stream, as cli.train makes
+        them (rotate: rows unsorted, each step's rot_offsets)."""
+        seq_, dedup_ = c.tower.is_sequence_model, c.data.dedup_lookup
+        flat_ = dedup_ and not seq_
+        it_ = batch_iterator(
+            hashed_, c.train.batch_size, seq_, seed=c.train.seed,
+            dedup_unique=c.data.max_unique if dedup_ else None,
+            dedup_group=g_group(c),
+            dedup_unique_rows=c.data.max_unique_rows,
+            dedup_joint=c.tower.shared_weights, wire_compress=flat_,
+            sort_rows=flat_ and c.loss.mode != "rotate")
+        return [add_rotation_offsets(next(it_), c, i_)
+                for i_ in range(G_STEPS + G_TRACED + 1)]
+
+    # The per-side lstm's towers each take one side's gradient, summed over
+    # 16 recurrent bf16 steps whose terms nearly cancel at init (the loss
+    # sits at ~6.91): a rounding tipped in the recurrence moves an element
+    # of bh's or Wh's first gradient by ~3 of the tensor's bf16 ulps, 0.0114
+    # of the largest update on an H100 (doc/bh), 0.0019 under f32 compute
+    # (the control case above, held to 1e-2).
+    g_first_tol = {"lstm per-side": 2e-2}
+
+    def run_phase_6g():
+        """Every configuration kernels against plain; the count backward
+        and the SR scatters at the cnn and lstm widths; cli.train with the
+        rotate loss at K_CALL against 1. Returns the summaries."""
+        g_summary, g_inits, g_first = {}, {}, {}
+        for name, c, _, expect in g_cases:
+            b_np = g_batches[name]
+            init_ = g_init_params(g_inits, c, dev)
+            key_ = model_base.TABLE_KEY[c.tower.arch]
+            run = compare_training(
+                c, init_, b_np[:G_STEPS], f"phase 6g, {name}", expect,
+                dedup_group=g_group(c),
+                loss_tol=0.1 if c.tower.is_sequence_model else 2e-2,
+                first_tol=g_first_tol.get(name, 1e-2))
+            check(all(("rot_offsets" in b_) == (c.loss.mode == "rotate")
+                      for b_ in b_np), f"phase 6g, {name}: rot_offsets")
+            extra = {}
+            if c.train.table_optimizer == "adagrad":
+                # The accumulator rides in the table's last padding column:
+                # it moved on gathered rows only; the dead columns before it
+                # stay 0.
+                tab_ = run["state"].params["shared"][key_]
+                hit_ = touched_rows("shared", init_, b_np[:G_STEPS],
+                                    g_group(c), key_)
+                acc_moved = tab_[:, -1] != init_["shared"][key_][:, -1]
+                dead_ = tab_[:, logical_table_width(c):-1]
+                check(bool(acc_moved[hit_].any())
+                      and not bool(acc_moved[~hit_].any())
+                      and not bool(dead_.float().any()),
+                      f"phase 6g, {name}: the AdaGrad accumulator moved on "
+                      f"{int(acc_moved[hit_].sum())} gathered and "
+                      f"{int(acc_moved[~hit_].sum())} other rows; dead "
+                      f"padding columns nonzero: {int((dead_ != 0).sum())}")
+                extra = dict(accumulator_rows_moved=int(acc_moved.sum()),
+                             accumulator_max=float(tab_[hit_, -1].max()),
+                             dead_columns=dead_.shape[1])
+            if c.train.optimizer == "momentum":
+                trace_ = run["state"].opt_state["trace"]["shared"][key_]
+                check(trace_.shape == init_["shared"][key_].shape,
+                      f"phase 6g, {name}: no momentum trace over the table")
+                extra = dict(table_and_trace_gb=2 * trace_.numel() * 4 / 1e9)
+            g_summary[name] = dict(
+                card=card, steps=G_STEPS,
+                loss=[round(v, 5) for v in run["loss"]],
+                step_ms=run["wall_s"] * 1e3 / G_STEPS,
+                steps_per_s=G_STEPS / run["wall_s"],
+                plain_steps_per_s=G_STEPS / run["plain_wall_s"],
+                peak_mem_gb=run["peak"] / 1e9,
+                peak_above_resident_gb=(run["peak"] - run["resident"]) / 1e9,
+                launches_per_step={k: v // G_STEPS for k, v in
+                                   run["counts"].items() if v},
+                first_step_grid_gap=run["first_step_grid_gap"],
+                first_step_differ_share=run["first_step_differ_share"],
+                **gaps(run), **extra)
+            print(f"phase 6g, {name}: " + json.dumps(g_summary[name]))
+            g_first[name] = b_np[0]
+            del run
+        del g_inits
+
+        # The count lookup backward (row 3) on the per-side runs' first
+        # batch, the doc side, g f32 (the step's), and the two stochastic-
+        # rounding scatters (rows 9, 10) on the bf16 / int8 runs' first
+        # batch, each at the cnn and lstm widths; kernel against plain (the
+        # backward to 1e-5 of its largest element and two calls bit-equal,
+        # the scatters bit-equal), bound, library call.
+        g_cfg = {name: c for name, c, _, _ in g_cases}
+        for a, c in seq_cfg.items():
+            hw = -(-logical_table_width(c) // 128) * 128  # the table's width
+            tb_ = batch_to_torch(g_first[f"{a} per-side"], dev)
+            inv_, wgt_ = tb_["d_inv"].contiguous(), tb_["d_wgt"].contiguous()
+            u2_ = tb_["d_sel"].numel()
+            valid_ = (inv_ >= 0) & (inv_ < u2_)
+            nnz_ = int(((wgt_ != 0) & valid_).sum())
+            idx_ = torch.where(valid_, inv_, 0).long().reshape(-1)
+            w0_ = torch.where(valid_, wgt_, 0.0)
+            g_ = torch.from_numpy(rng.normal(
+                size=(*inv_.shape[:-1], hw)).astype(np.float32)).to(dev)
+            dk_ = count_lookup_bwd(inv_, wgt_, g_, u2_, impl="kernel")
+            dp_ = count_lookup_bwd_plain(inv_, wgt_, g_, u2_)
+            err = float((dk_ - dp_).abs().max())
+            check(err <= 1e-5 * float(dp_.abs().max()) and torch.equal(
+                dk_, count_lookup_bwd(inv_, wgt_, g_, u2_, impl="kernel")),
+                f"count_lookup_bwd at the {a} per-side shape: max err "
+                f"{err}, or two calls differ")
+            b_ms, b_by = bound_ms(inv_.numel() * 8 + g_.numel() * 4
+                                  + u2_ * hw * 4, 2.0 * nnz_ * hw, "f32")
+            results["count_lookup_bwd"].update({
+                f"ms_{a}": graph_ms(lambda: count_lookup_bwd(
+                    inv_, wgt_, g_, u2_, impl="kernel")),
+                f"plain_ms_{a}": graph_ms(lambda: count_lookup_bwd_plain(
+                    inv_, wgt_, g_, u2_)),
+                f"library_ms_{a}": graph_ms(lambda: torch.zeros(
+                    (u2_, hw), device=dev).index_add_(0, idx_, (
+                        w0_[..., None] * g_[..., None, :]).reshape(-1, hw))),
+                f"bound_ms_{a}": b_ms, f"bound_by_{a}": b_by,
+                f"max_abs_err_{a}": err,
+                f"shape_{a}": f"d side inv {tuple(inv_.shape)} -> ({u2_}, "
+                              f"{hw}) f32, {nnz_} live lookups"})
+            del dk_, dp_, g_
+            for tname, sr_name, fn_k, fn_p in (
+                    ("bf16", "scatter_sr_row_groups", scatter_sr_row_groups,
+                     scatter_sr_row_groups_plain),
+                    ("int8", "scatter_sr_int8_row_groups",
+                     scatter_sr_int8_row_groups,
+                     scatter_sr_int8_row_groups_plain)):
+                c_ = g_cfg[f"{a} {tname} table"]
+                grp_ = g_group(c_)
+                tab_ = g_init_params({}, c_, dev)["shared"][
+                    model_base.TABLE_KEY[a]]
+                gid_ = batch_to_torch(g_first[f"{a} {tname} table"],
+                                      dev)["uniq"]
+                shape_ = (gid_.numel() * grp_, hw)
+                vals_ = torch.from_numpy((
+                    rng.uniform(-3, 3, size=shape_) if tname == "int8"
+                    else rng.normal(size=shape_) * 1e-4).astype(
+                        np.float32)).to(dev)
+                real_ = (gid_ >= 0) & (gid_ < tab_.shape[0] // grp_)
+                nreal = int(real_.sum())
+                rows_ = (gid_[real_].long()[:, None] * grp_
+                         + torch.arange(grp_, device=dev)).reshape(-1)
+                sk_ = fn_k(tab_.clone(), gid_, vals_, grp_, 7, impl="kernel")
+                check(torch.equal(sk_, fn_p(tab_.clone(), gid_, vals_, grp_,
+                                            7)),
+                      f"{sr_name} at the {a} width: kernel and plain differ")
+                work_ = tab_.clone()
+                finished_ = sk_[rows_].clone()
+                b_ms, b_by = bound_ms(eval_kernels.scatter_bytes(
+                    nreal, gid_.numel(), grp_ * hw, tab_.element_size(), 4),
+                    0.0, "f32")
+                results[sr_name].update({
+                    f"ms_{a}": graph_ms(lambda: fn_k(
+                        work_, gid_, vals_, grp_, 5, impl="kernel")),
+                    f"plain_ms_{a}": eager_ms(lambda: fn_p(
+                        work_, gid_, vals_, grp_, 5), reps=2, trials=3),
+                    f"library_ms_{a}": graph_ms(lambda: work_.index_copy_(
+                        0, rows_, finished_)),
+                    f"bound_ms_{a}": b_ms, f"bound_by_{a}": b_by,
+                    f"max_abs_err_{a}": 0.0,
+                    f"shape_{a}": f"table {tuple(tab_.shape)} {tab_.dtype}, "
+                                  f"{gid_.numel()} slots of {grp_} rows, "
+                                  f"{nreal} real"})
+                del tab_, work_, sk_, vals_, finished_
+        print(f"phase 6g kernels at the cnn and lstm widths, on {card}: "
+              + json.dumps({n_: {k: v for k, v in results[n_].items()
+                                 if k.endswith(("_cnn", "_lstm"))}
+                            for n_ in ("count_lookup_bwd",
+                                       "scatter_sr_row_groups",
+                                       "scatter_sr_int8_row_groups")}))
+
+        # cli.train --loss.mode=rotate at K_CALL steps a call (the blocks
+        # stacked inline: their offsets follow the step counter) and at 1
+        # from the same fresh init: the same steps, so the same losses and
+        # final eval.
+        from dssm_tpu_torch.cli import train as cli_train
+
+        rot_eval = {}
+        for k_ in (K_CALL, 1):
+            cli_dir = tempfile.TemporaryDirectory(
+                prefix=f"dssm_smoke_rot{k_}_")
+            _build.reset_launch_counts()
+            t1 = time.perf_counter()
+            cli_train.main([
+                "--preset=full", f"--io.workdir={cli_dir.name}",
+                f"--data.toy_num_pairs={CLI_PAIRS}", "--loss.mode=rotate",
+                f"--train.steps_per_call={k_}",
+                f"--train.max_steps={G_CLI_STEPS}", "--train.log_every=1"])
+            torch.cuda.synchronize()
+            wall_r = time.perf_counter() - t1
+            counts_r = _build.launch_counts()
+            with open(os.path.join(cli_dir.name, cfg.io.metrics_file)) as f:
+                recs_ = [json.loads(line) for line in f]
+            for name_, n_ in (("fused_gather_joint_lookup", G_CLI_STEPS),
+                              ("joint_lookup_bwd", G_CLI_STEPS),
+                              ("scatter_add_row_groups", G_CLI_STEPS),
+                              ("in_batch_loss", 0)):
+                check(counts_r[name_] == n_, f"cli.train --loss.mode=rotate "
+                      f"at K = {k_}: {name_} launched {counts_r[name_]} "
+                      f"times, expected {n_}")
+            final_ = [r_ for r_ in recs_ if r_["tag"] == "eval_final"][-1]
+            rot_eval[k_] = dict(
+                final={m_: v_ for m_, v_ in final_.items() if m_ != "time"},
+                losses={r_["step"]: r_["loss"] for r_ in recs_
+                        if r_["tag"] == "train"}, wall_s=wall_r)
+            cli_dir.cleanup()
+        same_steps = sorted(set(rot_eval[1]["losses"])
+                            & set(rot_eval[K_CALL]["losses"]))
+        check(same_steps and all(rot_eval[1]["losses"][s_]
+                                 == rot_eval[K_CALL]["losses"][s_]
+                                 for s_ in same_steps)
+              and rot_eval[1]["final"] == rot_eval[K_CALL]["final"],
+              f"cli.train --loss.mode=rotate: K = {K_CALL} and 1 part: "
+              f"{json.dumps(rot_eval)}")
+        print(f"cli.train --preset=full --loss.mode=rotate, {G_CLI_STEPS} "
+              f"steps at K = {K_CALL} and 1 (wall s, hashing and the final "
+              f"eval included): {rot_eval[K_CALL]['wall_s']:.1f} / "
+              f"{rot_eval[1]['wall_s']:.1f}; losses at steps {same_steps} "
+              f"and the final eval equal "
+              f"({json.dumps(rot_eval[1]['final'])}) on {card}")
+        return g_summary
+
+    g_batches = {name: g_stream(c, hashed_) for name, c, hashed_, _ in
+                 g_cases}
+    # The traced steps' process starts now: its start-up and inits overlap
+    # the comparisons below; it takes its first profiler window only when
+    # told to, once this process leaves the card idle (PERF.md: a window
+    # late in a long process loses device events). The f32-compute control
+    # is not traced.
+    with tempfile.NamedTemporaryFile(suffix=".pkl", delete=False) as f:
+        pickle.dump([(name, c, g_batches[name][G_STEPS:])
+                     for name, c, _, _ in g_cases
+                     if "f32 compute" not in name], f)
+    g_trace_file = f.name
+    g_trace_err = tempfile.TemporaryFile(mode="w+")
+    t_trace = time.perf_counter()
+    g_tracer = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--trace-steps",
+         g_trace_file], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=g_trace_err, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        g_summary = run_phase_6g()
+        traced_out, _ = g_tracer.communicate("go\n", timeout=600)
+    finally:
+        if g_tracer.poll() is None:
+            g_tracer.kill()
+            g_tracer.communicate()
+        os.unlink(g_trace_file)
+    g_trace_err.seek(0)
+    check(g_tracer.returncode == 0, "phase 6g: the traced steps' process "
+          f"failed: {g_trace_err.read()[-3000:]}")
+    g_trace_err.close()
+    traced_g = json.loads(traced_out.strip().splitlines()[-1])
+    for name, tr_ in traced_g.items():
+        g_summary[name].update(tr_)
+    print(f"phase 6g, traced ({G_TRACED} steps each after a warm step, one "
+          f"process of its own, {time.perf_counter() - t_trace:.1f} s from "
+          f"its start, the comparisons above overlapping its start-up) on "
+          f"{card}: " + json.dumps(traced_g))
+    print(f"phase 6g: {len(g_cases)} configurations in "
+          f"{time.perf_counter() - t0_g:.1f} s")
+    del g_batches
+
     # ---- phase 7: the same path through the command-line entry points ----
     # cli.train in this process: the full preset on a toy corpus cut to
     # CLI_PAIRS pairs, first on the f32 table (CLI_STEPS steps and the final
@@ -4387,4 +4852,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--trace-steps"]:
+        sys.exit(trace_steps(sys.argv[2]))
     sys.exit(main())

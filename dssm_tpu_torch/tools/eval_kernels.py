@@ -1,12 +1,13 @@
 """Time the port's lookup, gather and rank kernels beside other builds of
 them, on one NVIDIA GPU.
 
-    python -m dssm_tpu_torch.tools.eval_kernels [--cases eval|lookup|scatter]
-        [--source NAME=DIR ...]
+    python -m dssm_tpu_torch.tools.eval_kernels
+        [--cases eval|lookup|scatter|multihost] [--source NAME=DIR ...]
 
 Builds the group's sources as they stand (`eval`: count.cu and rank.cu;
 `lookup`: count.cu, joint.cu, gather.cu and embed.cu; `scatter`:
-scatter.cu and scatter_sr.cu) and, for each
+scatter.cu and scatter_sr.cu; `multihost`: joint.cu, tower.cu and
+loss.cu) and, for each
 --source, the same files in DIR (the same C entry points, e.g. an earlier
 commit's csrc/, with the headers they include), all at once; holds every
 build to the plain versions and says whether its outputs are bit-equal to
@@ -35,10 +36,7 @@ function) and cuBLAS's f32 product `q @ d.T` alone (TF32 off).
   - the count lookup's backward at the `full` per-side step's shapes: the
     first per-side batch of the `full` preset's toy stream (1024 rows, d
     side K = 64, q side K = 32, into u2 = 1024 compact rows, h = 384), g
-    f32 (the step's dtype) and bf16. A build whose dssm_count_lookup_bwd
-    has no workspace (the f32-atomics design before the sorted one) is
-    called the way its wrapper called it: a zero fill and the kernel, both
-    in its time;
+    f32 (the step's dtype) and bf16;
   - the joint lookup at the smoke's shape (the first union-dedupe batch of
     that stream over an f32 compact block of 256 slots x 8 rows, and over a
     bf16 one of 256 x 16), at the int8 step's (the int8 stream's batch over
@@ -97,6 +95,30 @@ instructions the kernel issues for them in this tree's build (`cuobjdump
 -sass` of a thread's work over its elements, tools/sass.py), by class, at
 the card's SM count and maximum SM clock.
 
+`--cases multihost`, the kernels of a `multihost` step (model_parallel =
+1: batch 65,536, 16,384 compact rows in 2048 slots of 8, one slot space
+of 2048 rows; the 500000 x 384 table) at its shapes, the first batch of
+its stream as chip_smoke.py's phase 6e builds it:
+
+  - the fused gather + joint lookup, beside `index_select` and the two
+    count matrices multiplied in (the lookup's library route);
+  - the joint lookup's backward with f32 gradients, beside its two
+    `index_add_`;
+  - the tower with residuals at 131,072 rows (both sides stacked, bf16,
+    300 -> 300 -> 128), beside the `addmm` + `tanh` chain keeping each
+    layer's f32 activation;
+  - the loss forward, dq and dd at 65,536^2 x 128 on unit rows (f32, TF32
+    off), beside `F.cross_entropy(gamma * q @ d.T, arange(B))` and its
+    autograd to q or to d (the forward inside the call), the gradients also
+    after the forward kernel; the plain version on slices of 4096 query
+    rows, eager; and a step's three loss kernels against one autograd call
+    for both gradients.
+
+Every case also reports the device memory each call takes above what was
+allocated before it (this tree's build, the plain version, each PyTorch
+call); a PyTorch call that does not fit in the card's memory reads "does
+not fit" with the allocation it asked for.
+
 Prints the card's name and power limit, one line per case and a JSON line
 last. Needs one GPU; exits non-zero without one.
 """
@@ -104,7 +126,6 @@ last. Needs one GPU; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import statistics
@@ -126,6 +147,7 @@ from dssm_tpu_torch.tools import sass
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12          # f32 outside the tensor cores
+BF16_FLOPS = 989e12        # dense bf16 on the tensor cores
 PAIRS = 4096  # of the toy corpus: the first batch is the step's own batch
 SMOKE_PAIRS = 32768  # chip_smoke.py's cut of the `full` toy corpus
 # The scatter kernels' names in csrc/scatter_sr.cu's SASS, and the elements
@@ -134,10 +156,6 @@ SR_KERNELS = {"scatter_sr_row_groups": ("scatter_sr_kernel", "Bf16"),
               "scatter_sr_int8_row_groups": ("scatter_sr_kernel", "Int8")}
 SR_THREAD_ELEMENTS = {"scatter_sr_row_groups": 8,
                       "scatter_sr_int8_row_groups": 16}
-# The C signature of dssm_count_lookup_bwd before it took a workspace: inv,
-# wgt, g, dc2 (zeroed, added into), rows, k, u2, h, g_dtype, stream.
-_P, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_OLD_COUNT_BWD = [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _P]
 
 
 def build(dirs, sources, out):
@@ -274,25 +292,8 @@ def padded(width):
     return -(-width // 128) * 128
 
 
-def bound_us(nbytes, fmas):
-    return max(nbytes / HBM_BYTES_PER_S, 2.0 * fmas / F32_FLOPS) * 1e6
-
-
-def count_bwd(inv, wgt, g, u2):
-    """count_lookup_bwd through the loaded build, whichever its design."""
-    lib = _build.load()
-    if hasattr(lib, "dssm_count_lookup_bwd_workspace"):
-        return count.count_lookup_bwd(inv, wgt, g, u2, impl="kernel")
-    fn = lib.dssm_count_lookup_bwd
-    fn.argtypes = _OLD_COUNT_BWD
-    h, k = g.shape[-1], inv.shape[-1]
-    dc2 = torch.zeros((u2, h), dtype=torch.float32, device=g.device)
-    rc = fn(inv.data_ptr(), wgt.data_ptr(), g.data_ptr(), dc2.data_ptr(),
-            inv.numel() // k, k, u2, h, 0 if g.dtype == torch.float32 else 1,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"count_lookup_bwd: CUDA error {rc} at launch")
-    return dc2
+def bound_us(nbytes, fmas, flops_per_s=F32_FLOPS):
+    return max(nbytes / HBM_BYTES_PER_S, 2.0 * fmas / flops_per_s) * 1e6
 
 
 def _near(scale_of):
@@ -364,8 +365,8 @@ def lookup_cases(dev, rng, libs=None):
             out.append((
                 f"count_lookup_bwd full {side} side K={k} g "
                 f"{str(gd).split('.')[-1]}",
-                lambda inv=inv, wgt=wgt, g=g, u2=u2: count_bwd(inv, wgt, g,
-                                                               u2),
+                lambda inv=inv, wgt=wgt, g=g, u2=u2: count.count_lookup_bwd(
+                    inv, wgt, g, u2, impl="kernel"),
                 lambda inv=inv, wgt=wgt, g=g, u2=u2:
                     count.count_lookup_bwd_plain(inv, wgt, g, u2),
                 _near(lambda w: w.abs().max()),
@@ -575,11 +576,26 @@ def lookup_cases(dev, rng, libs=None):
             for name, kernel, plain, near, calls, bound, what in out]
 
 
+def peak_gb(fn):
+    """Device GB one call of fn takes above what was allocated before it
+    (its outputs and its temporaries)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return round((torch.cuda.max_memory_allocated() - base) / 1e9, 3)
+
+
 def run(libs, case_list):
     """{case: {us: {build or yardstick: [us, ...]}, bit_equal_to_tree:
-    {...}, ...}} for the builds in libs (bit-equality is to the first,
-    this tree's), holding every build to the plain version; builds in turns, forward then backward through the list,
-    the plain version and the yardsticks once. Prints a line a case."""
+    {...}, peak_above_resident_gb: {this tree's build, the plain version
+    and each yardstick: GB}, ...}} for the builds in libs (bit-equality is
+    to the first, this tree's), holding every build to the plain version;
+    builds in turns, forward then backward through the list, the plain
+    version and the yardsticks once (a yardstick that does not fit in the
+    card's memory reads "does not fit" with its request). Prints a line a
+    case."""
     results = {}
     for name, kernel, plain, near, reps, calls, more in case_list:
         # A case may time another call than the one it checks (an in-place
@@ -587,7 +603,7 @@ def run(libs, case_list):
         more = dict(more)
         timed, eager = more.pop("timed", kernel), more.pop("eager", ())
         want = plain()
-        row, same, ref = {}, {}, None
+        row, same, peak, ref = {}, {}, {}, None
         order = list(libs) + list(reversed(list(libs)))
         for i, build_name in enumerate(order):
             _build.load(libs[build_name])  # the wrappers launch through it
@@ -605,10 +621,22 @@ def run(libs, case_list):
                 round(graph_ms(timed, reps=reps) * 1e3, 2))
             if i == len(libs) - 1:
                 for call_name, call in {"plain": plain, **calls}.items():
+                    try:
+                        peak[call_name] = peak_gb(call)
+                    except torch.OutOfMemoryError as e:
+                        if call_name == "plain":
+                            raise
+                        # A yardstick too large for the card: its request.
+                        row[call_name] = "does not fit: " + ". ".join(
+                            str(e).split(". ")[:3])
+                        torch.cuda.empty_cache()
+                        continue
                     row[call_name] = [round((
                         eager_ms(call) if call_name in eager
                         else graph_ms(call, reps=reps)) * 1e3, 2)]
-        results[name] = dict(us=row, bit_equal_to_tree=same, **more)
+        peak["tree"] = peak_gb(kernel)  # the turns end on this tree's build
+        results[name] = dict(us=row, bit_equal_to_tree=same,
+                             peak_above_resident_gb=peak, **more)
         print(f"{name} (us, each build twice): {json.dumps(results[name])}",
               flush=True)
     return results
@@ -781,10 +809,220 @@ def scatter_cases(dev, rng, libs):
     return out
 
 
+def multihost_cases(dev, rng, libs):
+    """As lookup_cases, for the kernels of a `multihost` step at its
+    shapes (model_parallel = 1: the first batch of the preset's stream, as
+    chip_smoke.py's phase 6e builds it, and the 500000 x 384 table of a
+    seeded init), the loss last: its library calls hold 17 GB logits."""
+    import torch.nn.functional as F
+
+    from dssm_tpu_torch.kernels import loss, tower
+    from dssm_tpu_torch.models import base as model_base
+    from dssm_tpu_torch.train.sparse_update import joint_fields, joint_row_sel
+
+    _build.load(libs["tree"])  # the cases' inputs come through this build
+    cfg, mh = _batches("multihost", {"joint": dict(
+        dedup_group=8, dedup_joint=True, wire_compress=True, sort_rows=True,
+        local_sel_cap=get_preset("multihost").data.max_unique_rows_local,
+        reshuffle_each_epoch=False, cache_epoch_batches=True)},
+        get_preset("multihost").data.toy_num_pairs, split=True)
+    t = cfg.tower
+    tb = batch_to_torch(mh["joint"], dev)
+    fields = joint_fields(tb, joint_row_sel(tb))
+    sel, q_inv, q_wgt, d_inv, d_wgt = fields
+    params = model_base.init_params(t, seed=cfg.train.seed, device=dev)[
+        "shared"]
+    table, uniq = params["W0"], tb["uniq"]
+    grp, h, u2 = 8, params["W0"].shape[1], sel.numel()
+    gr = uniq.numel() * grp
+    nnz = int((q_wgt != 0).sum() + (d_wgt != 0).sum())
+    idx_bytes = (q_inv.numel() + d_inv.numel()) * 8 + u2 * 4
+    near = _near(lambda w: w.abs().max())
+    what = (f"multihost batch {q_inv.shape[0]} rows, {uniq.numel()} slots "
+            f"of {grp} rows, {u2} local slots, {nnz} live lookups")
+    out = []
+
+    # Row 6: the fused gather + joint lookup; the library route gathers the
+    # rows with index_select and multiplies the two count matrices in.
+    real = (uniq >= 0) & (uniq < t.vocab_size // grp)
+    rows = (torch.where(real, uniq, 0).long()[:, None] * grp
+            + torch.arange(grp, device=dev)).reshape(-1)
+
+    def fused_library():
+        c = table.index_select(0, rows) * real.repeat_interleave(grp)[:, None]
+        c2 = joint.select_rows_plain(c, sel)
+        return (count.count_matrix(q_inv, q_wgt, u2) @ c2,
+                count.count_matrix(d_inv, d_wgt, u2) @ c2)
+
+    out.append((
+        "fused_gather_joint_lookup multihost",
+        lambda: joint.fused_gather_joint_lookup(table, uniq, *fields, grp,
+                                                impl="kernel")[:2],
+        lambda: joint.fused_gather_joint_lookup_plain(table, uniq, *fields,
+                                                      grp)[:2],
+        near, 20, {"library": fused_library},
+        {"bound_us": round(bound_us(
+            gr * h * 4 * 2 + idx_bytes + 2 * q_inv.shape[0] * h * 4,
+            nnz * h), 2), "what": what}))
+
+    # Row 5b: the joint backward at the step's f32 gradients; the library
+    # route is two index_add_ into the compact gradient.
+    lq, ld, _ = joint.fused_gather_joint_lookup(table, uniq, *fields, grp,
+                                                impl="kernel")
+    g_q, g_d = (torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(
+        np.float32) * 1e-3).to(dev) for x in (lq, ld))
+    flat = [sel.long()[torch.where((i >= 0) & (i < u2), i, 0).long()]
+            .reshape(-1) for i in (q_inv, d_inv)]
+
+    def bwd_library():
+        dc = torch.zeros((gr, h), device=dev)
+        for fl, w, g in ((flat[0], q_wgt, g_q), (flat[1], d_wgt, g_d)):
+            dc.index_add_(0, fl, (w[..., None] * g[:, None, :]).reshape(
+                -1, h))
+        return dc
+
+    out.append((
+        "joint_lookup_bwd multihost",
+        lambda: joint.joint_lookup_bwd(*fields, g_q, g_d, gr, impl="kernel"),
+        lambda: joint.joint_lookup_bwd_plain(*fields, g_q, g_d, gr),
+        near, 20, {"library": bwd_library},
+        {"bound_us": round(bound_us(
+            (g_q.numel() + g_d.numel() + gr * h) * 4 + idx_bytes, nnz * h),
+            2), "what": what + ", g f32"}))
+
+    # Row 4r: the tower with its residuals, both sides stacked (131,072
+    # rows), on the step's layer-0 activations in bf16; the library route
+    # is the addmm + tanh chain keeping each layer's f32 activation.
+    bf = torch.bfloat16
+    x = torch.tanh(torch.cat([lq, ld])[:, :t.embed_width].to(bf)
+                   + params["b0"].to(bf)).contiguous()
+    del lq, ld
+    layers = [(params[f"W{i}"].to(bf), params[f"b{i}"].to(bf))
+              for i in range(1, len(t.hidden_dims) + 2)]
+    dims = [x.shape[1]] + [w.shape[1] for w, _ in layers]
+
+    def tower_library():
+        hh, keep = x, []
+        for w, b in layers:
+            hh = torch.tanh(torch.addmm(b, hh, w))
+            keep.append(hh.float())
+        return keep
+
+    def y_and_residuals(y_hs):
+        return (y_hs[0], *y_hs[1])
+
+    out.append((
+        f"dense_tower_residuals multihost {x.shape[0]} rows",
+        lambda: y_and_residuals(tower.dense_tower_residuals(
+            x, layers, "tanh", False, impl="kernel")),
+        lambda: y_and_residuals(tower.dense_tower_residuals_plain(
+            x, layers, "tanh", False)),
+        lambda got, want: all(float((a - b).abs().max()) <= 2e-2
+                              for a, b in zip(got, want)),
+        20, {"library": tower_library},
+        {"bound_us": round(bound_us(
+            x.numel() * 2 + x.shape[0] * sum(dims[1:]) * 4 * 2,
+            x.shape[0] * sum(a * b for a, b in zip(dims, dims[1:])),
+            BF16_FLOPS), 2),
+         "what": f"x {tuple(x.shape)} bf16, widths {dims}"}))
+
+    # Rows 7, 7q, 7d: the loss kernels at 65,536^2 on unit vectors, f32,
+    # TF32 off (main()); the plain version on slices of 4096 query rows
+    # against the whole pool (its full logits would be 17 GB a tensor);
+    # the library route F.cross_entropy of the scaled cosine matrix of the
+    # unit rows (the product inside the call, as inside the kernel; the
+    # tower normalised them, so a normalize in the call would change the
+    # gradient's function) and its autograd to q or to d, the forward
+    # included, as chip_smoke.py times it at 1024^2.
+    b, gam = cfg.train.batch_size, cfg.loss.gamma
+    q = F.normalize(torch.from_numpy(rng.normal(size=(b, t.semantic_dim))
+                                     .astype(np.float32)).to(dev), dim=1)
+    d = F.normalize(q + torch.from_numpy(rng.normal(
+        size=(b, t.semantic_dim)).astype(np.float32)).to(dev), dim=1)
+    lab = torch.arange(b, dtype=torch.int32, device=dev)
+    g = torch.full((b,), 1.0 / b, device=dev)
+    lse = loss.in_batch_nll_kernel(q, d, lab, gam)[1]
+    slices = [slice(lo, lo + 4096) for lo in range(0, b, 4096)]
+
+    def plain(part):
+        outs = []
+        dd = torch.zeros_like(d)
+        for sl in slices:
+            nll, lse_s, _, _ = loss.in_batch_nll_plain(q[sl], d, lab[sl], gam)
+            if part == "nll":
+                outs.append(nll)
+                continue
+            dq_s, dd_s = loss.in_batch_loss_grads_plain(q[sl], d, lab[sl],
+                                                        gam, lse_s, g[sl])
+            outs.append(dq_s)
+            dd += dd_s
+        return dd if part == "dd" else torch.cat(outs)
+
+    def plain_part(part):
+        return (plain("dq"), plain("dd")) if part == "step" else plain(part)
+
+    def library(grad_to=""):
+        qq = q.detach().requires_grad_("q" in grad_to)
+        dd = d.detach().requires_grad_("d" in grad_to)
+        ce = F.cross_entropy(gam * (qq @ dd.T), lab.long())
+        if not grad_to:
+            return ce
+        return torch.autograd.grad(ce, [x for x in (qq, dd)
+                                        if x.requires_grad])
+
+    def step_kernels():
+        lse_ = loss.in_batch_nll_kernel(q, d, lab, gam)[1]
+        return (loss.in_batch_loss_dq(q, d, lab, gam, lse_, g, impl="kernel"),
+                loss.in_batch_loss_dd(q, d, lab, gam, lse_, g, impl="kernel"))
+
+    # chip_smoke.py's tolerances: nll 1e-4, the gradients 1e-4 of their
+    # largest element.
+    near_loss = {"nll": lambda got, want: float((got - want).abs().max())
+                 <= 1e-4}
+    near_loss["dq"] = near_loss["dd"] = lambda got, want: float(
+        (got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    near_loss["step"] = lambda got, want: all(
+        near_loss["dq"](a, b) for a, b in zip(got, want))
+    io = (q.numel() + d.numel()) * 4 + b * 12
+    fwd_fmas = b * b * t.semantic_dim
+    loss_what = f"q, d ({b}, {t.semantic_dim}) f32 unit rows, gamma {gam}"
+    for name, kernel, part, fmas, lib, more in (
+            ("in_batch_loss", lambda: loss.in_batch_nll_kernel(
+                q, d, lab, gam)[0], "nll", fwd_fmas, library, {}),
+            ("in_batch_loss_dq", lambda: loss.in_batch_loss_dq(
+                q, d, lab, gam, lse, g, impl="kernel"), "dq", 2 * fwd_fmas,
+             lambda: library("q")[0], {"with_forward": lambda: (
+                 loss.in_batch_nll_kernel(q, d, lab, gam),
+                 loss.in_batch_loss_dq(q, d, lab, gam, lse, g,
+                                       impl="kernel"))}),
+            ("in_batch_loss_dd", lambda: loss.in_batch_loss_dd(
+                q, d, lab, gam, lse, g, impl="kernel"), "dd", 2 * fwd_fmas,
+             lambda: library("d")[0], {"with_forward": lambda: (
+                 loss.in_batch_nll_kernel(q, d, lab, gam),
+                 loss.in_batch_loss_dd(q, d, lab, gam, lse, g,
+                                       impl="kernel"))}),
+            # A step's three kernels against one autograd call for both
+            # gradients, the forward included.
+            ("in_batch_loss + dq + dd", step_kernels, "step", 5 * fwd_fmas,
+             lambda: library("qd"), {})):
+        out.append((
+            f"{name} multihost {b}^2", kernel,
+            lambda part=part: plain_part(part),
+            near_loss[part], 2, {"library": lib, **more},
+            {"bound_us": round(bound_us(io, fmas), 2),
+             **({"with_forward_bound_us": round(bound_us(
+                 io, fmas + fwd_fmas), 2)} if more else {}),
+             "eager": ("plain", "library", "with_forward"),
+             "what": loss_what}))
+    return out
+
+
 GROUPS = {"eval": (("count.cu", "rank.cu"), eval_cases),
           "lookup": (("count.cu", "joint.cu", "gather.cu", "embed.cu"),
                      lookup_cases),
-          "scatter": (("scatter.cu", "scatter_sr.cu"), scatter_cases)}
+          "scatter": (("scatter.cu", "scatter_sr.cu"), scatter_cases),
+          "multihost": (("joint.cu", "tower.cu", "loss.cu"),
+                        multihost_cases)}
 
 
 def main() -> int:

@@ -36,7 +36,7 @@ import torch
 
 from dssm_tpu_torch.bridge import batch_to_torch, check_raw_rows
 from dssm_tpu_torch.config import (
-    DataConfig, LossConfig, RunConfig, TowerConfig, TrainConfig)
+    DataConfig, LossConfig, RunConfig, TowerConfig, TrainConfig, validate)
 from dssm_tpu_torch.data.dedupe import SKIP_SENTINEL_GID
 from dssm_tpu_torch.data.loader import batch_iterator, hash_pairs
 from dssm_tpu_torch.data.toy import make_toy_pairs
@@ -66,7 +66,10 @@ from dssm_tpu_torch.models import base as model_base
 from dssm_tpu_torch.serve import build_doc_index
 from dssm_tpu_torch.train.eval import evaluate
 from dssm_tpu_torch.train.loop import (
-    make_multi_train_step, make_train_step, stack_batches)
+    add_rotation_offsets, make_multi_train_step, make_train_step,
+    stack_batches)
+from dssm_tpu_torch.train.sparse_update import (
+    logical_table_width, uses_sparse_update)
 from dssm_tpu_torch.train.state import create_run_state
 
 V, H, GROUP, SLOTS = 4096, 128, 8, 64
@@ -869,6 +872,39 @@ def test_rank_kernel_matches_plain(dev, n, nd, dim):
     assert rank_counts(q1, d1, impl="kernel").tolist() == [1] * 8
 
 
+def _low_precision_tables_close(ta, tp, scale=1.0, before=None, cap=2e-3):
+    """A bf16 or int8 table after 3 steps through the kernels (ta) and
+    through the plain versions (tp). The same stream on accumulators that
+    differ in their last bits (the backward's sum order, a bf16 activation
+    of the tower): few elements differ at all, next to none by more than a
+    grid step (an update that nearly cancels a weight leaves a finer grid
+    behind), and none by more than `cap` in the weights' units (the f32
+    test's 2e-3; an int8 row's scale, its one grid step, may be above
+    that: a rounding tipped once moves an element by it). Given the table
+    `before` the steps (the row-wise AdaGrad table), a bf16 grid step is
+    the ulp of the largest of the old and the two new values, and next to
+    none lie more than two apart (AdaGrad's first steps move a weight by
+    several times its size, so a sum lands in a far finer binade than it
+    was formed in, as tests/test_torch_lowprec.py counts it; it rescales
+    each row by its gradient's norm, so the accumulators' last bits tip
+    more roundings than an sgd update's)."""
+    diff = (ta.float() - tp.float()).abs()
+    if ta.dtype == torch.int8:
+        far = diff > 1.0
+    elif before is None:
+        far = diff > 2.0 ** -7 * tp.float().abs() + 1e-30
+    else:
+        big = torch.maximum(torch.maximum(ta.float().abs(), tp.float().abs()),
+                            before.float().abs())
+        expo = (big.view(torch.int32) >> 23) & 0xFF
+        ulp = ((expo - 7).clamp(min=1) << 23).view(torch.float32)
+        far = diff > 2 * ulp
+    assert float(far.float().mean()) < 1e-3
+    if before is None:
+        assert float((ta != tp).float().mean()) < 0.01
+    assert bool((diff * scale <= cap).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("table_dtype", ["bfloat16", "int8"])
 def test_low_precision_train_and_eval_kernels_match_plain(dev, table_dtype):
@@ -912,18 +948,8 @@ def test_low_precision_train_and_eval_kernels_match_plain(dev, table_dtype):
     ta = states["auto"].params["shared"]["W0"]
     tp = states["plain"].params["shared"]["W0"]
     assert ta.dtype == tp.dtype == model_base.torch_dtype(table_dtype)
-    # The same stream on accumulators that differ in their last bits (the
-    # backward's sum order, a bf16 activation of the tower): after 3 steps few
-    # elements differ at all, next to none by more than a grid step (an
-    # update that nearly cancels a weight leaves a finer grid behind), and
-    # none by more than the f32 test's 2e-3.
-    diff = (ta.float() - tp.float()).abs()
-    far = diff > (1.0 if table_dtype == "int8"
-                  else 2.0 ** -7 * tp.float().abs() + 1e-30)
-    assert float(far.float().mean()) < 1e-3
-    assert float((ta != tp).float().mean()) < 0.01
-    scale = states["plain"].params["shared"].get("W0_scale", 1.0)
-    assert float((diff * scale).max()) <= 2e-3
+    _low_precision_tables_close(
+        ta, tp, states["plain"].params["shared"].get("W0_scale", 1.0))
     metrics = {impl: evaluate(states[impl].params, cfg, hashed, 128, impl,
                               cache=False) for impl in ("auto", "plain")}
     assert _build.launch_counts()["rank_counts"] == 1
@@ -931,35 +957,79 @@ def test_low_precision_train_and_eval_kernels_match_plain(dev, table_dtype):
         assert abs(metrics["auto"][k] - v) <= 2e-2, (k, metrics)
 
 
+def _train_config(arch="mlp", shared=True, table_dtype="float32",
+                  optimizer="sgd", table_optimizer="sgd", loss_mode="in_batch",
+                  dedup=True, n=3):
+    """A small config and n numpy batches of its stream, as cli.train
+    feeds them. The mlp: a 4096 x 128 table (100 columns real), 100 -> 64
+    -> 32; cnn / lstm: conv 3 x 40, LSTM 32, 6 words of 8 trigrams; batch
+    128, bf16 compute. Dedupe at the table dtype's group (an int8 table's
+    32-row groups take half the f32 slots, all 128 groups of the table),
+    joint with shared weights, per-side without; raw-index batches without
+    dedupe (the dense-table step's, under momentum); rotate batches keep
+    their row order and carry rot_offsets. lr 0.01 under the AdaGrad table
+    (the dssm_tpu fixture's, with adam), 0.1 otherwise."""
+    seq = arch != "mlp"
+    if seq:
+        uniq = 1024 if table_dtype == "int8" else 2048
+        data = DataConfig(max_trigrams=16, max_words=6,
+                          max_trigrams_per_word=8, max_unique=uniq,
+                          max_unique_rows=256, dedup_lookup=dedup)
+    else:
+        data = DataConfig(max_trigrams=16, max_trigrams_query=8,
+                          max_unique=1024, max_unique_rows=128,
+                          dedup_lookup=dedup)
+    cfg = validate(RunConfig(
+        tower=TowerConfig(arch=arch, vocab_size=V, embed_width=100,
+                          hidden_dims=(64,), conv_channels=40, lstm_hidden=32,
+                          semantic_dim=32, compute_dtype="bfloat16",
+                          shared_weights=shared, table_dtype=table_dtype),
+        data=data, loss=LossConfig(mode=loss_mode),
+        train=TrainConfig(batch_size=128, optimizer=optimizer,
+                          table_optimizer=table_optimizer,
+                          learning_rate=(0.01 if table_optimizer == "adagrad"
+                                         else 0.1))))
+    hashed = hash_pairs(make_toy_pairs(640, 96, 7), cfg.tower, cfg.data)
+    flat = dedup and not seq
+    it = batch_iterator(hashed, 128, seq, seed=3,
+                        dedup_unique=data.max_unique if dedup else None,
+                        dedup_group={"int8": 32, "bfloat16": 16}.get(
+                            table_dtype, 8),
+                        dedup_unique_rows=data.max_unique_rows,
+                        dedup_joint=shared, wire_compress=flat,
+                        sort_rows=flat and loss_mode != "rotate")
+    return cfg, hashed, [add_rotation_offsets(next(it), cfg, i)
+                         for i in range(n)]
+
+
+# branch: (arch, shared weights, table dtype)
+REPRO_BRANCHES = {
+    "per_side": ("mlp", False, "float32"), "int8_joint": ("mlp", True, "int8"),
+    "f32_joint": ("mlp", True, "float32"),
+    "bf16_joint": ("mlp", True, "bfloat16"),
+    "cnn_f32_joint": ("cnn", True, "float32"),
+    "cnn_bf16_joint": ("cnn", True, "bfloat16"),
+    "lstm_f32_joint": ("lstm", True, "float32"),
+    "lstm_bf16_joint": ("lstm", True, "bfloat16"),
+    "cnn_per_side": ("cnn", False, "float32")}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("branch", ["per_side", "int8_joint", "f32_joint",
-                                    "bf16_joint"])
+@pytest.mark.parametrize("branch", list(REPRO_BRANCHES))
 def test_train_steps_bit_reproducible(dev, branch):
     """Three steps run twice from one state give bit-equal tables and dense
     parameters: the per-side branch on an f32 table (two count lookup
     backward calls a step), the joint branch on an int8 table (the gather,
     the dequantization and the joint lookup) and on an f32 and a bf16
     table (the fused gather + joint lookup), each with the joint backward,
-    the low-precision tables with their stochastic-rounding scatter. No
-    kernel on these paths adds floats with atomics."""
-    shared = branch != "per_side"
-    int8 = branch == "int8_joint"
-    table_dtype = {"int8_joint": "int8", "bf16_joint": "bfloat16"}.get(
-        branch, "float32")
-    cfg = RunConfig(
-        tower=TowerConfig(vocab_size=V, embed_width=100, hidden_dims=(64,),
-                          semantic_dim=32, compute_dtype="bfloat16",
-                          shared_weights=shared, table_dtype=table_dtype),
-        data=DataConfig(max_trigrams=16, max_trigrams_query=8,
-                        max_unique=1024, max_unique_rows=128),
-        loss=LossConfig(), train=TrainConfig(batch_size=128))
-    hashed = hash_pairs(make_toy_pairs(640, 96, 7), cfg.tower, cfg.data)
-    it = batch_iterator(hashed, 128, seed=3, dedup_unique=1024,
-                        dedup_group={"int8": 32, "bfloat16": 16}.get(
-                            table_dtype, 8),
-                        dedup_unique_rows=128, dedup_joint=shared,
-                        wire_compress=True, sort_rows=True)
-    batches = [batch_to_torch(next(it), dev) for _ in range(3)]
+    the low-precision tables with their stochastic-rounding scatter; the
+    cnn and lstm towers on the joint branch (f32 and bf16 tables) and the
+    cnn on the per-side branch. No kernel on these paths adds floats with
+    atomics (the raw branch's index_add_ does: not here)."""
+    arch, shared, table_dtype = REPRO_BRANCHES[branch]
+    int8 = table_dtype == "int8"
+    cfg, _, batches_np = _train_config(arch, shared, table_dtype)
+    batches = [batch_to_torch(b, dev) for b in batches_np]
     runs = []
     for _ in range(2):
         state = create_run_state(cfg, model_base.init_params(
@@ -1206,6 +1276,147 @@ def test_sequence_and_raw_train_steps_kernels_match_plain(dev, arch, dedup):
         for k, want in tp.items():
             torch.testing.assert_close(states["auto"].params[tower][k], want,
                                        rtol=0, atol=2e-3)
+    metrics = {impl: evaluate(states[impl].params, cfg, hashed, 128, impl,
+                              cache=False) for impl in ("auto", "plain")}
+    for k, v in metrics["plain"].items():
+        assert abs(metrics["auto"][k] - v) <= 2e-2, (k, metrics)
+
+
+# A configuration no earlier GPU test ran, as _train_config's arguments:
+# per-side sequence towers; sequence towers on bf16 and int8 tables; the
+# row-wise AdaGrad table with adam on the dense parameters (the dssm_tpu
+# fixture's optimizers); momentum (with the sgd table optimizer: the
+# dense-table step, on raw-index batches); the rotate loss.
+TRAIN_CONFIGS = {
+    "cnn-per_side": dict(arch="cnn", shared=False),
+    "lstm-per_side": dict(arch="lstm", shared=False),
+    "cnn-bf16": dict(arch="cnn", table_dtype="bfloat16"),
+    "cnn-int8": dict(arch="cnn", table_dtype="int8"),
+    "lstm-bf16": dict(arch="lstm", table_dtype="bfloat16"),
+    "lstm-int8": dict(arch="lstm", table_dtype="int8"),
+    "mlp-adagrad-f32": dict(optimizer="adam", table_optimizer="adagrad"),
+    "mlp-adagrad-bf16": dict(table_dtype="bfloat16", optimizer="adam",
+                             table_optimizer="adagrad"),
+    "cnn-adagrad-f32": dict(arch="cnn", optimizer="adam",
+                            table_optimizer="adagrad"),
+    "mlp-momentum": dict(optimizer="momentum", dedup=False),
+    "mlp-rotate-f32": dict(loss_mode="rotate"),
+    "mlp-rotate-bf16": dict(table_dtype="bfloat16", loss_mode="rotate"),
+    "cnn-rotate": dict(arch="cnn", loss_mode="rotate"),
+}
+
+
+def _launches_per_step(cfg):
+    """{kernel: launches} of one step of cfg, as the steps' code makes
+    them (train/sparse_update.py, train/loop.py)."""
+    t = cfg.tower
+    out = ({} if cfg.loss.mode == "rotate" else
+           {"in_batch_loss": 1, "in_batch_loss_dq": 1, "in_batch_loss_dd": 1})
+    if not uses_sparse_update(cfg):  # the dense-table step: a side a call
+        return {"embedding_bag": 2, "dense_tower_residuals": 2, **out}
+    sides = 1 if t.shared_weights else 2  # the shared mlp stacks its sides
+    if t.arch == "mlp":
+        out["dense_tower_residuals"] = sides
+    out[{"float32": "scatter_add_row_groups",
+         "bfloat16": "scatter_sr_row_groups",
+         "int8": "scatter_sr_int8_row_groups"}[t.table_dtype_resolved]] = sides
+    if not t.shared_weights:
+        return {"gather_row_groups": 2, "count_lookup": 2,
+                "count_lookup_bwd": 2, **out}
+    if t.table_dtype_resolved == "int8":
+        out.update(gather_row_groups=1, joint_lookup=1)
+    else:
+        out["fused_gather_joint_lookup"] = 1
+    return {"joint_lookup_bwd": 1, **out}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TRAIN_CONFIGS))
+def test_train_configs_kernels_match_plain(dev, name):
+    """3 steps through the kernels and through the plain versions from one
+    state, every kernel's launches a step counted; then both evaluated.
+    Losses 1e-2 and f32 tensors 2e-3, as the sequence towers' test (an f32
+    AdaGrad table: next to none beyond 2e-3, see below); a bf16 or int8
+    table as the low-precision test (_low_precision_tables_close; AdaGrad's
+    bf16 table in ulps of the largest of the old and the two new values;
+    an int8 element at most one level apart: the 4096 x 128 tables here
+    have row scales of 2.4e-3, above the bf16 tables' 2e-3 cap, and the
+    lstm's step tipped one rounding in 3 steps on an H100). Under adam the
+    dense parameters' first moments (the gradients' running mean) lie
+    within 0.1 of their norm: adam's update is the sign of a gradient that
+    is f32 noise, +-lr in either run. The AdaGrad accumulator (the table's
+    last column) moved on gathered rows only, and the dead padding columns
+    before it stay 0."""
+    cfg, hashed, batches_np = _train_config(**TRAIN_CONFIGS[name])
+    batches = [batch_to_torch(b, dev, vocab_size=V) for b in batches_np]
+    init = model_base.init_params(cfg.tower, seed=0, device=dev)
+    states, losses = {}, {}
+    for impl in ("auto", "plain"):
+        state = create_run_state(cfg, {tw: {k: v.clone() for k, v in
+                                            tp.items()}
+                                       for tw, tp in init.items()})
+        step = make_train_step(cfg, impl)
+        _build.reset_launch_counts()
+        losses[impl] = []
+        for batch in batches:
+            state, aux = step(state, batch)
+            losses[impl].append(float(aux["loss"]))
+        if impl == "auto":
+            counts = {k: v for k, v in _build.launch_counts().items() if v}
+        states[impl] = state
+    assert counts == {k: 3 * n for k, n in _launches_per_step(cfg).items()}, (
+        counts)
+    np.testing.assert_allclose(losses["auto"], losses["plain"], rtol=0,
+                               atol=1e-2)
+    key = model_base.TABLE_KEY[cfg.tower.arch]
+    adagrad = cfg.train.table_optimizer == "adagrad"
+    adam = cfg.train.optimizer == "adam"
+    for tower, tp in states["plain"].params.items():
+        for k, want in tp.items():
+            got = states["auto"].params[tower][k]
+            if k == f"{key}_scale":
+                assert torch.equal(got, init[tower][k])
+            elif k == key and want.dtype != torch.float32:
+                # An int8 element at most one level (its row's scale) from
+                # the plain run's.
+                scale = tp.get(f"{key}_scale", 1.0)
+                _low_precision_tables_close(
+                    got, want, scale, init[tower][k] if adagrad else None,
+                    scale if want.dtype == torch.int8 else 2e-3)
+            elif k == key and adagrad:
+                # An f32 AdaGrad table: next to none beyond 2e-3, the
+                # update within 0.1 of itself (chip_smoke.py's measure).
+                # AdaGrad scales each row's step to ~lr whatever its
+                # gradient's size, so where a cnn channel's max-pool tips to
+                # another word under bf16 (a near-tie, as against
+                # dssm_tpu) the words' rows move by ~lr, not by lr x |g|:
+                # 69 of 524,288 elements, up to 0.014, on an H100; 1.1e-7
+                # under f32 compute.
+                diff = (got - want).abs()
+                assert float((diff > 2e-3).float().mean()) < 1e-3
+                assert float(torch.linalg.vector_norm(got - want)) <= 0.1 * (
+                    float(torch.linalg.vector_norm(want - init[tower][k])))
+            elif k == key or not adam:
+                torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
+    if adam:
+        for tower, tp in states["plain"].opt_state["mu"].items():
+            for k, want in tp.items():
+                got = states["auto"].opt_state["mu"][tower][k]
+                assert float(torch.linalg.vector_norm(got - want)) <= (
+                    0.1 * float(torch.linalg.vector_norm(want))), (tower, k)
+    if adagrad:
+        table, before = (p["shared"][key] for p in
+                         (states["auto"].params, init))
+        group = {"bfloat16": 16}.get(cfg.tower.table_dtype_resolved, 8)
+        gids = np.concatenate([b["uniq"] for b in batches_np])
+        gids = torch.from_numpy(gids[gids < V // group].astype(np.int64))
+        touched = torch.zeros((V,), dtype=torch.bool, device=dev)
+        touched[(gids[:, None] * group
+                 + torch.arange(group)).reshape(-1).to(dev)] = True
+        acc_moved = table[:, -1] != before[:, -1]
+        assert bool(acc_moved[touched].any())
+        assert not bool(acc_moved[~touched].any())
+        assert not bool(table[:, logical_table_width(cfg):-1].float().any())
     metrics = {impl: evaluate(states[impl].params, cfg, hashed, 128, impl,
                               cache=False) for impl in ("auto", "plain")}
     for k, v in metrics["plain"].items():
