@@ -120,6 +120,20 @@ stochastic-rounding scatters timed at the cnn and lstm widths; cli.train
 --loss.mode=rotate at K_CALL steps a call against 1 (the same losses and
 final eval).
 
+The compiled step (phase 6h): make_train_step's step on the card is a
+CUDA graph replayed on the state's own tensors (train/compiled.py). At the
+presets' widths, from seeded fresh inits, `full` f32 / bf16 / int8 joint,
+`full` per-side, the AdaGrad table with adam, cnn and lstm dedupe and raw,
+and the dense-table step with sgd and adam each take the calls of H_ORDER
+compiled and eager from one state in lockstep (calls 2 and 3 on one
+batch): the states bit-equal after every call (the raw branch and the
+dense step, whose index_add_ adds with atomics, within H_ATOMICS_TOL of
+their updates), every kernel's launches equal, the aux of every call
+intact; steps/s on batches made ahead, compiled and eager in turns
+(median, min, max of H_REPEATS); the first calls' peak memory; wall,
+traced busy and CUDA-event ms a step of both in a process of their own;
+and K_CALL steps a call (one replay) against one, bit-equal.
+
 The tooling (phase 7b): cli.train --preset=full with the profiler hook
 and TensorBoard (--io.profile_dir, --io.tensorboard=true, an eval every
 TOOL_EVAL steps) in a process of its own, its trace holding the card's
@@ -127,6 +141,12 @@ kernels (at least 5 fused gather + joint lookup and 5 loss kernel
 launches) and its event files the train, eval and weights tags; the
 weights record (weight_summaries) of the trained `full` model, timed; and
 tools/profile_components.py's stage lines on f32 and bf16 tables.
+
+Every step through the kernels is the compiled step (its first call, a
+real step and the graph's capture, inside the timed runs of the earlier
+phases); the plain versions, and the traced steps of phases 4-6g but
+6c's (the loader's live feed, stepped as cli.train steps it), run the
+step body eagerly.
 
 It checks that every kernel was launched by the path it belongs to. The
 next-to-last line is a JSON object with each kernel's numbers; the last
@@ -194,6 +214,14 @@ G_TRACED = 3           # then traced in a process of its own, after a warm step
 G_CLI_STEPS = 10       # cli.train --loss.mode=rotate at K = K_CALL and 1
 G_ADAGRAD_LR = 0.01    # the dssm_tpu fixture's (adam + the AdaGrad table)
 G_INT8_VOCAB = 32768   # cnn / lstm int8 tables: 1024 slots of 32-row groups
+H_ORDER = (0, 1, 1, 2, 3, 4)  # phase 6h: the batches of the compiled and
+#                             eager steps from one state (calls 2, 3 alike)
+H_TIMED = 16           # steps a repeat of steps/s on batches made ahead
+H_REPEATS = 3          # repeats, compiled and eager in turns
+H_TRACED = 4           # then traced in a process of its own, after a warm step
+H_ATOMICS_TOL = 0.1    # index_add_'s atomics: compiled / eager update gap
+#                       (compare_training's limit for two sound runs: the
+#                       atomics' last bits tip bf16 roundings, step by step)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -229,55 +257,71 @@ def g_init_params(cache, c, dev):
 
 
 def trace_steps(cases_path: str) -> int:
-    """`python3 chip_smoke.py --trace-steps FILE`, phase 6g's traced steps in
-    a process of their own: FILE holds [(name, config, numpy batches)].
-    Each configuration takes one step from its seeded fresh init; then, on
-    a line "go" on stdin, the torch.profiler windows run back to back, one
-    a configuration over its other batches. Prints one JSON line: {name:
-    traced device busy ms and wall ms a step, the device's busy share in
-    the window}; busy null where a window recorded no device event."""
+    """`python3 chip_smoke.py --trace-steps FILE`, the traced steps of
+    phases 6g and 6h in a process of their own: FILE holds [(name, config,
+    numpy batches, modes)], modes a tuple of "eager" (the step body run
+    eagerly on batches widened ahead) and "compiled" (the replayed CUDA
+    graph on wire blocks moved ahead). Each configuration's state takes
+    one step of each mode from its seeded fresh init (the compiled step's
+    first call captures its graph); then, on a line "go" on stdin, the
+    torch.profiler windows run back to back, one a configuration and mode
+    over its other batches. Prints one JSON line: {name: {mode: traced
+    device busy ms, wall ms and CUDA-event device ms a step, the device's
+    busy share in the window}}; busy null where a window recorded no
+    device event."""
     import pickle
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from dssm_tpu_torch.bridge import batch_to_torch
-    from dssm_tpu_torch.train.loop import make_train_step
+    from dssm_tpu_torch.bridge import batch_to_device, batch_to_torch
+    from dssm_tpu_torch.train.loop import (
+        make_eager_train_step, make_train_step)
     from dssm_tpu_torch.train.state import create_run_state
 
     with open(cases_path, "rb") as f:
         cases = pickle.load(f)
     dev = torch.device("cuda")
     inits, ready = {}, []
-    for name, c, batches in cases:
+    for name, c, batches, modes in cases:
         state = create_run_state(c, {
             tw: {k: v.clone() for k, v in tp.items()}
             for tw, tp in g_init_params(inits, c, dev).items()})
-        step = make_train_step(c)
-        tb = [batch_to_torch(b, dev) for b in batches]
-        state, _ = step(state, tb[0])  # warm
-        ready.append((name, step, state, tb[1:]))
+        for mode in modes:
+            if mode == "compiled":
+                step = make_train_step(c)
+                tb = [batch_to_device(b, dev).to_device() for b in batches]
+            else:
+                step = make_eager_train_step(c)
+                tb = [batch_to_torch(b, dev) for b in batches]
+            state, _ = step(state, tb[0])  # warm (compiled: the capture)
+            ready.append((name, mode, step, state, tb[1:]))
     del inits
     torch.cuda.synchronize()
     # The windows wait for the parent to leave the card idle.
     if sys.stdin.readline().strip() != "go":
         return 1
     out = {}
-    for name, step, state, tb in ready:
+    for name, mode, step, state, tb in ready:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
+            start.record()
             for b in tb:
                 state, _ = step(state, b)
+            stop.record()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         busy = sum(float(getattr(e, "self_device_time_total", 0.0))
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
-        out[name] = dict(
+        out.setdefault(name, {})[mode] = dict(
             traced_device_busy_ms_per_step=busy / 1e3 / len(tb) if busy
             else None,
             traced_wall_ms_per_step=wall * 1e3 / len(tb),
+            event_ms_per_step=start.elapsed_time(stop) / len(tb),
             device_busy_share_traced=busy / 1e6 / wall if busy else None)
     print(json.dumps(out))
     return 0
@@ -295,7 +339,8 @@ def main() -> int:
     import torch.nn.functional as F
 
     from dssm_tpu_torch.config import get_preset, validate
-    from dssm_tpu_torch.bridge import batch_to_torch, check_raw_rows
+    from dssm_tpu_torch.bridge import (
+        batch_to_device, batch_to_torch, check_raw_rows)
     from dssm_tpu_torch.data import (
         ToyPairs, batch_iterator, eval_batches, hash_pairs, make_toy_pairs,
         prefetch, train_eval_split, write_tsv)
@@ -338,7 +383,8 @@ def main() -> int:
     from dssm_tpu_torch.serve import build_doc_index, embed_queries, top_k
     from dssm_tpu_torch.tools import eval_kernels, sass
     from dssm_tpu_torch.train import eval as eval_mod
-    from dssm_tpu_torch.train.loop import make_train_step
+    from dssm_tpu_torch.train.loop import (
+        make_eager_train_step, make_train_step)
     from dssm_tpu_torch.train.state import create_run_state
 
     dev = resolve_device(cpu=False)
@@ -387,6 +433,11 @@ def main() -> int:
             b.synchronize()
             times.append(a.elapsed_time(b) / reps)
         return statistics.median(times)
+
+    # A stochastic-rounding scatter's seed on the card, for the timings in
+    # CUDA graphs (an int seed is a synchronising copy, which a capture
+    # refuses; the train step computes its seeds on the card).
+    seed5 = torch.tensor([5], dtype=torch.int32, device=dev)
 
     def device_time_us(prof, top_n):
         """Device time one torch.profiler window recorded: (total us, the
@@ -1314,8 +1365,9 @@ def main() -> int:
             source="dssm_tpu_torch/csrc/scatter_sr.cu",
             replaces=f"dssm_tpu/kernels/pallas_gather.py:{line}",
             max_abs_err=0.0, tolerance="bit-equal (same Philox stream)",
-            ms=graph_ms(lambda: fn(t_k, uniq_lp, upd, grp, 5, impl="kernel")),
-            plain_ms=eager_ms(lambda: fn_plain(t_k, uniq_lp, upd, grp, 5),
+            ms=graph_ms(lambda: fn(t_k, uniq_lp, upd, grp, seed5,
+                                   impl="kernel")),
+            plain_ms=eager_ms(lambda: fn_plain(t_k, uniq_lp, upd, grp, seed5),
                               reps=5, trials=3),
             library_ms=graph_ms(lambda: t_k.index_copy_(0, rows_lp,
                                                         composed)),
@@ -1887,8 +1939,12 @@ def main() -> int:
 
     def run_steps(run_cfg, state, batches_np, impl):
         """Drive the steps as cli/train does (numpy batch -> device ->
-        step, no wait in between); (state, losses, wall s)."""
-        step_fn = make_train_step(run_cfg, impl)
+        step, no wait in between); (state, losses, wall s). Through the
+        kernels the compiled step (its first call captures the graph, and
+        the wall time holds it); through the plain versions the body run
+        eagerly (they read values back, which a capture refuses)."""
+        step_fn = (make_eager_train_step(run_cfg, impl) if impl == "plain"
+                   else make_train_step(run_cfg, impl))
         losses = []
         torch.cuda.synchronize()
         t_start = time.perf_counter()
@@ -2104,8 +2160,10 @@ def main() -> int:
     # Where the step's time goes: 8 more steps under the profiler.
     from torch.profiler import ProfilerActivity, profile
 
-    step_fn = make_train_step(cfg, "auto")
-    state_prof = tr["state"]
+    step_fn = make_eager_train_step(cfg, "auto")  # the eager step's time
+    # A copy: the step updates its state in place, and phase 5 saves the
+    # trained one.
+    state_prof = create_run_state(cfg, clone_params(tr["state"].params))
     prof_batches = host_batches_t[TRAIN_STEPS:]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof_t:
@@ -2163,7 +2221,7 @@ def main() -> int:
         `names_`, together and each with its share of the busy time;
         returns the state after the steps and those numbers."""
         tb_ = [batch_to_torch(b_, dev) for b_ in batches_]
-        step_ = make_train_step(cfg_, "auto")
+        step_ = make_eager_train_step(cfg_, "auto")  # the eager step's time
         state_, _ = step_(state_, tb_[0])  # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -2382,11 +2440,12 @@ def main() -> int:
     ckpt.save(tr["state"].step, tr["state"])
     t1 = time.perf_counter()
     restored = ckpt.restore(device=dev)
-    check(restored.step == TRAIN_STEPS, f"restored step {restored.step}")
+    check(restored.step == TRAIN_STEPS == restored.host_step,
+          f"restored step {restored.host_step}")
     for k, v in tr["state"].params["shared"].items():
         check(torch.equal(restored.params["shared"][k], v),
               f"restored {k} differs from the trained one")
-    print(f"checkpoint: saved step {restored.step} in {t1 - t0:.1f} s, "
+    print(f"checkpoint: saved step {restored.host_step} in {t1 - t0:.1f} s, "
           f"restored bit-identically in {time.perf_counter() - t1:.1f} s")
     params = restored.params  # the serving phase embeds from these
     remap = load_remap(workdir)
@@ -2577,7 +2636,7 @@ def main() -> int:
             # The loss falls: the first batch's loss at the start against
             # its loss after the run (a step on a copy reports the loss
             # before its update).
-            step_fn = make_train_step(run_cfg, "auto")
+            step_fn = make_eager_train_step(run_cfg, "auto")
             _, aux_after = step_fn(create_run_state(
                 run_cfg, clone_params(run["state"].params)),
                 batch_to_torch(b_np[0], dev))
@@ -3004,7 +3063,7 @@ def main() -> int:
                            cache_epoch_batches=True)
 
     stream_runs = []
-    state_s = create_run_state(cfg, params)
+    state_s = create_run_state(cfg, clone_params(params))
     seq_state = seq_runs[("cnn", "joint")]
     for what, run_cfg, make_, steps, settings in (
             ("full", cfg, full_stream, STREAM_STEPS,
@@ -4145,9 +4204,9 @@ def main() -> int:
                     0.0, "f32")
                 results[sr_name].update({
                     f"ms_{a}": graph_ms(lambda: fn_k(
-                        work_, gid_, vals_, grp_, 5, impl="kernel")),
+                        work_, gid_, vals_, grp_, seed5, impl="kernel")),
                     f"plain_ms_{a}": eager_ms(lambda: fn_p(
-                        work_, gid_, vals_, grp_, 5), reps=2, trials=3),
+                        work_, gid_, vals_, grp_, seed5), reps=2, trials=3),
                     f"library_ms_{a}": graph_ms(lambda: work_.index_copy_(
                         0, rows_, finished_)),
                     f"bound_ms_{a}": b_ms, f"bound_by_{a}": b_by,
@@ -4222,7 +4281,7 @@ def main() -> int:
     # late in a long process loses device events). The f32-compute control
     # is not traced.
     with tempfile.NamedTemporaryFile(suffix=".pkl", delete=False) as f:
-        pickle.dump([(name, c, g_batches[name][G_STEPS:])
+        pickle.dump([(name, c, g_batches[name][G_STEPS:], ("eager",))
                      for name, c, _, _ in g_cases
                      if "f32 compute" not in name], f)
     g_trace_file = f.name
@@ -4245,7 +4304,8 @@ def main() -> int:
     check(g_tracer.returncode == 0, "phase 6g: the traced steps' process "
           f"failed: {g_trace_err.read()[-3000:]}")
     g_trace_err.close()
-    traced_g = json.loads(traced_out.strip().splitlines()[-1])
+    traced_g = {name: tr_["eager"] for name, tr_ in json.loads(
+        traced_out.strip().splitlines()[-1]).items()}
     for name, tr_ in traced_g.items():
         g_summary[name].update(tr_)
     print(f"phase 6g, traced ({G_TRACED} steps each after a warm step, one "
@@ -4255,6 +4315,264 @@ def main() -> int:
     print(f"phase 6g: {len(g_cases)} configurations in "
           f"{time.perf_counter() - t0_g:.1f} s")
     del g_batches
+
+    # ---- phase 6h: the compiled step --------------------------------------
+    # On the card make_train_step's step is a captured CUDA graph replayed
+    # on the state's own tensors, updated in place (train/compiled.py:
+    # dssm_tpu's jitted step with its state donated), and
+    # make_multi_train_step's K steps one graph of K bodies (its lax.scan).
+    # At the presets' widths, from seeded fresh inits, each configuration
+    # below takes len(H_ORDER) compiled steps and the same eager steps (the
+    # body run eagerly; kernels on both sides) from one state, in lockstep,
+    # calls 2 and 3 on one batch: after every call both states bit-equal
+    # (the raw branch and the dense step end in index_add_'s atomics: their
+    # updates within H_ATOMICS_TOL of themselves), every kernel's launches
+    # in the call equal, the aux of every call intact after the later
+    # replays; on a bf16 or int8 table the two replays on one batch equal
+    # the eager steps, whose seeds come from their own step numbers (a seed
+    # baked into the graph would repeat the captured step's stream). Then
+    # steps/s on batches made ahead, compiled and eager in turns (median,
+    # min and max of H_REPEATS repeats of H_TIMED steps); the peak memory
+    # above resident of the first compiled call (the warm step and the
+    # capture: the graph's pool) and of an eager step; and wall, traced busy
+    # and CUDA-event ms a step of both in a process of their own. Also
+    # K_CALL steps a call (one replay a block) against one, compiled and
+    # eager, from one state.
+    t0_h = time.perf_counter()
+    h_raw = {a: validate(c.replace(data=c.data.replace(dedup_lookup=False)))
+             for a, c in seq_cfg.items()}
+    h_cases = [  # (name, config, hashed corpus, bit-equal)
+        ("full f32 joint", cfg, hashed_train, True),
+        ("full bf16 joint", validate(cfg.replace(
+            tower=t.replace(table_dtype="bfloat16"))), hashed_train, True),
+        ("full int8 joint", validate(cfg.replace(
+            tower=t.replace(table_dtype="int8"))), hashed_train, True),
+        ("full per-side", validate(cfg.replace(
+            tower=t.replace(shared_weights=False))), hashed_train, True),
+        ("full AdaGrad table, adam", full_ada, hashed_train, True),
+        ("cnn dedupe", sc, seq_train, True),
+        ("cnn raw", h_raw["cnn"], seq_train, False),
+        ("lstm dedupe", seq_cfg["lstm"], seq_train, True),
+        ("lstm raw", h_raw["lstm"], seq_train, False),
+        ("dense sgd", cfg_dense, hashed_train, False),
+        ("dense adam", cfg_adam, hashed_train, False)]
+    h_n = max(H_ORDER) + 1 + H_TIMED + 1 + H_TRACED
+
+    def h_stream(c, hashed_):
+        seq_, dedup_ = c.tower.is_sequence_model, c.data.dedup_lookup
+        flat_ = dedup_ and not seq_
+        it_ = batch_iterator(
+            hashed_, c.train.batch_size, seq_, seed=c.train.seed,
+            dedup_unique=c.data.max_unique if dedup_ else None,
+            dedup_group=g_group(c), dedup_unique_rows=c.data.max_unique_rows,
+            dedup_joint=c.tower.shared_weights, wire_compress=flat_,
+            sort_rows=flat_)
+        return [next(it_) for _ in range(h_n)]
+
+    h_batches = {name: h_stream(c, hashed_) for name, c, hashed_, _ in
+                 h_cases}
+    with tempfile.NamedTemporaryFile(suffix=".pkl", delete=False) as f:
+        pickle.dump([(name, c, h_batches[name][-(H_TRACED + 1):],
+                      ("eager", "compiled")) for name, c, _, _ in h_cases], f)
+    h_trace_file = f.name
+    h_trace_err = tempfile.TemporaryFile(mode="w+")
+    h_tracer = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--trace-steps",
+         h_trace_file], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=h_trace_err, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def h_leaves(st_):
+        """{(tree, name): tensor} of a state: its counters, parameters and
+        optimizer trees."""
+        out_ = {("step", "step"): st_.step}
+        for tw, tp_ in st_.params.items():
+            out_.update({(tw, k): v for k, v in tp_.items()})
+        for tree_name, tree_ in st_.opt_state.items():
+            if tree_name == "count":
+                out_[("count", "count")] = tree_
+                continue
+            for tw, tp_ in tree_.items():
+                out_.update({(f"{tree_name}/{tw}", k): v
+                             for k, v in tp_.items()})
+        return out_
+
+    def state_gap(a_, b_, init_, what_, exact):
+        """0.0 where two states are bit-equal; else (a failure where they
+        should be, or the counters differ) the largest update_gap of their
+        parameters and optimizer trees."""
+        la_, lb_ = h_leaves(a_), h_leaves(b_)
+        worst_ = 0.0
+        for key_, x_ in la_.items():
+            y_ = lb_[key_]
+            if torch.equal(x_, y_):
+                continue
+            check(not exact and key_[0] not in ("step", "count"),
+                  f"{what_}: compiled and eager differ at {key_}")
+            before_ = init_.get(key_[0], {}).get(key_[1],
+                                                 torch.zeros_like(y_))
+            worst_ = max(worst_, update_gap(x_, y_, before_))
+        return worst_
+
+    h_summary, h_inits = {}, {}
+    try:
+        for name, c, _, exact in h_cases:
+            what = f"phase 6h, {name}"
+            b_np = h_batches[name]
+            init_ = g_init_params(h_inits, c, dev)
+            states = {m: create_run_state(c, clone_params(init_))
+                      for m in ("compiled", "eager")}
+            steps = {"compiled": make_train_step(c),
+                     "eager": make_eager_train_step(c)}
+            auxes = {m: [] for m in steps}
+            worst, peaks = 0.0, {}
+            for j_, i_ in enumerate(H_ORDER):
+                counts_ = {}
+                for m in ("compiled", "eager"):
+                    tb_ = (batch_to_device if m == "compiled"
+                           else batch_to_torch)(b_np[i_], dev,
+                                                vocab_size=c.tower.vocab_size)
+                    torch.cuda.synchronize()
+                    if j_ == 0:
+                        # Cached blocks out: what the first call reserves
+                        # is then its working set (compiled: the warm
+                        # step's, then the graph's pool, which stays).
+                        torch.cuda.empty_cache()
+                    resident_ = torch.cuda.memory_allocated()
+                    reserved_ = torch.cuda.memory_reserved()
+                    torch.cuda.reset_peak_memory_stats()
+                    _build.reset_launch_counts()
+                    states[m], aux_ = steps[m](states[m], tb_)
+                    torch.cuda.synchronize()
+                    counts_[m] = {k_: v_ for k_, v_ in
+                                  _build.launch_counts().items() if v_}
+                    if j_ == 0:
+                        peaks[m] = dict(
+                            peak_above_resident_gb=(
+                                torch.cuda.max_memory_allocated()
+                                - resident_) / 1e9,
+                            reserved_after_gb=(torch.cuda.memory_reserved()
+                                               - reserved_) / 1e9)
+                    auxes[m].append(aux_)
+                check(counts_["compiled"] == counts_["eager"]
+                      and counts_["eager"], f"{what}, call {j_ + 1}: "
+                      f"launches {counts_['compiled']} compiled against "
+                      f"{counts_['eager']} eager")
+                check(int(states["compiled"].step) == j_ + 1
+                      == states["compiled"].host_step,
+                      f"{what}: step counter after call {j_ + 1}")
+                worst = max(worst, state_gap(states["compiled"],
+                                             states["eager"], init_, what,
+                                             exact))
+            check(steps["compiled"].num_graphs == 1,
+                  f"{what}: {steps['compiled'].num_graphs} graphs captured")
+            aux_gap = max(abs(float(a_[k_]) - float(e_[k_]))
+                          for a_, e_ in zip(auxes["compiled"], auxes["eager"])
+                          for k_ in e_)
+            check((aux_gap == 0.0) if exact else worst <= H_ATOMICS_TOL,
+                  f"{what}: compiled and eager part: aux {aux_gap}, "
+                  f"updates {worst} of themselves apart")
+            # Steps/s on batches made ahead, compiled and eager in turns.
+            timed_np = b_np[max(H_ORDER) + 1:max(H_ORDER) + 1 + H_TIMED]
+            made = {"compiled": [batch_to_device(b_, dev).to_device()
+                                 for b_ in timed_np],
+                    "eager": [batch_to_torch(b_, dev) for b_ in timed_np]}
+            rates = {m: [] for m in made}
+            for _ in range(H_REPEATS):
+                for m in ("compiled", "eager"):
+                    torch.cuda.synchronize()
+                    t1_ = time.perf_counter()
+                    for tb_ in made[m]:
+                        states[m], aux_ = steps[m](states[m], tb_)
+                    float(aux_["loss"])  # the last step's loss, read
+                    torch.cuda.synchronize()
+                    rates[m].append(len(timed_np)
+                                    / (time.perf_counter() - t1_))
+            check(steps["compiled"].num_graphs == 1,
+                  f"{what}: a timed batch was captured anew")
+            h_summary[name] = dict(
+                card=card, calls=len(H_ORDER),
+                compared="bit-equal" if exact else dict(
+                    update_gap=worst, aux_gap=aux_gap),
+                launches_per_step=counts_["compiled"],
+                steps_per_s={m: dict(median=statistics.median(r_),
+                                     min=min(r_), max=max(r_))
+                             for m, r_ in rates.items()},
+                first_call_memory=peaks)
+            print(f"{what}: " + json.dumps(h_summary[name]))
+            del states, steps, made, auxes
+
+        # K_CALL steps a call against one, compiled and eager, from one
+        # state: bit-equal; steps/s of each on blocks made ahead.
+        c = cfg
+        b_np = h_batches["full f32 joint"][:2 * K_CALL]
+        init_ = g_init_params(h_inits, c, dev)
+        ends, k_rates = {}, {}
+        for what_k, fn_, k_ in (
+                ("compiled K=1", make_train_step(c), 1),
+                (f"compiled K={K_CALL}", make_multi_train_step(c), K_CALL),
+                (f"eager K={K_CALL}", make_eager_train_step(c, multi=True),
+                 K_CALL)):
+            st_ = create_run_state(c, clone_params(init_))
+            units_ = ([batch_to_device(b_, dev) for b_ in b_np] if k_ == 1
+                      else [batch_to_device(stack_batches(
+                          b_np[i_:i_ + k_]), dev)
+                          for i_ in range(0, len(b_np), k_)])
+            _build.reset_launch_counts()
+            for u_ in units_:
+                st_, aux_ = fn_(st_, u_)
+            counts_ = {k2: v2 for k2, v2 in _build.launch_counts().items()
+                       if v2}
+            check(counts_ == {k2: len(b_np) for k2 in joint_kernels},
+                  f"K steps a call, {what_k}: launches {counts_}")
+            ends[what_k] = {k2: v2.clone() for k2, v2 in h_leaves(st_).items()}
+            units_ = [u_.to_device() for u_ in units_]  # made ahead
+            r_ = []
+            for _ in range(H_REPEATS):
+                torch.cuda.synchronize()
+                t1_ = time.perf_counter()
+                for _ in range(H_TIMED // len(b_np)):
+                    for u_ in units_:
+                        st_, aux_ = fn_(st_, u_)
+                float(aux_["loss"][-1] if k_ > 1 else aux_["loss"])
+                torch.cuda.synchronize()
+                r_.append(len(b_np) * (H_TIMED // len(b_np))
+                          / (time.perf_counter() - t1_))
+            k_rates[what_k] = dict(median=statistics.median(r_), min=min(r_),
+                                   max=max(r_))
+        for what_k, leaves_ in ends.items():
+            for key_, v_ in leaves_.items():
+                check(torch.equal(v_, ends["compiled K=1"][key_]),
+                      f"phase 6h, {what_k} against compiled K=1, "
+                      f"{len(b_np)} steps from one state: {key_} differs "
+                      "(bit-equal expected)")
+        h_summary[f"K={K_CALL} against K=1"] = dict(
+            card=card, steps=len(b_np), compared="bit-equal",
+            steps_per_s=k_rates)
+        print(f"phase 6h, {K_CALL} steps a call against 1, full f32 joint, "
+              f"{len(b_np)} steps from one state: bit-equal; steps/s on "
+              f"blocks made ahead: {json.dumps(k_rates)} on {card}")
+        del ends, h_inits
+        torch.cuda.synchronize()
+        traced_out, _ = h_tracer.communicate("go\n", timeout=600)
+    finally:
+        if h_tracer.poll() is None:
+            h_tracer.kill()
+            h_tracer.communicate()
+        os.unlink(h_trace_file)
+    h_trace_err.seek(0)
+    check(h_tracer.returncode == 0, "phase 6h: the traced steps' process "
+          f"failed: {h_trace_err.read()[-3000:]}")
+    h_trace_err.close()
+    traced_h = json.loads(traced_out.strip().splitlines()[-1])
+    for name, tr_ in traced_h.items():
+        h_summary[name]["traced"] = tr_
+    print(f"phase 6h, traced ({H_TRACED} steps of each mode after a warm "
+          f"step, one process of its own) on {card}: "
+          + json.dumps(traced_h))
+    print(f"phase 6h: {len(h_cases)} configurations in "
+          f"{time.perf_counter() - t0_h:.1f} s")
+    del h_batches
 
     # ---- phase 7: the same path through the command-line entry points ----
     # cli.train in this process: the full preset on a toy corpus cut to

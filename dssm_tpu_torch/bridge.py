@@ -13,12 +13,16 @@ optimizer state). batch_to_torch moves a numpy batch from
 the loader onto a device, widening the compressed wire fields there as
 dssm_tpu's lookup does; given the table's rows it first checks a raw-index
 batch's lookups on the host (check_raw_rows), so that the lookup kernel on
-the card has no check to read back.
+the card has no check to read back. batch_to_device stops before the
+widening: its WireBatch is the packed block, which a compiled train step
+(train/compiled.py) copies into static buffers of the batch's signature
+and widens inside its graph.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+import math
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,24 +99,117 @@ def check_raw_rows(batch: Mapping[str, np.ndarray], vocab_size: int) -> None:
                 f"{vocab_size} rows")
 
 
-def _to_cuda_pinned(arrays: Mapping[str, np.ndarray],
-                    dev: torch.device) -> Dict[str, torch.Tensor]:
-    """The arrays on the GPU `dev` as one block: packed into one pinned host
-    buffer at 16-byte aligned offsets and moved by one copy that does not
-    wait for the card (it queues behind the work before it on the stream);
-    each field a typed view of the block."""
-    offsets, total = {}, 0
-    for k, a in arrays.items():
-        offsets[k] = total
-        total += -(-a.nbytes // 16) * 16
-    host = torch.empty((max(total, 16),), dtype=torch.uint8, pin_memory=True)
+Layout = Tuple[Tuple[str, int, Tuple[int, ...], torch.dtype], ...]
+
+
+def _layout(fields: Mapping[str, Tuple[Tuple[int, ...], torch.dtype, int]]
+            ) -> Tuple[Layout, int]:
+    """(key, byte offset, shape, dtype) of each field in one block, at
+    16-byte aligned offsets, and the block's bytes."""
+    layout, total = [], 0
+    for k, (shape, dtype, nbytes) in fields.items():
+        layout.append((k, total, tuple(shape), dtype))
+        total += -(-nbytes // 16) * 16
+    return tuple(layout), max(total, 16)
+
+
+def widen(fields: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The fields the steps read: index fields (int16 on the compressed
+    wire) int32, weights (uint8 counts) and word masks f32."""
+    out = {}
+    for k, t in fields.items():
+        if k in _INDEX_FIELDS or k.endswith(_INDEX_SUFFIXES):
+            t = t.to(torch.int32)
+        elif k.endswith(_F32_SUFFIXES):
+            t = t.to(torch.float32)
+        out[k] = t
+    return out
+
+
+class WireBatch:
+    """A batch's wire arrays packed into one byte block (`layout`: each
+    field's key, 16-byte aligned offset, shape and dtype; the batch's
+    signature), bound for `device`. The packed block waits in host memory
+    (pinned for a GPU) until `block` moves it, with one copy that does not
+    wait for the card, or a compiled step copies it into a static block of
+    its own (copy_to). `fields()` are the block's typed views, widened."""
+
+    def __init__(self, layout: Layout, nbytes: int, device: torch.device,
+                 host: Optional[torch.Tensor] = None,
+                 block: Optional[torch.Tensor] = None):
+        self.layout, self.nbytes, self.device = layout, nbytes, device
+        self._host, self._block = host, block
+
+    @property
+    def block(self) -> torch.Tensor:
+        return self.to_device()._block
+
+    def to_device(self) -> "WireBatch":
+        """Move the packed block to the device now (a batch made ahead)."""
+        if self._block is None:
+            self._block = self._host.to(self.device, non_blocking=True)
+            self._host = None
+        return self
+
+    def copy_to(self, block: torch.Tensor) -> None:
+        """The packed block into `block` (of this layout), on the current
+        stream, without a wait."""
+        src = self._host if self._host is not None else self._block
+        block.copy_(src, non_blocking=True)
+
+    def fields(self, block: Optional[torch.Tensor] = None
+               ) -> Dict[str, torch.Tensor]:
+        """The widened fields, views of `block` (default: this batch's) as
+        far as widening leaves them."""
+        block = self.block if block is None else block
+        return widen({k: block[off:off + _nbytes(shape, dtype)].view(
+            dtype).view(shape) for k, off, shape, dtype in self.layout})
+
+
+def _nbytes(shape: Tuple[int, ...], dtype: torch.dtype) -> int:
+    return math.prod(shape) * dtype.itemsize
+
+
+def batch_to_device(batch: Mapping[str, np.ndarray], device: DeviceLike,
+                    vocab_size: Optional[int] = None) -> WireBatch:
+    """Numpy batch -> a WireBatch bound for `device`: its arrays packed, as
+    they come off the wire, into one host block (pinned for a GPU). With
+    vocab_size (the table's rows) a raw-index batch's lookups are checked
+    on the host first (check_raw_rows): the train loop and CLI, eval and
+    serving pass it."""
+    if vocab_size is not None:
+        check_raw_rows(batch, vocab_size)
+    dev = as_device(device)
+    arrays = {k: np.ascontiguousarray(v) for k, v in batch.items()}
+    layout, total = _layout({k: (a.shape, _torch_dtype(a), a.nbytes)
+                             for k, a in arrays.items()})
+    host = torch.empty((total,), dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
     buf = host.numpy()
-    for k, a in arrays.items():
-        buf[offsets[k]:offsets[k] + a.nbytes] = a.reshape(-1).view(np.uint8)
-    block = host.to(dev, non_blocking=True)
-    return {k: block[offsets[k]:offsets[k] + a.nbytes].view(
-        torch.from_numpy(a[:0].reshape(-1)).dtype).view(a.shape)
-        for k, a in arrays.items()}
+    for (k, off, _, _), a in zip(layout, arrays.values()):
+        buf[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+    if dev.type == "cpu":
+        return WireBatch(layout, total, dev, block=host)
+    return WireBatch(layout, total, dev, host=host)
+
+
+def _torch_dtype(a: np.ndarray) -> torch.dtype:
+    return torch.from_numpy(a[:0].reshape(-1)).dtype
+
+
+def pack_fields(fields: Mapping[str, torch.Tensor]) -> WireBatch:
+    """A batch of tensors on one device (e.g. batch_to_torch's) as a
+    WireBatch on that device: its fields copied into one block."""
+    dev = next(iter(fields.values())).device
+    layout, total = _layout({k: (tuple(t.shape), t.dtype,
+                                 t.numel() * t.element_size())
+                             for k, t in fields.items()})
+    block = torch.zeros((total,), dtype=torch.uint8, device=dev)
+    for k, off, shape, dtype in layout:
+        t = fields[k].contiguous().reshape(-1)
+        block[off:off + t.numel() * t.element_size()].copy_(
+            t.view(torch.uint8))
+    return WireBatch(layout, total, dev, block=block)
 
 
 def batch_to_torch(batch: Mapping[str, np.ndarray], device: DeviceLike,
@@ -122,25 +219,10 @@ def batch_to_torch(batch: Mapping[str, np.ndarray], device: DeviceLike,
     compressed wire) become int32; weights (uint8 counts) and word masks
     f32. With vocab_size (the table's rows), a raw-index batch's lookups
     are checked on the host first (check_raw_rows): the train loop and CLI,
-    eval and serving pass it. To a GPU the batch goes as one block through
-    pinned host memory, without a wait for the steps queued before it."""
-    if vocab_size is not None:
-        check_raw_rows(batch, vocab_size)
-    dev = as_device(device)
-    arrays = {k: np.ascontiguousarray(v) for k, v in batch.items()}
-    if dev.type == "cuda":
-        moved = _to_cuda_pinned(arrays, dev)
-    else:
-        moved = {k: torch.from_numpy(a).to(dev) for k, a in arrays.items()}
-    out = {}
-    for k, t in moved.items():
-        # The (possibly compressed) field is moved first, widened here.
-        if k in _INDEX_FIELDS or k.endswith(_INDEX_SUFFIXES):
-            t = t.to(torch.int32)
-        elif k.endswith(_F32_SUFFIXES):
-            t = t.to(torch.float32)
-        out[k] = t
-    return out
+    eval and serving pass it. The batch goes as one block (batch_to_device;
+    to a GPU through pinned host memory, without a wait for the steps
+    queued before it) and is widened there."""
+    return batch_to_device(batch, device, vocab_size).fields()
 
 
 def optax_field(opt_state: Any, name: str) -> Any:
@@ -211,4 +293,5 @@ def shard_state(state: TrainState, mesh) -> TrainState:
 
     return TrainState(step=state.step,
                       params=shard_tree(state.params, mesh),
-                      opt_state=shard_tree(state.opt_state, mesh))
+                      opt_state=shard_tree(state.opt_state, mesh),
+                      host_step=state.host_step)

@@ -67,7 +67,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         params, step = model_base.init_params(
             cfg.tower, seed=cfg.train.seed, device=device), 0
     else:
-        params, step = restored.params, restored.step
+        params, step = restored.params, restored.host_step
         print(f"restored step {step} from {source}", file=sys.stderr)
     table = next(iter(params.values()))[model_base.TABLE_KEY[cfg.tower.arch]]
     want = model_base.torch_dtype(cfg.tower.table_dtype_resolved)

@@ -73,7 +73,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     restored, source = restore_run(cfg.io.workdir, cfg, device,
                                    opt_state=False)
     if restored is not None:
-        print(f"restored step {restored.step} from {source}",
+        print(f"restored step {restored.host_step} from {source}",
               file=sys.stderr)
     else:
         print(f"no checkpoint under {cfg.io.workdir}; using fresh init",

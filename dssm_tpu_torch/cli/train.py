@@ -32,8 +32,11 @@ dense-table step on raw-index batches of an f32 table. With
 --train.steps_per_call=K > 1 it runs blocks of K steps (stacked in a
 background thread) while K steps remain, then single steps; its log, eval
 and checkpoint records land on a block's last step, where step % every < K,
-as dssm_tpu's do. At most train.max_inflight_steps steps or blocks are
-queued on the card before the loop waits for the oldest.
+as dssm_tpu's do. On one GPU a step, or a block of K, is one replay of a
+captured CUDA graph (train/compiled.py: the state updated in place on the
+card, as dssm_tpu's jitted step donates it); with --cpu the same step body
+runs eagerly. At most train.max_inflight_steps steps or blocks are queued
+on the card before the loop waits for the oldest.
 
 --io.tensorboard=true mirrors the records' scalars to TensorBoard event
 files under <workdir>/tb/<tag> and writes a `weights` record
@@ -73,7 +76,7 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     import torch
 
-    from dssm_tpu_torch.bridge import batch_to_torch
+    from dssm_tpu_torch.bridge import batch_to_device, batch_to_torch
     from dssm_tpu_torch.config import get_preset
     from dssm_tpu_torch.config import validate as validate_cfg
     from dssm_tpu_torch.data import (
@@ -152,7 +155,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     if resume:
         state, source = restore_run(cfg.io.workdir, cfg, device, mesh)
         if state is not None:
-            print(f"resumed from step {state.step} ({source})",
+            print(f"resumed from step {state.host_step} ({source})",
                   file=sys.stderr)
     else:
         if lead and ckpt.all_steps():
@@ -173,7 +176,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     table = next(iter(state.params.values()))[
         model_base.TABLE_KEY[cfg.tower.arch]]
     dedup = cfg.data.dedup_lookup and uses_sparse_update(cfg)
-    start_step = state.step
+    start_step = state.host_step
     # Every step consumes one batch, so the restored step count is the data
     # cursor (loader.batch_iterator).
     sequence = cfg.tower.is_sequence_model
@@ -210,9 +213,14 @@ def main(argv: Optional[List[str]] = None) -> None:
     if mesh:
         step_fn = make_parallel_train_step(cfg, mesh)
         multi_fn = make_parallel_multi_step(cfg, mesh) if spc > 1 else None
+        to_device = batch_to_torch
     else:
+        # Compiled: on the GPU a replayed CUDA graph a step or a block,
+        # which copies the batch's wire block into static buffers and
+        # widens it inside the graph (train/compiled.py).
         step_fn = make_train_step(cfg)
         multi_fn = make_multi_train_step(cfg) if spc > 1 else None
+        to_device = batch_to_device
     # The table's global rows, which a raw batch's lookups must lie in.
     rows = cfg.tower.vocab_size
     # The bounded in-flight window (train.max_inflight_steps): an event
@@ -274,13 +282,13 @@ def main(argv: Optional[List[str]] = None) -> None:
                     add_rotation_offsets(next(batches), cfg, step + j)
                     for j in range(spc))
             state, auxes = multi_fn(
-                state, batch_to_torch(stacked, device, vocab_size=rows))
+                state, to_device(stacked, device, vocab_size=rows))
             aux = {k: v[-1] for k, v in auxes.items()}
             step += spc - 1  # the records below land on the block's last step
         else:
             batch = add_rotation_offsets(next(batches), cfg, step)
             state, aux = step_fn(
-                state, batch_to_torch(batch, device, vocab_size=rows))
+                state, to_device(batch, device, vocab_size=rows))
         if device.type == "cuda":
             inflight.append(torch.cuda.Event())
             inflight[-1].record()

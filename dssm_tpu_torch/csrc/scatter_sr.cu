@@ -25,7 +25,11 @@
 // for the element with flat index e = slot * group * H + offset in the
 // compact block. kernels/stochastic.py::philox_bits is the same stream in
 // plain PyTorch, so the plain versions of these updates are bit-equal to
-// the kernels whatever thread computes an element.
+// the kernels whatever thread computes an element. The seed is read from
+// device memory (an int32 the train step computes from its step counter on
+// the card), not passed by value, so a captured CUDA graph of the step
+// draws a new stream at every replay instead of the stream of the step it
+// was captured at.
 //
 // Bound on the H100: bytes, with the instructions close behind. Each real
 // group is read and written once and its f32 vals read once: at the `full`
@@ -159,13 +163,15 @@ __global__ void __launch_bounds__(kThreads)
     scatter_sr_kernel(uint4* __restrict__ table,
                       const int32_t* __restrict__ gids,
                       const float4* __restrict__ vals, int64_t num_groups,
-                      uint32_t units, uint32_t blocks, uint32_t seed) {
+                      uint32_t units, uint32_t blocks,
+                      const int32_t* __restrict__ seed_ptr) {
   constexpr int K = Op::kUnits;
   const uint32_t slot = blockIdx.x / blocks;
   const uint32_t vec = (blockIdx.x - slot * blocks) * kThreads + threadIdx.x;
   const uint32_t vecs = units / K;
   const int64_t gid = __ldg(gids + slot);
   if (gid < 0 || gid >= num_groups || vec >= vecs) return;
+  const uint32_t seed = (uint32_t)__ldg(seed_ptr);
   uint4* dst = table + gid * vecs + vec;
   const uint64_t unit0 = (uint64_t)slot * units + (uint64_t)vec * K;
   uint4 t = *dst;
@@ -190,7 +196,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename Op>
 int launch(void* table, const void* gids, const void* vals,
            long long num_slots, long long num_groups, long long group_elems,
-           int seed, void* stream) {
+           const void* seed, void* stream) {
   const long long units = group_elems / 4;
   const long long blocks = (units / Op::kUnits + kThreads - 1) / kThreads;
   if (units >= (1LL << 32) || num_slots * blocks >= (1LL << 31)) {
@@ -200,22 +206,23 @@ int launch(void* table, const void* gids, const void* vals,
                           (cudaStream_t)stream>>>(
       (uint4*)table, (const int32_t*)gids, (const float4*)vals,
       (int64_t)num_groups, (uint32_t)units, (uint32_t)blocks,
-      (uint32_t)seed);
+      (const int32_t*)seed);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // table: [num_groups * group, H] bf16, updated in place; gids: [num_slots]
-// int32; vals: [num_slots * group, H] f32. group_elems = group * H, a
-// multiple of 8; table and vals 16-byte aligned. Returns
-// cudaGetLastError().
+// int32; vals: [num_slots * group, H] f32; seed: one int32 in device
+// memory, the Philox key. group_elems = group * H, a multiple of 8; table
+// and vals 16-byte aligned. Returns cudaGetLastError().
 extern "C" int dssm_scatter_sr_bf16_row_groups(void* table, const void* gids,
                                                const void* vals,
                                                long long num_slots,
                                                long long num_groups,
                                                long long group_elems,
-                                               int seed, void* stream) {
+                                               const void* seed,
+                                               void* stream) {
   if (num_slots <= 0 || group_elems <= 0 || group_elems % 8 != 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -231,7 +238,8 @@ extern "C" int dssm_scatter_sr_int8_row_groups(void* table, const void* gids,
                                                long long num_slots,
                                                long long num_groups,
                                                long long group_elems,
-                                               int seed, void* stream) {
+                                               const void* seed,
+                                               void* stream) {
   if (num_slots <= 0 || group_elems <= 0 || group_elems % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }

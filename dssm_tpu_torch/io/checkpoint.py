@@ -2,7 +2,9 @@
 the command lines start from.
 
 A checkpoint is one file, workdir/torch_checkpoints/step_<N>.pt, holding the
-step, the parameters and the optimizer state as CPU tensors. It is written
+step counter, the parameters and the optimizer state (adam's count
+included) as CPU tensors; a checkpoint whose step and count are ints (the
+port's format before its counters lived on the device) restores the same. It is written
 to a temporary name and renamed, so a reader never sees a partial file; the
 newest `keep` are kept. Saving is synchronous. A state sharded over a
 mesh (parallel/train_step.py) is written whole, in the same format: its
@@ -31,7 +33,7 @@ import torch
 
 from dssm_tpu_torch.device import DeviceLike, as_device
 from dssm_tpu_torch.io import orbax_reader
-from dssm_tpu_torch.train.state import TrainState
+from dssm_tpu_torch.train.state import TrainState, counter
 
 CHECKPOINT_DIR = "torch_checkpoints"
 _NAME = re.compile(r"^step_(\d+)\.pt$")
@@ -76,11 +78,12 @@ class Checkpointer:
 
             state = TrainState(step=state.step,
                                params=gather_tree(state.params, mesh),
-                               opt_state=gather_tree(state.opt_state, mesh))
+                               opt_state=gather_tree(state.opt_state, mesh),
+                               host_step=state.host_step)
             if mesh.rank != 0:
                 return
         payload = {
-            "step": int(state.step),
+            "step": counter(state.step, torch.device("cpu")),
             "params": _map_tensors(state.params, lambda t: t.detach().cpu()),
             "opt_state": _map_tensors(state.opt_state,
                                       lambda t: t.detach().cpu()),
@@ -105,8 +108,10 @@ class Checkpointer:
         dev = as_device(device)
         payload = torch.load(self._path(step), map_location="cpu",
                              weights_only=True)
+        # The step and adam's count: int32 tensors, or the ints of a
+        # checkpoint written before they lived on the device.
         state = TrainState(
-            step=int(payload["step"]),
+            step=payload["step"],
             params=_map_tensors(payload["params"], lambda t: t.to(dev)),
             opt_state=_map_tensors(payload["opt_state"],
                                    lambda t: t.to(dev)),

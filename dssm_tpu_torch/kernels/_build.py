@@ -9,7 +9,10 @@ Nothing is built at import time: the CPU tests import every module without
 nvcc.
 
 Every kernel wrapper counts its launches here, so a run can show which
-kernels its main path went through.
+kernels its main path went through. A launch made while the current stream
+captures a CUDA graph runs nothing: it is counted apart (captured_launches),
+and whoever replays the graph adds those counts at every replay
+(add_launches), so a replayed step counts what an eager one does.
 """
 
 from __future__ import annotations
@@ -66,9 +69,9 @@ _SIGNATURES = {
                               ctypes.c_float, _P],
     "dssm_scatter_add_row_groups": [_P, _P, _P, _I64, _I64, _I64, _P],
     "dssm_scatter_add_bf16_row_groups": [_P, _P, _P, _I64, _I64, _I64, _P],
-    "dssm_scatter_sr_bf16_row_groups": [_P, _P, _P, _I64, _I64, _I64, _INT,
+    "dssm_scatter_sr_bf16_row_groups": [_P, _P, _P, _I64, _I64, _I64, _P,
                                         _P],
-    "dssm_scatter_sr_int8_row_groups": [_P, _P, _P, _I64, _I64, _I64, _INT,
+    "dssm_scatter_sr_int8_row_groups": [_P, _P, _P, _I64, _I64, _I64, _P,
                                         _P],
     "dssm_rank_counts": [_P, _P, _P, _P, _I64, _I64, _INT, _P],
     "dssm_embedding_bag": [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _P],
@@ -90,6 +93,8 @@ KERNELS = ("gather_row_groups", "count_lookup", "dense_tower",
            "rank_counts", "embedding_bag", "embedding_bag_bwd",
            "fused_gather_joint_lookup")
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
+# Launches recorded into the CUDA graph being captured.
+_captured: Dict[str, int] = {name: 0 for name in KERNELS}
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
@@ -101,6 +106,24 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+
+
+def captured_launches(reset: bool = False) -> Dict[str, int]:
+    """The launches recorded under graph capture since the last reset (a
+    graph's kernels, when reset before its capture)."""
+    with _lock:
+        out = dict(_captured)
+        if reset:
+            for name in _captured:
+                _captured[name] = 0
+    return out
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count a replay's launches (a captured graph's captured_launches)."""
+    with _lock:
+        for name, n in counts.items():
+            _launches[name] += n
 
 
 def _nvcc() -> str:
@@ -219,14 +242,17 @@ def resolve_impl(impl: str, t: torch.Tensor, name: str) -> str:
 
 def launch(name: str, fn: str, device: torch.device, *args) -> None:
     """Call C function `fn` on `device`'s current stream, raise on a CUDA
-    error it reports, and count one launch of kernel `name`."""
+    error it reports, and count one launch of kernel `name` (among the
+    captured ones while that stream captures a graph)."""
     lib = load()
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
+        current = torch.cuda.current_stream(device)
+        rc = getattr(lib, fn)(*args, current.cuda_stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-    _launches[name] += 1
+    with _lock:
+        (_captured if capturing else _launches)[name] += 1
 
 
 def query(fn: str, *args) -> int:

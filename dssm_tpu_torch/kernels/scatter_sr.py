@@ -22,9 +22,17 @@ written through them. The random bits are kernels/stochastic.py's Philox
 stream under `seed`, indexed by the element's position in the compact
 block, whatever thread computes it; the plain versions draw the same
 stream with philox_bits, so kernel and plain version are bit-equal.
+
+The kernels read the seed on the device, from a one-element int32 tensor
+(the train step's step * 4 + the scatter's index, computed from its device
+step counter), so a CUDA graph of the step draws each replay's own stream.
+An int seed is copied to the device first (tests, tools): a synchronising
+copy, which a graph capture refuses.
 """
 
 from __future__ import annotations
+
+from typing import Union
 
 import torch
 
@@ -37,11 +45,26 @@ _BF16 = "scatter_sr_row_groups"
 _INT8 = "scatter_sr_int8_row_groups"
 
 
+Seed = Union[int, torch.Tensor]
+
+
 def _c_int(seed: int) -> int:
-    """The seed as the int32 the kernel takes (its bits are the key)."""
+    """The seed as an int32 (its bits are the key)."""
     seed = int(seed) & 0xFFFFFFFF
     return seed - (1 << 32) if seed >= 1 << 31 else seed
 
+
+def seed_tensor(name: str, seed: Seed, device: torch.device) -> torch.Tensor:
+    """The seed as the one-element int32 tensor on `device` the kernel
+    reads."""
+    if not isinstance(seed, torch.Tensor):
+        return torch.tensor([_c_int(seed)], dtype=torch.int32, device=device)
+    if (seed.dtype != torch.int32 or seed.numel() != 1
+            or seed.device != device):
+        raise ValueError(f"{name}: the seed must be one int32 on {device}, "
+                         f"got {seed.dtype} {tuple(seed.shape)} on "
+                         f"{seed.device}")
+    return seed
 
 def _plain(table, gids, vals, group, seed, round_fn):
     v, h = table.shape
@@ -58,7 +81,7 @@ def _plain(table, gids, vals, group, seed, round_fn):
 
 def scatter_sr_row_groups_plain(table: torch.Tensor, gids: torch.Tensor,
                                 vals: torch.Tensor, group: int,
-                                seed: int) -> torch.Tensor:
+                                seed: Seed) -> torch.Tensor:
     """Plain PyTorch version: philox_bits, the bit-trick rounding and an
     index_copy_ of the real slots' rows."""
     return _plain(table, gids, vals, group, seed, stochastic_round_bf16)
@@ -66,7 +89,7 @@ def scatter_sr_row_groups_plain(table: torch.Tensor, gids: torch.Tensor,
 
 def scatter_sr_int8_row_groups_plain(table: torch.Tensor, gids: torch.Tensor,
                                      vals_grid: torch.Tensor, group: int,
-                                     seed: int) -> torch.Tensor:
+                                     seed: Seed) -> torch.Tensor:
     return _plain(table, gids, vals_grid, group, seed, stochastic_round_int8)
 
 
@@ -90,16 +113,18 @@ def _launch(name, fn, table, gids, vals, group, seed, dtype, vec_elems):
                          f"16-byte vectors ({group * h} elements)")
     if g == 0:
         return table
+    seed = seed_tensor(name, seed, table.device)
     _build.launch(name, fn, table.device, table.data_ptr(), gids.data_ptr(),
-                  vals.data_ptr(), g, v // group, group * h, _c_int(seed))
+                  vals.data_ptr(), g, v // group, group * h, seed.data_ptr())
     return table
 
 
 def scatter_sr_row_groups(table: torch.Tensor, gids: torch.Tensor,
-                          vals: torch.Tensor, group: int, seed: int, *,
+                          vals: torch.Tensor, group: int, seed: Seed, *,
                           impl: str = "auto") -> torch.Tensor:
     """table [V, H] bf16 updated in place and returned; gids [G] int32; vals
-    [G*group, H] f32; seed: vary it per step and scatter."""
+    [G*group, H] f32; seed: vary it per step and scatter (an int, or one
+    int32 on the table's device)."""
     if _build.resolve_impl(impl, table, _BF16) == "plain":
         return scatter_sr_row_groups_plain(table, gids, vals, group, seed)
     return _launch(_BF16, "dssm_scatter_sr_bf16_row_groups", table, gids,
@@ -107,8 +132,9 @@ def scatter_sr_row_groups(table: torch.Tensor, gids: torch.Tensor,
 
 
 def scatter_sr_int8_row_groups(table: torch.Tensor, gids: torch.Tensor,
-                               vals_grid: torch.Tensor, group: int, seed: int,
-                               *, impl: str = "auto") -> torch.Tensor:
+                               vals_grid: torch.Tensor, group: int,
+                               seed: Seed, *, impl: str = "auto"
+                               ) -> torch.Tensor:
     """table [V, H] int8 updated in place and returned; vals_grid [G*group,
     H] f32 in grid units."""
     if _build.resolve_impl(impl, table, _INT8) == "plain":

@@ -161,7 +161,7 @@ def scatter_sr_groups_local(table_shard: torch.Tensor, gids: torch.Tensor,
     decorrelate their streams anyway, as dssm_tpu's do)."""
     rel = owned_group_ids(gids, shard, _groups_per_shard(table_shard, group))
     return scatter_sr_row_groups(table_shard, rel, vals, group,
-                                 int(seed) * mp + shard, impl=impl)
+                                 seed * mp + shard, impl=impl)
 
 
 def scatter_sr_groups_sharded(table_shard: torch.Tensor, gids: torch.Tensor,

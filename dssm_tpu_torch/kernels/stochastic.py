@@ -29,6 +29,8 @@ is statistical, while the kernel and its plain version here are bit-equal.
 
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 
 _MASK32 = 0xFFFFFFFF
@@ -47,9 +49,11 @@ def _mulhilo(a: int, b: torch.Tensor):
 
 
 def philox4x32(c0: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
-               c3: torch.Tensor, key0: int, key1: int = 0):
+               c3: torch.Tensor, key0: Union[int, torch.Tensor],
+               key1: int = 0):
     """Philox4x32-10 of the counters (c0, c1, c2, c3), int64 tensors in
-    [0, 2^32), under key (key0, key1): four int64 tensors of uint32 values."""
+    [0, 2^32), under key (key0, key1): four int64 tensors of uint32 values.
+    key0 may be an int64 scalar tensor (a seed read on the device)."""
     k0, k1 = key0 & _MASK32, key1 & _MASK32
     for _ in range(PHILOX_ROUNDS):
         hi0, lo0 = _mulhilo(PHILOX_M0, c0)
@@ -59,12 +63,17 @@ def philox4x32(c0: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
     return c0, c1, c2, c3
 
 
-def philox_bits(seed: int, n: int, device="cpu") -> torch.Tensor:
+def philox_bits(seed: Union[int, torch.Tensor], n: int,
+                device="cpu") -> torch.Tensor:
     """The first n words of seed's stream: int64 [n] of uint32 values, word
-    e being output word e % 4 of counter e // 4 (see the module docstring)."""
+    e being output word e % 4 of counter e // 4 (see the module docstring).
+    seed: an int, or a one-element integer tensor on `device` (the train
+    step's seed, computed on the device from its step counter)."""
     blocks = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
     zero = torch.zeros_like(blocks)
-    words = philox4x32(blocks & _MASK32, blocks >> 32, zero, zero, int(seed))
+    key = (seed.reshape(()).to(torch.int64) if isinstance(seed, torch.Tensor)
+           else int(seed))
+    words = philox4x32(blocks & _MASK32, blocks >> 32, zero, zero, key)
     return torch.stack(words, dim=1).reshape(-1)[:n]
 
 

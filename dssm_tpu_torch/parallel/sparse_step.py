@@ -189,7 +189,8 @@ def make_parallel_sparse_train_step(cfg: RunConfig, mesh,
         if scale is not None:
             tp[f"{table_key}_scale"] = scale
         return TrainState(step=state.step + 1, params={"shared": tp},
-                          opt_state=new_opt), aux
+                          opt_state=new_opt,
+                          host_step=state.host_step + 1), aux
 
     def side_step(state: TrainState, batch: Batch):
         params = state.params
@@ -226,7 +227,8 @@ def make_parallel_sparse_train_step(cfg: RunConfig, mesh,
                     tp[f"{table_key}_scale"] = scale
                 new_params[tower] = tp
         return TrainState(step=state.step + 1, params=new_params,
-                          opt_state=new_opt), aux
+                          opt_state=new_opt,
+                          host_step=state.host_step + 1), aux
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict]:
         if "uniq" in batch:

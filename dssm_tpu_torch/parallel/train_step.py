@@ -157,7 +157,8 @@ def _make_dense_parallel_step(cfg: RunConfig, mesh,
                                                 state.opt_state)
             new_params = apply_updates(state.params, updates)
         return TrainState(step=state.step + 1, params=new_params,
-                          opt_state=new_opt), aux
+                          opt_state=new_opt,
+                          host_step=state.host_step + 1), aux
 
     return step
 

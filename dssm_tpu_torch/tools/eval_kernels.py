@@ -724,18 +724,22 @@ def scatter_cases(dev, rng, libs):
                 + torch.arange(grp, device=dev)).reshape(-1)
         work = tbl.clone()
         finished = work[rows].clone()
+        # The seeds on the card, as the train step passes them (an int
+        # seed is a synchronising copy, which a graph capture refuses).
+        s5, s12345 = (torch.tensor([s], dtype=torch.int32, device=dev)
+                      for s in (5, 12345))
         bound, by, by_bytes, by_issue = sr_bound_us(
             per_element[name], int(real.sum()), slots, grp * h,
             tbl.element_size(), sms, clock)
         return (f"{name} {what}",
-                lambda: fn(tbl.clone(), gids, vals, grp, 12345,
+                lambda: fn(tbl.clone(), gids, vals, grp, s12345,
                            impl="kernel"),
-                lambda: plain(tbl.clone(), gids, vals, grp, 12345),
+                lambda: plain(tbl.clone(), gids, vals, grp, s12345),
                 lambda got, want: bool(torch.equal(got, want)), 20,
-                {"plain": lambda: plain(work, gids, vals, grp, 5),
+                {"plain": lambda: plain(work, gids, vals, grp, s5),
                  "index_copy_floor": lambda: work.index_copy_(0, rows,
                                                               finished)},
-                {"timed": lambda: fn(work, gids, vals, grp, 5,
+                {"timed": lambda: fn(work, gids, vals, grp, s5,
                                      impl="kernel"),
                  "eager": ("plain",), "bound_us": round(bound, 3),
                  "bound_by": by, "bytes_us": round(by_bytes, 3),

@@ -157,7 +157,7 @@ def parity(spec_path: str, out_path: str, device) -> None:
                     for k, v in tp.items():
                         out[f"{name}/params/{tower}/{k}"] = v
             if state.opt_state.get("count") is not None:
-                out[f"{name}/count"] = np.asarray(state.opt_state["count"])
+                out[f"{name}/count"] = np.asarray(int(state.opt_state["count"]))
             # This rank's state is its cut of the whole one.
             cut = shard_tree(whole, mesh)
             if not all(torch.equal(cut[t][k], state.params[t][k])

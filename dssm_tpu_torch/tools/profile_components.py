@@ -22,7 +22,8 @@ on an f32 and on a bf16 table (one of them with the argument):
   - + backward: the dense gradients and the joint lookup backward;
   - scatter: the compact gradient into the table (scatter-add on f32,
     stochastic rounding on bf16), on a copy of the table;
-  - whole step: make_train_step's step, the table updated in place.
+  - whole step: make_train_step's step (on the card one replay of its
+    CUDA graph, train/compiled.py), the state updated in place.
 
 Two library routes follow, labelled as not the port's path: the joint and
 the count lookups as count matrices built in the call and multiplied
@@ -168,6 +169,7 @@ def profile_table(cfg, tag: str, device, iters: int, warmup: int,
         (np.random.default_rng(0).normal(size=(c0.shape[0], h)) * 1e-4)
         .astype(np.float32)).to(device)
     vals[n_real * group:] = 0.0
+    seed = torch.ones(1, dtype=torch.int32, device=device)
     step_fn = make_train_step(cfg)
     state = [create_run_state(cfg, params)]
 
@@ -214,7 +216,7 @@ def profile_table(cfg, tag: str, device, iters: int, warmup: int,
     @torch.no_grad()
     def s_scatter():
         if work.dtype == torch.bfloat16:
-            return scatter_sr_row_groups(work, uniq, vals, group, 1)
+            return scatter_sr_row_groups(work, uniq, vals, group, seed)
         return scatter_add_row_groups(work, uniq, vals, group)
 
     def s_step():

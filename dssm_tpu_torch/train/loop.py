@@ -5,16 +5,21 @@ make_train_step routes a config to its step: the sparse-table-update step
 with train.sparse_embed_update, else the dense-table step, which
 differentiates the whole parameter tree, table included, and runs the dense
 optimizer over all of it (momentum's trace and adam's moments cover the
-table). train drives a step over a stream of numpy batches, moving each to
-the parameters' device.
+table). Both are compiled (train/compiled.py): on a CUDA state the step is
+a replayed CUDA graph over the state's own tensors, updated in place, as
+dssm_tpu's jitted step donates its state; on a CPU state the same body runs
+eagerly. make_eager_train_step is the body run eagerly on any device (the
+reference the compiled step is held to). train drives a step over a stream
+of numpy batches, moving each to the parameters' device.
 
 train.steps_per_call = K > 1 dispatches blocks of K steps:
 make_multi_train_step takes a batch whose every field has a leading [K]
-axis (stack_batches) and runs the step K times on views of it, returning
-the aux values stacked [K]. dssm_tpu compiles the K steps into one
-executable with lax.scan; PyTorch runs them eagerly, so a block is the same
-K steps in a Python loop, with the same results. train runs full blocks
-while K steps remain, then single steps, and reports a block's last step.
+axis (stack_batches) and runs the step body K times on views of it,
+returning the aux values stacked [K]. dssm_tpu compiles the K steps into
+one executable with lax.scan; on the card the port captures them into one
+CUDA graph of K bodies, one replay a block, with the same results as K
+single steps. train runs full blocks while K steps remain, then single
+steps, and reports a block's last step.
 Counterpart of dssm_tpu/train/loop.py.
 """
 
@@ -27,13 +32,14 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from dssm_tpu_torch.bridge import batch_to_torch
+from dssm_tpu_torch.bridge import batch_to_device
 from dssm_tpu_torch.config import RunConfig
 from dssm_tpu_torch.models import base as model_base
+from dssm_tpu_torch.train.compiled import CompiledStep, eager_step
 from dssm_tpu_torch.train.sparse_update import (
-    default_loss, make_sparse_train_step, uses_sparse_update)
+    default_loss, make_sparse_train_step_body, uses_sparse_update)
 from dssm_tpu_torch.train.state import (
-    TrainState, apply_updates, check_dense_table, optimizer_update)
+    TrainState, check_dense_table, optimizer_step_)
 
 
 def rotation_offsets(batch_size: int, num_negatives: int,
@@ -66,8 +72,12 @@ def make_loss_fn(cfg: RunConfig, impl: str = "auto",
 
     def loss_fn(params, batch):
         if cfg.train.remat:
-            q = checkpoint(embed, params, "q", batch, use_reentrant=False)
-            d = checkpoint(embed, params, "d", batch, use_reentrant=False)
+            # No random op runs in a tower, so no RNG state to keep (and a
+            # CUDA generator's state cannot be read under graph capture).
+            q = checkpoint(embed, params, "q", batch, use_reentrant=False,
+                           preserve_rng_state=False)
+            d = checkpoint(embed, params, "d", batch, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             q, d = embed(params, "q", batch), embed(params, "d", batch)
         return loss_of(q, d, batch)
@@ -75,16 +85,19 @@ def make_loss_fn(cfg: RunConfig, impl: str = "auto",
     return loss_fn
 
 
-def make_dense_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
-    """(state, batch) -> (state, aux): one step of the dense optimizer over
-    the whole parameter tree. The batch is a raw-index batch on the
-    parameters' device (bridge.batch_to_torch), as cli.train builds it off
-    the sparse path; the table must be f32. The table's gradient is the
-    embedding bag's d_table, a dense [V, H] f32 segment sum."""
+def make_dense_train_step_body(cfg: RunConfig, impl: str = "auto"
+                               ) -> Callable:
+    """(state, batch) -> aux: one step of the dense optimizer over the whole
+    parameter tree, IN PLACE (the table, the dense parameters, the
+    optimizer state over both and the step counter). The batch is a
+    raw-index batch on the parameters' device (bridge.batch_to_torch), as
+    cli.train builds it off the sparse path; the table must be f32. The
+    table's gradient is the embedding bag's d_table, a dense [V, H] f32
+    segment sum."""
     table_key = model_base.TABLE_KEY[cfg.tower.arch]
     loss_fn = make_loss_fn(cfg, impl)
 
-    def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+    def body(state: TrainState, batch: Dict) -> Dict:
         if "uniq" in batch or "q_uniq" in batch:
             raise ValueError(
                 "the dense-table step takes raw-index batches: dedupe "
@@ -99,32 +112,46 @@ def make_dense_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
         grads = {tower: {k: next(it) for k in tp}
                  for tower, tp in params.items()}
         with torch.no_grad():
-            updates, new_opt = optimizer_update(cfg.train, grads,
-                                                state.opt_state)
-            new_params = apply_updates(state.params, updates)
-        return TrainState(step=state.step + 1, params=new_params,
-                          opt_state=new_opt), aux
+            optimizer_step_(cfg.train, state.params, grads, state.opt_state)
+            state.step.add_(1)
+        return aux
 
-    return step
+    return body
 
 
-def make_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
-    """(state, batch) -> (state, aux). SGD (or the AdaGrad table optimizer)
-    with sparse_embed_update, the default, is the sparse-table-update step;
-    the rest is the dense-table step."""
+def make_train_step_body(cfg: RunConfig, impl: str = "auto") -> Callable:
+    """(state, batch) -> aux, in place: SGD (or the AdaGrad table
+    optimizer) with sparse_embed_update, the default, is the
+    sparse-table-update step's body; the rest is the dense-table step's."""
     if uses_sparse_update(cfg):
-        return make_sparse_train_step(cfg, impl)
-    return make_dense_train_step(cfg, impl)
+        return make_sparse_train_step_body(cfg, impl)
+    return make_dense_train_step_body(cfg, impl)
 
 
-def make_multi_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
-    """(state, stacked batch) -> (state, aux stacked [K]): the step K times
-    over the [K, ...] fields of a stacked batch on the parameters' device,
-    step j on the views [j] of every field. The same K steps as K calls of
-    make_train_step's step, state threaded through (a bf16 or int8 table's
-    scatter seeds come from each step's own state.step, as in dssm_tpu's
-    scan)."""
-    return repeat_step(make_train_step(cfg, impl))
+def make_train_step(cfg: RunConfig, impl: str = "auto") -> CompiledStep:
+    """(state, batch) -> (state, aux): the config's step, compiled
+    (train/compiled.py): a replayed CUDA graph on a CUDA state, eager on a
+    CPU state; the state is updated in place and returned. batch: a
+    bridge.WireBatch or fields on the state's device."""
+    return CompiledStep(make_train_step_body(cfg, impl))
+
+
+def make_multi_train_step(cfg: RunConfig, impl: str = "auto"
+                          ) -> CompiledStep:
+    """(state, stacked batch) -> (state, aux stacked [K]): the step body K
+    times over the [K, ...] fields of a stacked batch, step j on the views
+    [j] of every field, compiled as one CUDA graph of K bodies on a CUDA
+    state (dssm_tpu's lax.scan). The same K steps as K calls of
+    make_train_step's step (a bf16 or int8 table's scatter seeds come from
+    each body's own device step counter, as in dssm_tpu's scan)."""
+    return CompiledStep(make_train_step_body(cfg, impl), multi=True)
+
+
+def make_eager_train_step(cfg: RunConfig, impl: str = "auto",
+                          multi: bool = False) -> Callable:
+    """make_train_step's (or, with multi, make_multi_train_step's) body run
+    eagerly on any device: what the compiled step is held to."""
+    return eager_step(make_train_step_body(cfg, impl), multi)
 
 
 def repeat_step(step_fn: Callable) -> Callable:
@@ -205,7 +232,7 @@ def train(
                     for j in range(k))
                 t0 = time.perf_counter()
                 state, auxes = multi_fn(
-                    state, batch_to_torch(stacked, dev, vocab_size=rows))
+                    state, batch_to_device(stacked, dev, vocab_size=rows))
                 if metrics_cb is not None and (i % cfg.train.log_every < k):
                     aux = {key: float(v[-1]) for key, v in auxes.items()}
                     aux["step_ms"] = (time.perf_counter() - t0) * 1e3 / k
@@ -214,15 +241,15 @@ def train(
             else:
                 batch = add_rotation_offsets(next(batches), cfg, i)
                 state, _ = single_fn(
-                    state, batch_to_torch(batch, dev, vocab_size=rows))
+                    state, batch_to_device(batch, dev, vocab_size=rows))
                 i += 1
         return state
     step_fn = make_train_step(cfg)
     for i in range(num_steps):
         batch = add_rotation_offsets(next(batches), cfg, i)
         t0 = time.perf_counter()
-        state, aux = step_fn(state, batch_to_torch(batch, dev,
-                                                   vocab_size=rows))
+        state, aux = step_fn(state, batch_to_device(batch, dev,
+                                                    vocab_size=rows))
         if metrics_cb is not None and (i % cfg.train.log_every == 0):
             aux = {k: float(v) for k, v in aux.items()}  # waits for the step
             aux["step_ms"] = (time.perf_counter() - t0) * 1e3

@@ -35,12 +35,18 @@ reference forms it; only then is the update widened to f32 for the scatter.
 An int8 table's compact block is dequantized to f32 against the per-row
 scale parameter `<table>_scale`, which passes through the step unchanged.
 The scatters' random streams are seeded with step * 4 (+ the scatter's
-index within the step).
+index within the step), computed on the device from the step counter.
+
+The step body updates the whole state in place (the table always was; the
+dense parameters, the optimizer state and the step counter too), as
+dssm_tpu's donated state is updated, and reads nothing back to the host;
+make_sparse_train_step compiles it (train/compiled.py: a replayed CUDA
+graph on the card, the body run eagerly on the CPU). Every kernel of it is
+a hand-written CUDA kernel on CUDA tensors and its plain version on CPU
+tensors.
 
 Mathematically identical to dense SGD (modulo float summation order).
-Counterpart of dssm_tpu/train/sparse_update.py for one device; the step is
-eager PyTorch, every kernel of it a hand-written CUDA kernel on CUDA tensors
-and its plain version on CPU tensors.
+Counterpart of dssm_tpu/train/sparse_update.py for one device.
 """
 
 from __future__ import annotations
@@ -61,8 +67,8 @@ from dssm_tpu_torch.kernels.scatter_sr import (
 from dssm_tpu_torch.loss.cosine_softmax import in_batch_loss, rotate_loss
 from dssm_tpu_torch.models import base as model_base
 from dssm_tpu_torch.models.base import TABLE_KEY, torch_dtype
-from dssm_tpu_torch.train.state import (
-    TrainState, apply_updates, optimizer_update)
+from dssm_tpu_torch.train.compiled import CompiledStep
+from dssm_tpu_torch.train.state import TrainState, optimizer_step_
 
 Batch = Dict[str, torch.Tensor]
 
@@ -261,11 +267,21 @@ def joint_fields(batch: Batch, row_sel: torch.Tensor) -> Tuple:
             batch["d_wgt"].float().contiguous())
 
 
-def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
-    """(state, batch) -> (state, aux): one SGD step with sparse table
-    updates. The batch is on the parameters' device (bridge.batch_to_torch).
-    The table is updated in place: the returned state holds the same table
-    tensor as the state passed in."""
+def scatter_seed(step: torch.Tensor, scatter_ix: int) -> torch.Tensor:
+    """The stochastic-rounding seed of a step's scatter_ix-th table scatter,
+    step * 4 + scatter_ix as dssm_tpu forms it, an int32 computed on the
+    device from the step counter (a graph replay reads its own)."""
+    return step * 4 + scatter_ix
+
+
+def make_sparse_train_step_body(cfg: RunConfig, impl: str = "auto"
+                                ) -> Callable:
+    """(state, batch) -> aux: one SGD step with sparse table updates, IN
+    PLACE: the table, the dense parameters, the optimizer state and the
+    step counter take their new values in the tensors they live in, and
+    nothing is read back to the host. The batch's fields are on the
+    parameters' device (bridge.batch_to_torch). train/compiled.py captures
+    it; on the CPU it runs eagerly."""
     table_key = TABLE_KEY[cfg.tower.arch]
     compute_dtype = torch_dtype(cfg.tower.compute_dtype)
     loss_of = default_loss(cfg, impl)
@@ -284,7 +300,7 @@ def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
         return loss_from_lookups(dense, lq.to(compute_dtype),
                                  ld.to(compute_dtype), batch)
 
-    def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict]:
+    def body(state: TrainState, batch: Batch) -> Dict:
         params = state.params
         dense = _dense_subtree(params, table_key)
 
@@ -315,22 +331,16 @@ def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
                                    g_ld.contiguous(), c.shape[0],
                                    impl=impl).to(c.dtype)
             with torch.no_grad():
-                updates, new_opt = optimizer_update(cfg.train, g_dense,
-                                                    state.opt_state)
-                new_dense = apply_updates(dense, updates)
+                optimizer_step_(cfg.train, dense, g_dense, state.opt_state)
                 vals = table_update_vals(cfg, g_c, c)
-                table = apply_table_update(
-                    table, batch["uniq"], vals, state.step * 4, scale,
-                    cfg.train.table_stochastic_round, impl)
-            tp = dict(new_dense["shared"])
-            tp[table_key] = table
-            if scale is not None:
-                tp[f"{table_key}_scale"] = scale
-            return TrainState(step=state.step + 1, params={"shared": tp},
-                              opt_state=new_opt), aux
+                apply_table_update(
+                    table, batch["uniq"], vals, scatter_seed(state.step, 0),
+                    scale, cfg.train.table_stochastic_round, impl)
+                state.step.add_(1)
+            return aux
 
         if "q_uniq" not in batch:
-            return raw_step(state, batch)
+            return raw_body(state, batch)
 
         # Per-side dedupe: differentiate at each side's compact block; the
         # table update is then a U-row scatter per side.
@@ -350,13 +360,9 @@ def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
         aux, g_dense, (g_cq, g_cd) = grads_of(loss_from_compacts, dense,
                                               [cq, cd], batch)
         with torch.no_grad():
-            updates, new_opt = optimizer_update(cfg.train, g_dense,
-                                                state.opt_state)
-            new_dense = apply_updates(dense, updates)
-            new_params = {}
+            optimizer_step_(cfg.train, dense, g_dense, state.opt_state)
             scatter_ix = 0  # the scatter's seed offset within the step
             for tower in params:
-                tp = dict(new_dense[tower])
                 table = params[tower][table_key]
                 scale = params[tower].get(f"{table_key}_scale")
                 sides = {"shared": ("q", "d"), "query": ("q",),
@@ -364,19 +370,15 @@ def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
                 for side in sides:
                     g_c, compact = (g_cq, cq) if side == "q" else (g_cd, cd)
                     vals = table_update_vals(cfg, g_c, compact)
-                    table = apply_table_update(
+                    apply_table_update(
                         table, batch[f"{side}_uniq"], vals,
-                        state.step * 4 + scatter_ix, scale,
+                        scatter_seed(state.step, scatter_ix), scale,
                         cfg.train.table_stochastic_round, impl)
                     scatter_ix += 1
-                tp[table_key] = table
-                if scale is not None:
-                    tp[f"{table_key}_scale"] = scale
-                new_params[tower] = tp
-        return TrainState(step=state.step + 1, params=new_params,
-                          opt_state=new_opt), aux
+            state.step.add_(1)
+        return aux
 
-    def raw_step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict]:
+    def raw_body(state: TrainState, batch: Batch) -> Dict:
         # Raw indices: the lookups are the differentiation boundary; each
         # side's table update is a B*K-row index_add_.
         if cfg.train.table_optimizer == "adagrad":
@@ -392,21 +394,23 @@ def make_sparse_train_step(cfg: RunConfig, impl: str = "auto") -> Callable:
                                               [lq, ld], batch)
         lr = cfg.train.learning_rate
         with torch.no_grad():
-            updates, new_opt = optimizer_update(cfg.train, g_dense,
-                                                state.opt_state)
-            new_dense = apply_updates(dense, updates)
-            new_params = {}
+            optimizer_step_(cfg.train, dense, g_dense, state.opt_state)
             for tower in params:
-                tp = dict(new_dense[tower])
                 table = params[tower][table_key]
                 sides = {"shared": "qd", "query": "q", "doc": "d"}[tower]
                 for side in sides:
-                    table = scatter_table_update(
+                    scatter_table_update(
                         table, batch[f"{side}_idx"], batch[f"{side}_wgt"],
                         g_lq if side == "q" else g_ld, lr)
-                tp[table_key] = table
-                new_params[tower] = tp
-        return TrainState(step=state.step + 1, params=new_params,
-                          opt_state=new_opt), aux
+            state.step.add_(1)
+        return aux
 
-    return step
+    return body
+
+
+def make_sparse_train_step(cfg: RunConfig, impl: str = "auto"
+                           ) -> CompiledStep:
+    """(state, batch) -> (state, aux): the sparse step, compiled
+    (train/compiled.py: a replayed CUDA graph on a CUDA state, eager on a
+    CPU state); the state is updated in place and returned."""
+    return CompiledStep(make_sparse_train_step_body(cfg, impl))

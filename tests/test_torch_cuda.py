@@ -34,7 +34,8 @@ import numpy as np
 import pytest
 import torch
 
-from dssm_tpu_torch.bridge import batch_to_torch, check_raw_rows
+from dssm_tpu_torch.bridge import (
+    batch_to_device, batch_to_torch, check_raw_rows)
 from dssm_tpu_torch.config import (
     DataConfig, LossConfig, RunConfig, TowerConfig, TrainConfig, validate)
 from dssm_tpu_torch.data.dedupe import SKIP_SENTINEL_GID
@@ -65,9 +66,10 @@ from dssm_tpu_torch.kernels.tower import (
 from dssm_tpu_torch.models import base as model_base
 from dssm_tpu_torch.serve import build_doc_index
 from dssm_tpu_torch.train.eval import evaluate
+from dssm_tpu_torch.train.compiled import CompiledStep, state_tensors
 from dssm_tpu_torch.train.loop import (
-    add_rotation_offsets, make_multi_train_step, make_train_step,
-    stack_batches)
+    add_rotation_offsets, make_eager_train_step, make_multi_train_step,
+    make_train_step, stack_batches)
 from dssm_tpu_torch.train.sparse_update import (
     logical_table_width, uses_sparse_update)
 from dssm_tpu_torch.train.state import create_run_state
@@ -80,6 +82,15 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU and nvcc (the kernels run only there)")
     return torch.device("cuda")
+
+
+def _step(cfg, impl):
+    """The step a kernels-against-plain test runs: through the kernels the
+    compiled step (a replayed CUDA graph); through the plain versions the
+    body run eagerly (they read values back, which a capture refuses)."""
+    if impl == "plain":
+        return make_eager_train_step(cfg, impl)
+    return make_train_step(cfg, impl)
 
 
 def _ragged(rng, rows, k, u2):
@@ -753,7 +764,7 @@ def test_train_steps_kernels_match_plain(dev, shared):
     losses = {}
     _build.reset_launch_counts()
     for impl in states:
-        step = make_train_step(cfg, impl)
+        step = _step(cfg, impl)
         losses[impl] = []
         for batch in batches:
             states[impl], aux = step(states[impl], batch)
@@ -928,7 +939,7 @@ def test_low_precision_train_and_eval_kernels_match_plain(dev, table_dtype):
     losses = {}
     _build.reset_launch_counts()
     for impl in states:
-        step = make_train_step(cfg, impl)
+        step = _step(cfg, impl)
         losses[impl] = []
         for batch in batches:
             states[impl], aux = step(states[impl], batch)
@@ -1256,7 +1267,7 @@ def test_sequence_and_raw_train_steps_kernels_match_plain(dev, arch, dedup):
     losses = {}
     _build.reset_launch_counts()
     for impl in states:
-        step = make_train_step(cfg, impl)
+        step = _step(cfg, impl)
         losses[impl] = []
         for batch in batches:
             states[impl], aux = step(states[impl], batch)
@@ -1317,6 +1328,8 @@ def _launches_per_step(cfg):
     sides = 1 if t.shared_weights else 2  # the shared mlp stacks its sides
     if t.arch == "mlp":
         out["dense_tower_residuals"] = sides
+    if not cfg.data.dedup_lookup:  # the raw branch: index_add_ updates
+        return {"embedding_bag": 2, **out}
     out[{"float32": "scatter_add_row_groups",
          "bfloat16": "scatter_sr_row_groups",
          "int8": "scatter_sr_int8_row_groups"}[t.table_dtype_resolved]] = sides
@@ -1355,7 +1368,7 @@ def test_train_configs_kernels_match_plain(dev, name):
         state = create_run_state(cfg, {tw: {k: v.clone() for k, v in
                                             tp.items()}
                                        for tw, tp in init.items()})
-        step = make_train_step(cfg, impl)
+        step = _step(cfg, impl)
         _build.reset_launch_counts()
         losses[impl] = []
         for batch in batches:
@@ -1459,20 +1472,31 @@ def test_train_step_reads_nothing_back(dev, kind):
     before it) under torch.cuda.set_sync_debug_mode("error"): a
     synchronising call raises. The range check of a raw batch runs on the
     host, on the numpy batch, so the dense and the raw sparse step wait for
-    the card nowhere; so does the joint step."""
-    cfg, batches = _step_case(dev, kind, 2)
-    state = create_run_state(cfg, model_base.init_params(
-        cfg.tower, seed=0, device=dev))
-    step = make_train_step(cfg, "auto")
-    state, _ = step(state, batch_to_torch(batches[0], dev, vocab_size=V))
-    torch.cuda.synchronize()  # warm: the kernel library, cuBLAS handles
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        state, aux = step(state, batch_to_torch(batches[1], dev,
-                                                vocab_size=V))
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    assert np.isfinite(float(aux["loss"])) and state.step == 2
+    the card nowhere; so does the joint step. Both the compiled step's
+    replay (its batch as a wire block, and as widened fields packed into
+    one) and the body run eagerly."""
+    cfg, batches = _step_case(dev, kind, 3)
+    init = model_base.init_params(cfg.tower, seed=0, device=dev)
+    for step in (make_train_step(cfg, "auto"),
+                 make_eager_train_step(cfg, "auto")):
+        state = create_run_state(cfg, {t: {k: v.clone() for k, v in
+                                           tp.items()}
+                                       for t, tp in init.items()})
+        # The first call warms (the kernel library, cuBLAS handles) and,
+        # compiled, captures.
+        state, _ = step(state, batch_to_device(batches[0], dev,
+                                               vocab_size=V))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, aux = step(state, batch_to_device(batches[1], dev,
+                                                     vocab_size=V))
+            state, aux = step(state, batch_to_torch(batches[2], dev,
+                                                    vocab_size=V))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert np.isfinite(float(aux["loss"])) and state.step == 3
+        assert state.host_step == 3
 
 
 @pytest.mark.cuda
@@ -1519,7 +1543,7 @@ def test_dense_step_kernels_match_plain(dev):
         cfg.tower, seed=0, device=dev)) for impl in ("auto", "plain")}
     losses = {}
     for impl in states:
-        step = make_train_step(cfg, impl)
+        step = _step(cfg, impl)
         _build.reset_launch_counts()
         losses[impl] = []
         for batch in batches:
@@ -1673,3 +1697,180 @@ def test_parallel_step_on_nccl_group_of_one_bit_equal(dev, kind):
                     assert torch.equal(v, b.params[tower][k]), (tower, k)
     finally:
         pdist.shutdown()
+
+
+# ---- the compiled step (train/compiled.py) --------------------------------
+
+def _compiled_case(dev, name, n):
+    """(config, numpy batches) of a compiled-step case: _train_config's
+    small configs, or _step_case's dense-table steps (with train.remat:
+    each side's embed recomputed in the backward, which the capture
+    records too)."""
+    if name.startswith("dense"):
+        cfg, batches = _step_case(dev, "dense_adam" if name == "dense_adam"
+                                  else "dense", n)
+        if name == "dense_remat":
+            cfg = cfg.replace(train=cfg.train.replace(remat=True))
+        return cfg, batches
+    cfg, _, batches = _train_config(**COMPILED_CASES[name], n=n)
+    return cfg, batches
+
+
+# Each branch the compiled step captures, as _train_config's arguments
+# (and the dense-table step with sgd and adam, _step_case's).
+COMPILED_CASES = {
+    "f32_joint": dict(), "bf16_joint": dict(table_dtype="bfloat16"),
+    "int8_joint": dict(table_dtype="int8"), "per_side": dict(shared=False),
+    "adagrad_adam": dict(optimizer="adam", table_optimizer="adagrad"),
+    "cnn_dedupe": dict(arch="cnn"), "cnn_raw": dict(arch="cnn", dedup=False),
+    "lstm_dedupe": dict(arch="lstm"),
+    "lstm_raw": dict(arch="lstm", dedup=False),
+    "dense_sgd": None, "dense_adam": None, "dense_remat": None}
+# Branches whose table update ends in index_add_'s float atomics.
+ATOMICS = ("cnn_raw", "lstm_raw", "dense_sgd", "dense_adam", "dense_remat")
+
+
+def _fresh_state(cfg, init):
+    return create_run_state(cfg, {t: {k: v.clone() for k, v in tp.items()}
+                                  for t, tp in init.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(COMPILED_CASES))
+def test_compiled_step_matches_eager(dev, name):
+    """Four calls of the compiled step (a capture, then replays; calls 2
+    and 3 on one batch) against four eager steps from one state: each
+    step's state bit-equal (the raw branch and the dense step, whose
+    index_add_ adds with atomics: 2e-3, as the kernels-against-plain
+    tests), the aux of every call intact after the later replays, the
+    launches of every kernel equal and as the step's code makes them; on a
+    bf16 or int8 table the two replays on one batch draw their own steps'
+    stochastic-rounding streams (a stream baked into the graph would
+    repeat the captured step's and part from the eager run)."""
+    cfg, batches_np = _compiled_case(dev, name, 3)
+    order = [0, 1, 1, 2]
+    init = model_base.init_params(cfg.tower, seed=0, device=dev)
+    runs = {}
+    for kind, step in (("compiled", make_train_step(cfg)),
+                       ("eager", make_eager_train_step(cfg))):
+        state = _fresh_state(cfg, init)
+        _build.reset_launch_counts()
+        auxes, states = [], []
+        for i in order:
+            state, aux = step(state, batch_to_device(batches_np[i], dev,
+                                                     vocab_size=V))
+            auxes.append(aux)
+            states.append([t.clone() for t in state_tensors(state)])
+        torch.cuda.synchronize()
+        runs[kind] = (_build.launch_counts(), auxes, states, state)
+        if kind == "compiled":
+            assert step.num_graphs == 1
+    (c_counts, c_aux, c_states, c_state), (e_counts, e_aux, e_states, _) = (
+        runs["compiled"], runs["eager"])
+    assert c_counts == e_counts
+    if not cfg.train.remat:  # remat runs each side's forward kernels twice
+        assert {k: v for k, v in c_counts.items() if v} == {
+            k: 4 * n for k, n in _launches_per_step(cfg).items()}
+    assert int(c_state.step) == c_state.host_step == 4
+    for i, (ca, ea, cs, es) in enumerate(zip(c_aux, e_aux, c_states,
+                                             e_states)):
+        for k in ea:
+            if name in ATOMICS:
+                assert abs(float(ca[k]) - float(ea[k])) <= 1e-2, (i, k)
+            else:
+                assert torch.equal(ca[k], ea[k]), (i, k)
+        for c, e in zip(cs, es, strict=True):
+            if name in ATOMICS:
+                torch.testing.assert_close(c, e, rtol=0, atol=2e-3)
+            else:
+                assert torch.equal(c, e), i
+
+
+@pytest.mark.cuda
+def test_compiled_step_recaptures_per_signature_and_state(dev):
+    """One compiled step: a new batch signature (another dedupe width)
+    captures a second graph, another state a third; a replay on the first
+    state and signature reuses the first graph; every call equals the
+    eager step from the same states, and an earlier call's aux stays what
+    it was through the later replays."""
+    cfg, hashed, batches = _train_config(n=3)
+    # The same model's batch at another dedupe width: other shapes.
+    wider = next(batch_iterator(hashed, 128, seed=5, dedup_unique=2048,
+                                dedup_unique_rows=256, dedup_joint=True,
+                                wire_compress=True, sort_rows=True))
+    init = model_base.init_params(cfg.tower, seed=0, device=dev)
+    calls = [("a", batches[0]), ("a", batches[1]), ("a", wider),
+             ("b", batches[0]), ("a", batches[2])]
+    graphs_after = [1, 1, 2, 3, 3]
+    results = {}
+    for kind, step in (("compiled", make_train_step(cfg)),
+                       ("eager", make_eager_train_step(cfg))):
+        states = {s: _fresh_state(cfg, init) for s in "ab"}
+        out = []
+        for j, (s, b) in enumerate(calls):
+            states[s], aux = step(states[s], batch_to_device(b, dev))
+            out.append((aux, [t.clone() for t in state_tensors(states[s])]))
+            if kind == "compiled":
+                assert step.num_graphs == graphs_after[j], j
+        results[kind] = out
+    first_loss = results["compiled"][0][0]["loss"]
+    for (ca, cs), (ea, es) in zip(results["compiled"], results["eager"]):
+        assert torch.equal(ca["loss"], ea["loss"])
+        assert all(torch.equal(c, e) for c, e in zip(cs, es, strict=True))
+    assert torch.equal(first_loss, results["eager"][0][0]["loss"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", ["float32", "int8"])
+def test_compiled_k_steps_match_eager_k_steps(dev, table_dtype):
+    """K = 3 bodies in one graph (make_multi_train_step), called twice, and
+    the same six steps eagerly (3 a call): bit-equal states and stacked
+    aux; the launches of one replay are 3 steps' (one K-step graph)."""
+    cfg, batches = _step_case(dev, "joint", 6, table_dtype)
+    init = model_base.init_params(cfg.tower, seed=0, device=dev)
+    stacked = [stack_batches(batches[:3]), stack_batches(batches[3:])]
+    runs = {}
+    for kind, fn in (("compiled", make_multi_train_step(cfg)),
+                     ("eager", make_eager_train_step(cfg, multi=True))):
+        state = _fresh_state(cfg, init)
+        auxes = []
+        for j, sb in enumerate(stacked):
+            _build.reset_launch_counts()
+            state, aux = fn(state, batch_to_device(sb, dev))
+            auxes.append(aux)
+        torch.cuda.synchronize()
+        assert _build.launch_counts()["joint_lookup_bwd"] == 3
+        runs[kind] = (state, auxes)
+    (cs, ca), (es, ea) = runs["compiled"], runs["eager"]
+    assert int(cs.step) == cs.host_step == 6
+    for a, b in zip(ca, ea):
+        assert a["loss"].shape == (3,) and torch.equal(a["loss"], b["loss"])
+    for c, e in zip(state_tensors(cs), state_tensors(es), strict=True):
+        assert torch.equal(c, e)
+
+
+@pytest.mark.cuda
+def test_compiled_step_capture_failure_raises(dev):
+    """A body that reads a value back cannot be captured: the call raises
+    (after the warm-up, a real step, which moved the state), caches no
+    graph and does not give way to the eager body. Last in the file: a
+    failed capture is the one thing here that leaves CUDA's error
+    state to the next call."""
+    def body(state, batch):
+        scale = float(batch["x"].sum())  # a read-back: refused in capture
+        state.params["shared"]["w"].add_(batch["x"] * scale)
+        state.step.add_(1)
+        return {"loss": state.params["shared"]["w"].sum()}
+
+    from dssm_tpu_torch.train.state import TrainState
+
+    state = TrainState(step=0, params={"shared": {"w": torch.zeros(
+        4, device=dev)}}, opt_state={})
+    step = CompiledStep(body)
+    with pytest.raises(RuntimeError):
+        step(state, {"x": torch.ones(4, device=dev)})
+    assert step.num_graphs == 0
+    torch.cuda.synchronize()
+    assert int(state.step) == state.host_step == 1
+    assert torch.equal(state.params["shared"]["w"].cpu(),
+                       torch.full((4,), 4.0))

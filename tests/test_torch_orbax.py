@@ -183,7 +183,7 @@ def _torch_leaves(tree, path=""):
     if isinstance(tree, torch.Tensor):
         t = tree.detach().cpu().contiguous()
         return {path: (t.dtype, tuple(t.shape),
-                       t.view(torch.uint8).numpy().tobytes()
+                       t.reshape(-1).view(torch.uint8).numpy().tobytes()
                        if t.numel() else b"")}
     return {path: tree}
 
