@@ -134,6 +134,25 @@ intact; steps/s on batches made ahead, compiled and eager in turns
 traced busy and CUDA-event ms a step of both in a process of their own;
 and K_CALL steps a call (one replay) against one, bit-equal.
 
+Eval's and serving's dispatch (phase 6i): on the card an eval pass is one
+replay a K-batch block of a CUDA graph over the stacked wire blocks cached
+on the card, and one replay of the rank graph; serving embeds a batch a
+replay and runs every top-k chunk in one graph (train/compiled.py::
+CompiledForward). At the presets' widths from seeded fresh inits, compiled
+against eager from one state: `full` at the held-out split (K = 4) and at
+I_PAIRS pairs (K = 64), cnn and lstm on their dedupe and raw branches at
+the held-out split (K = 1) and on the dedupe branch at I_SEQ_PAIRS pairs
+(K = 64, a tail block padded to 64 batches) (embeddings and ranks
+bit-equal, metrics and launches equal; first and cached pass seconds,
+peak, pool and static-buffer GB); I_STEPS evals between in-place
+compiled steps replay one graph, new parameter tensors capture one more;
+traced busy ms of a cached pass of each mode in a process of its own
+(`python3 chip_smoke.py --trace-evals FILE`); an index of I_PAIRS titles
+(titles/s), the I_QUERIES-query latency (median of I_QUERY_REPS), top_k
+at I_PAIRS x I_PAIRS exact and approximate (ms, pool GB), all bit-equal
+to eager. Phase 7 checks that cli.train's periodic eval, cli.eval and
+cli.export capture and replay those graphs.
+
 The tooling (phase 7b): cli.train --preset=full with the profiler hook
 and TensorBoard (--io.profile_dir, --io.tensorboard=true, an eval every
 TOOL_EVAL steps) in a process of its own, its trace holding the card's
@@ -146,7 +165,9 @@ Every step through the kernels is the compiled step (its first call, a
 real step and the graph's capture, inside the timed runs of the earlier
 phases); the plain versions, and the traced steps of phases 4-6g but
 6c's (the loader's live feed, stepped as cli.train steps it), run the
-step body eagerly.
+step body eagerly. Likewise every eval pass and serving call through the
+kernels replays the compiled forward's graphs; the plain versions run
+eagerly.
 
 It checks that every kernel was launched by the path it belongs to. The
 next-to-last line is a JSON object with each kernel's numbers; the last
@@ -222,6 +243,15 @@ H_TRACED = 4           # then traced in a process of its own, after a warm step
 H_ATOMICS_TOL = 0.1    # index_add_'s atomics: compiled / eager update gap
 #                       (compare_training's limit for two sound runs: the
 #                       atomics' last bits tip bf16 roundings, step by step)
+I_PAIRS = 65536        # phase 6i: eval pairs (K = 64), index titles, top_k
+I_SEQ_PAIRS = 68000    # its cnn / lstm eval pairs: 67 batches, K = 64,
+#                       the second block 3 batches (the last one ragged)
+#                       padded to 64
+I_STEPS = 3            # compiled steps before the evals, and between them
+I_REPEATS = 3          # cached passes of each mode, in turns
+I_QUERIES = 64         # the query latency's queries
+I_QUERY_REPS = 21      # its repeats, each mode
+I_TOPK_REPS = 3        # top_k at I_PAIRS^2, each route and mode
 
 
 def check(ok: bool, msg: str) -> None:
@@ -322,6 +352,63 @@ def trace_steps(cases_path: str) -> int:
             else None,
             traced_wall_ms_per_step=wall * 1e3 / len(tb),
             event_ms_per_step=start.elapsed_time(stop) / len(tb),
+            device_busy_share_traced=busy / 1e6 / wall if busy else None)
+    print(json.dumps(out))
+    return 0
+
+
+def trace_evals(cases_path: str) -> int:
+    """`python3 chip_smoke.py --trace-evals FILE`, phase 6i's traced eval
+    passes in a process of their own: FILE holds [(name, config, hashed
+    corpus)]. The config's seeded fresh parameters are evaluated twice
+    compiled (train/eval.py: the forward and rank graphs captured, the
+    corpus's blocks cached) and twice eagerly; then, on a line "go" on
+    stdin, one cached pass of each corpus and mode is traced, the windows
+    back to back. Prints "ready" when the passes before the windows are
+    done, then one JSON line: {name: {mode: traced device busy ms, wall ms
+    and the busy share of the pass}}; busy null where a window recorded no
+    device event."""
+    import pickle
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dssm_tpu_torch.models import base as model_base
+    from dssm_tpu_torch.train import eval as eval_mod
+
+    with open(cases_path, "rb") as f:
+        cases = pickle.load(f)
+    dev = torch.device("cuda")
+    ready = []
+    for name, c, hashed in cases:
+        params = model_base.init_params(c.tower, seed=c.train.seed,
+                                        device=dev)
+        for mode in ("compiled", "eager"):
+            def run(params=params, c=c, hashed=hashed, mode=mode):
+                return eval_mod.evaluate(params, c, hashed,
+                                         c.train.batch_size, cache=True,
+                                         eager=mode == "eager")
+            run()
+            run()
+            ready.append((name, mode, run))
+    torch.cuda.synchronize()
+    print("ready", flush=True)  # the parent times nothing before this
+    if sys.stdin.readline().strip() != "go":
+        return 1
+    out = {}
+    for name, mode, run in ready:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = sum(float(getattr(e, "self_device_time_total", 0.0))
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        out.setdefault(name, {})[mode] = dict(
+            traced_device_busy_ms=busy / 1e3 if busy else None,
+            traced_wall_ms=wall * 1e3,
             device_busy_share_traced=busy / 1e6 / wall if busy else None)
     print(json.dumps(out))
     return 0
@@ -4574,6 +4661,334 @@ def main() -> int:
           f"{time.perf_counter() - t0_h:.1f} s")
     del h_batches
 
+    # ---- phase 6i: eval's and serving's dispatch --------------------------
+    # On the card an eval pass is one replay a K-batch block of the stacked
+    # forward's CUDA graph (train/eval.py::EMBED_STACKED, dssm_tpu's jitted
+    # lax.scan) over the blocks EvalCache keeps on the card, and one replay
+    # of the rank graph (RANK); serving embeds a batch a replay (EMBED) and
+    # runs every top-k chunk in one graph (serve/retrieval.py::TOPK). Here,
+    # at the presets' widths from seeded fresh inits: compiled against
+    # eager from one state (embeddings and ranks bit-equal, metrics equal,
+    # launches equal), for `full` at the held-out split (K = 4) and at
+    # I_PAIRS pairs (K = 64), then cnn and lstm on their dedupe and raw
+    # branches; first and cached pass seconds, peak and pool GB; one graph
+    # over in-place training steps, one more for new parameter tensors;
+    # traced busy ms in a process of its own; the index of I_PAIRS titles,
+    # the I_QUERIES-query latency and top_k at I_PAIRS x I_PAIRS, exact and
+    # approximate.
+    from dssm_tpu_torch.serve import retrieval as serve_mod
+
+    t0_i = time.perf_counter()
+    i_fwds = {"embed": eval_mod.EMBED, "embed_stacked": eval_mod.EMBED_STACKED,
+              "rank": eval_mod.RANK, "top_k": serve_mod.TOPK}
+
+    def i_drop_graphs():
+        for f_ in i_fwds.values():
+            f_.clear()
+
+    def i_tally():
+        return {n_: (f_.captures, f_.replays) for n_, f_ in i_fwds.items()}
+
+    def i_moved(before_):
+        """{forward: [captures, replays]} since the tally `before_`."""
+        return {n_: [c_ - before_[n_][0], r_ - before_[n_][1]]
+                for n_, (c_, r_) in i_tally().items()
+                if (c_, r_) != before_[n_]}
+
+    pairs_i = make_toy_pairs(I_PAIRS, cfg.data.toy_vocab_words,
+                             cfg.data.seed)
+    hashed_i = hash_pairs(pairs_i, t, cfg.data)
+    i_corpora = [("held-out split", hashed_eval), (f"{I_PAIRS} pairs",
+                                                   hashed_i)]
+    # cnn and lstm share vocab and data layout: one corpus serves both.
+    seq_big = hash_pairs(make_toy_pairs(I_SEQ_PAIRS, sc.data.toy_vocab_words,
+                                        sc.data.seed), sc.tower, sc.data)
+    with tempfile.NamedTemporaryFile(suffix=".pkl", delete=False) as f:
+        pickle.dump([(f"full, {n_}", cfg, h_) for n_, h_ in i_corpora]
+                    + [(f"{a_}, {I_SEQ_PAIRS} pairs", c_, seq_big)
+                       for a_, c_ in seq_cfg.items()], f)
+    i_trace_file = f.name
+    i_trace_err = tempfile.TemporaryFile(mode="w+")
+    i_tracer = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--trace-evals",
+         i_trace_file], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=i_trace_err, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def i_pass(params_, c_, hashed_, eager_, cache_=True):
+        """One timed evaluate: (metrics, stats, wall s, launches)."""
+        stats_ = {}
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t1_ = time.perf_counter()
+        m_ = eval_mod.evaluate(params_, c_, hashed_, c_.train.batch_size,
+                               cache=cache_, stats=stats_, eager=eager_)
+        torch.cuda.synchronize()
+        wall_ = time.perf_counter() - t1_
+        return m_, stats_, wall_, {k_: v_ for k_, v_ in
+                                   _build.launch_counts().items() if v_}
+
+    def i_compare(what_, params_, c_, hashed_):
+        """Compiled against eager from one state on one corpus: the first
+        pass (filling the cache; compiled: the captures) and I_REPEATS
+        cached passes of each mode in turns, then the embeddings and ranks
+        of both; returns the summary."""
+        bs_ = c_.train.batch_size
+        k_ = eval_mod._k_block(len(hashed_), bs_)
+        blocks_ = -(-len(hashed_) // (bs_ * k_))
+        per_mode, embs = {}, {}
+        for mode_ in ("compiled", "eager"):
+            eval_mod._EVAL_CACHES.clear()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            resident_ = torch.cuda.memory_allocated()
+            reserved_ = torch.cuda.memory_reserved()
+            torch.cuda.reset_peak_memory_stats()
+            tally_ = i_tally()
+            m_, first_, wall_, _ = i_pass(params_, c_, hashed_,
+                                          mode_ == "eager")
+            per_mode[mode_] = dict(
+                metrics=m_, first_pass=dict(wall_s=wall_, **first_),
+                first_pass_graphs=i_moved(tally_),
+                peak_above_resident_gb=(torch.cuda.max_memory_allocated()
+                                        - resident_) / 1e9,
+                reserved_after_gb=(torch.cuda.memory_reserved()
+                                   - reserved_) / 1e9,
+                pools_gb={n_: i_fwds[n_].pool_bytes / 1e9
+                          for n_ in ("embed_stacked", "rank")},
+                static_buffers_gb={n_: i_fwds[n_].buffer_bytes / 1e9
+                                   for n_ in ("embed_stacked", "rank")},
+                cached_s=[], launches=None)
+        for _ in range(I_REPEATS):
+            for mode_ in ("compiled", "eager"):
+                tally_ = i_tally()
+                m_, hot_, wall_, counts_ = i_pass(params_, c_, hashed_,
+                                                  mode_ == "eager")
+                r_ = per_mode[mode_]
+                check(m_ == r_["metrics"] and hot_["cache_hit"] == 1.0,
+                      f"{what_}, {mode_}: a cached pass gave {m_}, the "
+                      f"first {r_['metrics']}")
+                r_["cached_s"].append(dict(wall_s=wall_, **hot_))
+                r_["launches"] = counts_
+                if mode_ == "compiled":
+                    check(i_moved(tally_) == {
+                        "embed_stacked": [0, blocks_], "rank": [0, 1]},
+                        f"{what_}: a cached compiled pass made "
+                        f"{i_moved(tally_)} captures / replays, expected "
+                        f"{blocks_} replays of one graph and 1 rank replay")
+        check(per_mode["compiled"]["launches"]
+              == per_mode["eager"]["launches"],
+              f"{what_}: launches a pass {per_mode['compiled']['launches']} "
+              f"compiled, {per_mode['eager']['launches']} eager")
+        check(per_mode["compiled"]["metrics"] == per_mode["eager"]["metrics"],
+              f"{what_}: metrics {per_mode['compiled']['metrics']} compiled, "
+              f"{per_mode['eager']['metrics']} eager")
+        for mode_ in ("compiled", "eager"):
+            q_, d_ = eval_mod.embed_corpus(params_, c_, hashed_, bs_,
+                                           cache=True, eager=mode_ == "eager")
+            embs[mode_] = (q_, d_, eval_mod.compute_ranks(
+                q_, d_, eager=mode_ == "eager"))
+        (qc_, dc_, rc_), (qe_, de_, re_) = embs["compiled"], embs["eager"]
+        emb_gap = max(float((qc_ - qe_).abs().max()),
+                      float((dc_ - de_).abs().max()))
+        check(emb_gap == 0.0 and np.array_equal(rc_, re_),
+              f"{what_}: compiled and eager embeddings {emb_gap} apart, "
+              f"{int((rc_ != re_).sum())} ranks differ (bit-equal expected)")
+        for mode_, r_ in per_mode.items():
+            r_["cached_s"] = dict(
+                median_wall_s=statistics.median(x_["wall_s"]
+                                                for x_ in r_["cached_s"]),
+                min_wall_s=min(x_["wall_s"] for x_ in r_["cached_s"]),
+                last=r_["cached_s"][-1])
+        eval_mod._EVAL_CACHES.clear()
+        return dict(card=card, pairs=len(hashed_), batch=bs_, k_block=k_,
+                    blocks=blocks_, compared="bit-equal", **per_mode)
+
+    i_summary = {}
+    try:
+        # `full`, f32 table: a state from the seeded fresh init, moved by
+        # I_STEPS compiled steps first.
+        i_drop_graphs()
+        state_i = create_run_state(cfg, model_base.init_params(
+            t, seed=cfg.train.seed, device=dev))
+        step_i = make_train_step(cfg)
+        i_train = h_stream(cfg, hashed_train)[:2 * I_STEPS]
+        for b_ in i_train[:I_STEPS]:
+            state_i, _ = step_i(state_i, batch_to_device(
+                b_, dev, vocab_size=t.vocab_size))
+        # The traced process's own passes are done before any time here.
+        check(i_tracer.stdout.readline().strip() == "ready",
+              "phase 6i: the traced evals' process did not start")
+        def i_dedupe_launches(what_, tower_kernels_):
+            """A dedupe pass's launches: per body and side the gather, the
+            count lookup and the tower's kernels; the rank count once."""
+            bodies_ = i_summary[what_]["k_block"] * i_summary[what_]["blocks"]
+            want_ = {"rank_counts": 1, **{
+                k_: 2 * bodies_ for k_ in ("gather_row_groups",
+                                           "count_lookup") + tower_kernels_}}
+            check(i_summary[what_]["eager"]["launches"] == want_,
+                  f"{what_}: launches a pass "
+                  f"{i_summary[what_]['eager']['launches']}, expected {want_}")
+
+        for cname_, hashed_ in i_corpora:
+            what = f"phase 6i, full eval, {cname_}"
+            i_summary[what] = i_compare(what, state_i.params, cfg, hashed_)
+            i_dedupe_launches(what, ("dense_tower",))
+            print(f"{what}: " + json.dumps(i_summary[what]))
+        # One graph over in-place steps; new parameter tensors capture once.
+        graphs_ = (eval_mod.EMBED_STACKED.num_graphs,
+                   eval_mod.RANK.num_graphs)
+        tally_ = i_tally()
+        for b_ in i_train[I_STEPS:]:
+            state_i, _ = step_i(state_i, batch_to_device(
+                b_, dev, vocab_size=t.vocab_size))
+            m_c = eval_mod.evaluate(state_i.params, cfg, hashed_eval,
+                                    cfg.train.batch_size)
+            m_e = eval_mod.evaluate(state_i.params, cfg, hashed_eval,
+                                    cfg.train.batch_size, eager=True)
+            check(m_c == m_e, f"phase 6i: after an in-place step the "
+                  f"compiled eval gave {m_c}, the eager {m_e}")
+        moved_ = i_moved(tally_)
+        check((eval_mod.EMBED_STACKED.num_graphs, eval_mod.RANK.num_graphs)
+              == graphs_ and moved_ == {"embed_stacked": [0, I_STEPS],
+                                        "rank": [0, I_STEPS]},
+              f"phase 6i: {I_STEPS} evals between in-place steps made "
+              f"{moved_} captures / replays (none captured expected)")
+        copy_i = clone_params(state_i.params)
+        tally_ = i_tally()
+        check(eval_mod.evaluate(copy_i, cfg, hashed_eval,
+                                cfg.train.batch_size) == m_c
+              and i_moved(tally_) == {"embed_stacked": [1, 0],
+                                      "rank": [0, 1]},
+              f"phase 6i: new parameter tensors made {i_moved(tally_)} "
+              "captures / replays (one new forward graph expected)")
+        print(f"phase 6i: {I_STEPS} evals between in-place compiled steps "
+              f"replayed the forward and rank graphs (captures / replays "
+              f"{moved_}); a copy of the parameters captured once more; "
+              f"graphs held {eval_mod.EMBED_STACKED.num_graphs} forward, "
+              f"{eval_mod.RANK.num_graphs} rank on {card}")
+        del copy_i
+
+        # cnn and lstm on their dedupe and raw branches.
+        for arch_, c_ in seq_cfg.items():
+            for branch_, cb_ in (("dedupe", c_), ("raw", h_raw[arch_])):
+                what = f"phase 6i, {arch_} eval, {branch_} branch"
+                params_s = model_base.init_params(cb_.tower,
+                                                  seed=cb_.train.seed,
+                                                  device=dev)
+                i_summary[what] = i_compare(what, params_s, cb_, seq_eval)
+                print(f"{what}: " + json.dumps(i_summary[what]))
+                del params_s
+        # and on the dedupe branch at I_SEQ_PAIRS pairs: K = 64, two
+        # blocks, the second padded
+        for arch_, c_ in seq_cfg.items():
+            what = f"phase 6i, {arch_} eval, {I_SEQ_PAIRS} pairs"
+            params_s = model_base.init_params(c_.tower, seed=c_.train.seed,
+                                              device=dev)
+            i_summary[what] = i_compare(what, params_s, c_, seq_big)
+            check(i_summary[what]["k_block"] == 64
+                  and i_summary[what]["blocks"] == 2,
+                  f"{what}: K = {i_summary[what]['k_block']}, "
+                  f"{i_summary[what]['blocks']} blocks (64, 2 expected)")
+            i_dedupe_launches(what, ())
+            print(f"{what}: " + json.dumps(i_summary[what]))
+            del params_s
+
+        # Serving, `full` f32 model: an index of I_PAIRS titles and the
+        # embeddings of I_PAIRS queries, compiled (after a first call that
+        # captures) against eager; the I_QUERIES-query latency (embed and
+        # top-10 against the index on the card), median of I_QUERY_REPS,
+        # modes in turns; top_k at I_PAIRS x I_PAIRS.
+        params_v = state_i.params
+        titles_i, queries_i = list(pairs_i.titles), list(pairs_i.queries)
+        bs = cfg.train.batch_size
+        serve_s, embs_v = {}, {}
+        for mode_ in ("compiled", "eager", "compiled"):
+            eager_ = mode_ == "eager"
+            tally_ = i_tally()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            d_v = build_doc_index(params_v, cfg, titles_i, bs, eager=eager_)
+            t2 = time.perf_counter()
+            q_v = embed_queries(params_v, cfg, queries_i, bs, eager=eager_)
+            t3 = time.perf_counter()
+            serve_s.setdefault(mode_, []).append(dict(
+                index_s=t2 - t1, index_titles_per_s=len(titles_i) / (t2 - t1),
+                queries_s=t3 - t2, graphs=i_moved(tally_)))
+            embs_v[mode_] = (d_v, q_v)
+        check(all(np.array_equal(embs_v["compiled"][j_], embs_v["eager"][j_])
+                  for j_ in (0, 1)),
+              "phase 6i: compiled and eager serving embeddings differ "
+              "(bit-equal expected)")
+        d_v, q_v = embs_v["compiled"]
+        d_dev = torch.from_numpy(d_v).to(dev)
+        lat = {"compiled": [], "eager": []}
+        for _ in range(I_QUERY_REPS):
+            for mode_ in ("compiled", "eager"):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                q64 = embed_queries(params_v, cfg, queries_i[:I_QUERIES], bs,
+                                    eager=mode_ == "eager")
+                s64, i64 = top_k(q64, d_dev, k=10, eager=mode_ == "eager")
+                lat[mode_].append((time.perf_counter() - t1) * 1e3)
+        check(i64.shape == (I_QUERIES, 10), "phase 6i: 64-query top-10")
+        topk_i = {}
+        for exact_ in (True, False):
+            route_ = "exact" if exact_ else "approximate"
+            tally_ = i_tally()
+            res_, ms_ = {}, {"compiled": [], "eager": []}
+            for rep_ in range(I_TOPK_REPS + 1):  # the first compiled: capture
+                for mode_ in ("compiled", "eager"):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    res_[mode_] = top_k(q_v, d_dev, k=10, exact=exact_,
+                                        eager=mode_ == "eager")
+                    if rep_:
+                        ms_[mode_].append((time.perf_counter() - t1) * 1e3)
+            check(np.array_equal(res_["compiled"][1], res_["eager"][1])
+                  and np.array_equal(res_["compiled"][0], res_["eager"][0]),
+                  f"phase 6i: top_k {route_} at {I_PAIRS}^2: compiled and "
+                  "eager ids / scores differ (bit-equal expected)")
+            check(i_moved(tally_) == {"top_k": [1, I_TOPK_REPS]},
+                  f"phase 6i: top_k {route_}: {i_moved(tally_)} captures / "
+                  "replays")
+            topk_i[route_] = dict(
+                ms={m_: dict(median=statistics.median(v_), min=min(v_),
+                             max=max(v_)) for m_, v_ in ms_.items()},
+                pool_gb=serve_mod.TOPK.pool_bytes / 1e9,
+                static_buffers_gb=serve_mod.TOPK.buffer_bytes / 1e9,
+                score_block_gb=1024 * I_PAIRS * 4 / 1e9)
+        i_summary["serving"] = dict(
+            card=card, titles=len(titles_i), queries=len(queries_i),
+            passes=serve_s, compared="bit-equal",
+            query_latency_ms={m_: dict(median=statistics.median(v_),
+                                       min=min(v_), max=max(v_),
+                                       n=len(v_)) for m_, v_ in lat.items()},
+            top_k=topk_i)
+        print(f"phase 6i, serving: " + json.dumps(i_summary["serving"]))
+        del state_i, step_i, params_v, d_dev, embs_v, d_v, q_v
+        torch.cuda.synchronize()
+        traced_out, _ = i_tracer.communicate("go\n", timeout=600)
+    finally:
+        if i_tracer.poll() is None:
+            i_tracer.kill()
+            i_tracer.communicate()
+        os.unlink(i_trace_file)
+    i_trace_err.seek(0)
+    check(i_tracer.returncode == 0, "phase 6i: the traced evals' process "
+          f"failed: {i_trace_err.read()[-3000:]}")
+    i_trace_err.close()
+    traced_i = json.loads(traced_out.strip().splitlines()[-1])
+    print(f"phase 6i, traced (one cached pass of each mode, one process of "
+          f"its own) on {card}: " + json.dumps(traced_i))
+    # The CLIs below reach these graphs: phase 7 checks their captures and
+    # replays.
+    i_drop_graphs()
+    eval_mod._EVAL_CACHES.clear()
+    print(f"phase 6i: {len(i_summary)} runs in "
+          f"{time.perf_counter() - t0_i:.1f} s")
+    del pairs_i, hashed_i, i_corpora, seq_big
+
     # ---- phase 7: the same path through the command-line entry points ----
     # cli.train in this process: the full preset on a toy corpus cut to
     # CLI_PAIRS pairs, first on the f32 table (CLI_STEPS steps and the final
@@ -4632,6 +5047,7 @@ def main() -> int:
 
     def export_and_query(flags):
         out_ = io.StringIO()
+        tally_ = i_tally()
         with contextlib.redirect_stdout(out_):
             cli_export.main(flags + [f"--out={cli_index}"])
             cli_export.main(flags + [f"--index={cli_index}",
@@ -4640,6 +5056,17 @@ def main() -> int:
                            for line in out_.getvalue().splitlines())
         check(built_["indexed_docs"] > 0 and built_["dim"] == t.semantic_dim,
               f"cli.export index: {built_}")
+        # Phase 6i's graphs: the index a graph replay a batch but its
+        # first, the query one more call, its top-5 one graph.
+        moved_ = i_moved(tally_)
+        index_b_ = -(-built_["indexed_docs"] // cfg.train.batch_size)
+        check(sum(moved_.get("embed", ())) == index_b_ + 1
+              and moved_["embed"][1] >= index_b_ - 1
+              and sum(moved_.get("top_k", ())) == 1
+              and set(moved_) == {"embed", "top_k"},
+              f"cli.export: captures / replays {moved_} of the forward "
+              f"graphs ({index_b_} index batches and one query)")
+        print(f"cli.export: forward graphs' captures / replays {moved_}")
         scores_ = [r["score"] for r in answer_["results"]]
         check(len(scores_) == 5 and all(np.isfinite(scores_))
               and scores_ == sorted(scores_, reverse=True),
@@ -4663,11 +5090,21 @@ def main() -> int:
                  "--tower.table_dtype=bfloat16"]
     t0 = time.perf_counter()
     _build.reset_launch_counts()
+    tally_cli = i_tally()
     cli_train.main(cli_flags + [f"--train.max_steps={CLI_LOWPREC_STEPS}",
                                 "--train.log_every=2",
                                 "--train.eval_every=3"])
     torch.cuda.synchronize()
     cli_counts = _build.launch_counts()
+    # Its two evals (step 3, the end) on the state updated in place: one
+    # forward graph, captured at the first and replayed at the second.
+    moved_cli = i_moved(tally_cli)
+    check(moved_cli.get("embed_stacked") == [1, 1]
+          and sum(moved_cli.get("rank", ())) == 2,
+          f"cli.train (bf16 table): its evals made {moved_cli} captures / "
+          "replays of the eval graphs ([1, 1] expected)")
+    print(f"cli.train (bf16 table), periodic and final eval: eval graphs' "
+          f"captures / replays {moved_cli}")
     t1 = time.perf_counter()
     for name, n in cli_expected(CLI_LOWPREC_STEPS, 2,
                                 "scatter_sr_row_groups").items():
@@ -4686,8 +5123,15 @@ def main() -> int:
           "cli.train (bf16 table): the checkpoint's table is not bf16")
     del state16
     out_eval = io.StringIO()
+    tally_cli = i_tally()
     with contextlib.redirect_stdout(out_eval):
         cli_eval.main(cli_flags)
+    moved_cli = i_moved(tally_cli)
+    check(sum(moved_cli.get("embed_stacked", ())) == 1
+          and sum(moved_cli.get("rank", ())) == 1,
+          f"cli.eval: {moved_cli} captures / replays of the eval graphs "
+          "(one block and one rank pass expected)")
+    print(f"cli.eval: eval graphs' captures / replays {moved_cli}")
     lines = out_eval.getvalue().strip().splitlines()
     check(len(lines) == 1, f"cli.eval printed {len(lines)} lines")
     reported = json.loads(lines[0])
@@ -5172,4 +5616,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--trace-steps"]:
         sys.exit(trace_steps(sys.argv[2]))
+    if sys.argv[1:2] == ["--trace-evals"]:
+        sys.exit(trace_evals(sys.argv[2]))
     sys.exit(main())

@@ -16,7 +16,7 @@ batch's lookups on the host (check_raw_rows), so that the lookup kernel on
 the card has no check to read back. batch_to_device stops before the
 widening: its WireBatch is the packed block, which a compiled train step
 (train/compiled.py) copies into static buffers of the batch's signature
-and widens inside its graph.
+and widens inside its graph (an eval block of K stacked batches too).
 """
 
 from __future__ import annotations

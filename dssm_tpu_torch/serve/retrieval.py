@@ -1,11 +1,18 @@
 """Serving path: embed a document corpus once, retrieve top-k per query.
 
   build_doc_index: doc-tower forward over the corpus (dedup batches, the
-      tail batch padded to the full batch size) -> [N, D] unit-norm f32.
+      tail batch padded to the full batch size) -> [N, D] unit-norm f32;
+      on the card a batch is one replay of the one-side forward graph
+      (train/eval.py::EMBED, dssm_tpu's jitted _embed_fwd).
   top_k: brute-force retrieval, chunked over queries; each chunk's [C, N]
-      f32 score block stays on the device and only [C, k] comes back.
-      Exact by default; exact=False is approx_max_k's binned approximation,
-      the function dssm_tpu's lax.approx_max_k computes on a TPU.
+      f32 score block stays on the device and only [Q, k] comes back. On
+      the card every chunk and the ragged tail run in one graph (TOPK,
+      dssm_tpu's jitted scan _topk_all / _topk_all_approx). Exact by
+      default; exact=False is approx_max_k's binned approximation, the
+      function dssm_tpu's lax.approx_max_k computes on a TPU.
+
+With eager=True (or impl="plain") the same functions run eagerly on the
+card (the reference); on the CPU they always do.
 
 Index file format (shared with dssm_tpu.serve): .npz with `doc_emb` [N, D]
 f32 and `titles` [N] (object array of the indexed texts).
@@ -20,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dssm_tpu_torch.bridge import batch_to_torch
+from dssm_tpu_torch.bridge import batch_to_device
 from dssm_tpu_torch.config import RunConfig
 from dssm_tpu_torch.data.loader import eval_batches, hash_pairs, pad_batch
 from dssm_tpu_torch.data.remap import apply_remap
@@ -28,6 +35,8 @@ from dssm_tpu_torch.data.toy import ToyPairs
 from dssm_tpu_torch.device import DeviceLike, as_device
 from dssm_tpu_torch.kernels.gather import sublane_group
 from dssm_tpu_torch.models import base as model_base
+from dssm_tpu_torch.train.compiled import CompiledForward
+from dssm_tpu_torch.train.eval import EMBED
 
 _QUERY_CHUNK = 1024
 
@@ -41,14 +50,17 @@ def _embed_side(
     impl: str,
     remap: Optional[np.ndarray],
     device: DeviceLike,
+    eager: bool = False,
 ) -> np.ndarray:
-    """Embed raw texts through one tower (padded tail batches).
+    """Embed raw texts through one tower (padded tail batches), a batch a
+    call of EMBED: one replay on the card, cached on the tower config,
+    impl, side, parameters and batch layout.
 
     `remap`: the vocab permutation training applied (data/remap.py) — table
     rows live at remapped positions, so serving inputs go through it too."""
     dev = as_device(device)
-    tower = model_base.tower_module(params, cfg.tower, side)
-    table = tower.table
+    table = model_base.tower_params(params, side)[
+        model_base.TABLE_KEY[cfg.tower.arch]]
     if table.device.type != dev.type:
         raise ValueError(f"parameters are on {table.device}, not {dev}")
     # Hash through the standard pipeline, so the batches (and their union
@@ -60,23 +72,26 @@ def _embed_side(
     if remap is not None:
         hashed = apply_remap(hashed, remap)
     dedup = cfg.data.dedup_lookup
-    outs = []
-    with torch.no_grad():
-        for batch in eval_batches(
-            hashed, batch_size,
-            dedup_unique=cfg.data.max_unique if dedup else None,
-            dedup_group=sublane_group(table.dtype),
-            dedup_unique_rows=cfg.data.max_unique_rows if dedup else None,
-            dedup_joint=cfg.tower.shared_weights,
-            sequence=cfg.tower.is_sequence_model,
-        ):
-            n = batch["q_wgt"].shape[0]
-            tb = batch_to_torch(pad_batch(batch, batch_size), dev,
-                                vocab_size=table.shape[0])
-            outs.append(tower(tb, side, impl=impl)[:n])
-    if not outs:
-        return np.zeros((0, cfg.tower.semantic_dim), dtype=np.float32)
-    return torch.cat(outs).cpu().numpy()
+    out = torch.empty((len(texts), cfg.tower.semantic_dim),
+                      dtype=torch.float32, device=table.device)
+    lo = 0
+    for batch in eval_batches(
+        hashed, batch_size,
+        dedup_unique=cfg.data.max_unique if dedup else None,
+        dedup_group=sublane_group(table.dtype),
+        dedup_unique_rows=cfg.data.max_unique_rows if dedup else None,
+        dedup_joint=cfg.tower.shared_weights,
+        sequence=cfg.tower.is_sequence_model,
+    ):
+        n = batch["q_wgt"].shape[0]
+        wire = batch_to_device(pad_batch(batch, batch_size), table.device,
+                               vocab_size=table.shape[0])
+        (emb,) = EMBED(params, wire, device=table.device,
+                       eager=eager or impl == "plain", tower=cfg.tower,
+                       impl=impl, sides=side)
+        out[lo:lo + n].copy_(emb[:n])
+        lo += n
+    return out[:lo].cpu().numpy()
 
 
 def build_doc_index(
@@ -87,10 +102,11 @@ def build_doc_index(
     impl: str = "auto",
     remap: Optional[np.ndarray] = None,
     device: DeviceLike = "cuda",
+    eager: bool = False,
 ) -> np.ndarray:
     """Doc-tower embeddings for the corpus -> [N, D] unit-norm f32."""
     return _embed_side(params, cfg, titles, "d", batch_size, impl, remap,
-                       device)
+                       device, eager)
 
 
 def embed_queries(
@@ -101,9 +117,11 @@ def embed_queries(
     impl: str = "auto",
     remap: Optional[np.ndarray] = None,
     device: DeviceLike = "cuda",
+    eager: bool = False,
 ) -> np.ndarray:
+    """Query-tower embeddings -> [Q, D] unit-norm f32."""
     return _embed_side(params, cfg, queries, "q", batch_size, impl, remap,
-                       device)
+                       device, eager)
 
 
 def save_index(path: str, doc_emb: np.ndarray, titles: Sequence[str]) -> None:
@@ -150,6 +168,29 @@ def approx_max_k(scores: torch.Tensor, k: int, recall_target: float = 0.95
     return top, torch.gather(row, -1, col) * bins + col
 
 
+def _top_k_all(_, q: torch.Tensor, d: torch.Tensor, *, k: int, chunk: int,
+               exact: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every query chunk of `chunk` rows and the ragged tail: (scores
+    [Q, k], ids [Q, k]). A chunk's [C, N] score block is freed before the
+    next one's is made, so a graph's pool holds about one."""
+    scores, ids = [], []
+    for lo in range(0, q.shape[0], chunk):
+        block = q[lo:lo + chunk] @ d.T
+        s, i = (torch.topk(block, k, dim=1) if exact
+                else approx_max_k(block, k))
+        del block
+        scores.append(s)
+        ids.append(i)
+    return torch.cat(scores), torch.cat(ids)
+
+
+# One graph a (Q, N, D, k, chunk, exact): dssm_tpu's jitted _topk_all and
+# _topk_all_approx. An index on the card is read where it lies (the graph
+# keyed on its address); one held as numpy (cli.export) is copied into a
+# static buffer its graphs share, so it replays on the next call.
+TOPK = CompiledForward(_top_k_all)
+
+
 def top_k(
     query_emb,
     doc_emb,
@@ -157,26 +198,23 @@ def top_k(
     chunk: int = _QUERY_CHUNK,
     exact: bool = True,
     device: DeviceLike = "cuda",
+    eager: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Brute-force retrieval: (scores [Q, k] f32, doc_ids [Q, k] int64),
     scores descending. exact=True: torch.topk of each query's scores.
     exact=False: approx_max_k at recall_target 0.95, as dssm_tpu's
     top_k(exact=False) asks lax.approx_max_k (which runs its binned
     approximation on a TPU and an exact top-k elsewhere). Accepts numpy
-    arrays or tensors."""
+    arrays or tensors. On the card one replay of TOPK (eager=True runs the
+    same chunks eagerly); pass a doc index that is queried again as a
+    tensor on the card, which the graph reads in place."""
     dev = as_device(device)
-    q = torch.as_tensor(query_emb, dtype=torch.float32, device=dev)
-    d = torch.as_tensor(doc_emb, dtype=torch.float32, device=dev)
+    q = torch.as_tensor(query_emb, dtype=torch.float32)
+    d = torch.as_tensor(doc_emb, dtype=torch.float32)
     k = min(k, d.shape[0])
     if q.shape[0] == 0:
         return (np.zeros((0, k), dtype=np.float32),
                 np.zeros((0, k), dtype=np.int64))
-    scores, ids = [], []
-    for lo in range(0, q.shape[0], chunk):
-        block = q[lo:lo + chunk] @ d.T
-        s, i = (torch.topk(block, k, dim=1) if exact
-                else approx_max_k(block, k))
-        scores.append(s)
-        ids.append(i)
-    return (torch.cat(scores).cpu().numpy(),
-            torch.cat(ids).cpu().numpy().astype(np.int64))
+    s, i = TOPK({}, q, d, device=dev, eager=eager, k=k,
+                chunk=min(chunk, q.shape[0]), exact=exact)
+    return s.cpu().numpy(), i.cpu().numpy().astype(np.int64)

@@ -1849,6 +1849,284 @@ def test_compiled_k_steps_match_eager_k_steps(dev, table_dtype):
         assert torch.equal(c, e)
 
 
+# ---- eval's and serving's compiled forward (train/compiled.py) -------------
+
+# (arch, shared, table dtype, dedup) of each eval the compiled forward runs.
+COMPILED_EVAL_CASES = {
+    "f32": ("mlp", True, "float32", True),
+    "bf16": ("mlp", True, "bfloat16", True),
+    "int8": ("mlp", True, "int8", True),
+    "per_side": ("mlp", False, "float32", True),
+    "cnn_dedupe": ("cnn", True, "float32", True),
+    "cnn_raw": ("cnn", True, "float32", False),
+    "lstm_dedupe": ("lstm", True, "float32", True),
+    "lstm_raw": ("lstm", True, "float32", False)}
+
+
+def _drop_forward_graphs():
+    """Start from no eval or serving graph (a graph an earlier test left
+    at addresses this test's tensors take would replay, rightly, but
+    change the counts below)."""
+    from dssm_tpu_torch.serve import retrieval as serve
+    from dssm_tpu_torch.train import eval as eval_mod
+
+    for fwd in (eval_mod.EMBED, eval_mod.EMBED_STACKED, eval_mod.RANK,
+                serve.TOPK):
+        fwd.clear()
+
+
+def _eval_case(dev, name):
+    arch, shared, table_dtype, dedup = COMPILED_EVAL_CASES[name]
+    cfg, hashed, _ = _train_config(arch, shared, table_dtype, dedup=dedup,
+                                   n=0)
+    params = model_base.init_params(cfg.tower, seed=0, device=dev)
+    return cfg, hashed, params
+
+
+def _eval_pass_launches(cfg, bodies):
+    """{kernel: launches} of an eval pass of `bodies` batch bodies, as the
+    towers' code makes them: per body and side the gather and the count
+    lookup (dedupe) or the bag (raw), and the mlp's tower; the rank once."""
+    per_side = ({"gather_row_groups": 1, "count_lookup": 1}
+                if cfg.data.dedup_lookup else {"embedding_bag": 1})
+    if cfg.tower.arch == "mlp":
+        per_side["dense_tower"] = 1
+    return {"rank_counts": 1, **{k: 2 * bodies * n
+                                  for k, n in per_side.items()}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(COMPILED_EVAL_CASES))
+def test_compiled_eval_matches_eager(dev, name, monkeypatch):
+    """640 pairs in batches of 128, two a block: three blocks, the last
+    padded with its one batch. The compiled pass (one replay a block, the
+    rank graph) against the eager one from the same parameters, first pass
+    and cached: embeddings and ranks bit-equal, metrics equal, every
+    kernel's launches equal and as the towers' code makes them; one graph
+    serves every block; the rank graph reads the embeddings in place, so
+    it replays on the same tensors and evaluate's passes share one."""
+    from dssm_tpu_torch.train import eval as eval_mod
+
+    monkeypatch.setattr(eval_mod, "_k_block", lambda n, b: 2)
+    cfg, hashed, params = _eval_case(dev, name)
+    eval_mod._EVAL_CACHES.clear()
+    _drop_forward_graphs()
+    out = {}
+    for kind in ("compiled", "eager", "compiled"):
+        eager = kind == "eager"
+        _build.reset_launch_counts()
+        q, d = eval_mod.embed_corpus(params, cfg, hashed, 128, cache=True,
+                                     eager=eager)
+        ranks = eval_mod.compute_ranks(q, d, eager=eager)
+        torch.cuda.synchronize()
+        out.setdefault(kind, []).append(
+            (q.clone(), d.clone(), ranks, _build.launch_counts()))
+        if not eager:
+            replays = eval_mod.RANK.replays
+            assert np.array_equal(eval_mod.compute_ranks(q, d), ranks)
+            assert eval_mod.RANK.replays == replays + 1
+    before = eval_mod.RANK.captures, eval_mod.RANK.replays
+    metrics = [evaluate(params, cfg, hashed, 128, eager=e)
+               for e in (False, True, False)]
+    # evaluate's buffer: captured once, unless it took the address of an
+    # embed_corpus result above, whose graph it then replays
+    moved = (eval_mod.RANK.captures - before[0],
+             eval_mod.RANK.replays - before[1])
+    assert moved in ((1, 1), (0, 2)), moved
+    assert eval_mod.RANK.buffer_bytes == 0  # nothing copied
+    (cq, cd, cr, cc), (cq2, cd2, cr2, cc2) = out["compiled"]
+    (eq, ed, er, ec), = out["eager"]
+    assert eval_mod.EMBED_STACKED.num_graphs == 1
+    assert torch.equal(cq, eq) and torch.equal(cd, ed)
+    assert torch.equal(cq2, eq) and torch.equal(cd2, ed)
+    assert np.array_equal(cr, er) and np.array_equal(cr2, er)
+    assert metrics[0] == metrics[1] == metrics[2]
+    want = _eval_pass_launches(cfg, 6)
+    for counts in (cc, cc2, ec):
+        assert {k: n for k, n in counts.items() if n} == want
+    eval_mod._EVAL_CACHES.clear()
+
+
+@pytest.mark.cuda
+def test_compiled_eval_one_graph_across_inplace_steps(dev):
+    """Evaluations between compiled train steps, which update the
+    parameters in place, replay one forward graph and one rank graph;
+    each pass equals the eager pass at that state. New parameter tensors
+    capture once more."""
+    from dssm_tpu_torch.train import eval as eval_mod
+
+    cfg, hashed, batches = _train_config(n=3)
+    state = create_run_state(cfg, model_base.init_params(cfg.tower, seed=0,
+                                                         device=dev))
+    step = make_train_step(cfg)
+    eval_mod._EVAL_CACHES.clear()
+    _drop_forward_graphs()
+    seen = []
+    for b in batches:
+        got = evaluate(state.params, cfg, hashed, 128)
+        assert got == evaluate(state.params, cfg, hashed, 128, eager=True)
+        seen.append(got)
+        state, _ = step(state, batch_to_device(b, dev, vocab_size=V))
+    assert eval_mod.EMBED_STACKED.num_graphs == eval_mod.RANK.num_graphs == 1
+    assert seen[0] != seen[-1]  # the steps moved the model
+    copy = {t: {k: v.clone() for k, v in tp.items()}
+            for t, tp in state.params.items()}
+    assert evaluate(copy, cfg, hashed, 128) == evaluate(state.params, cfg,
+                                                        hashed, 128)
+    assert eval_mod.EMBED_STACKED.num_graphs == 2
+    eval_mod._EVAL_CACHES.clear()
+
+
+@pytest.mark.cuda
+def test_compiled_eval_graph_cache_lru_bound(dev):
+    """33 input shapes through one CompiledForward: 32 graphs kept, the
+    least recently used dropped (a call on it captures again); each
+    replay counts the launches its capture recorded."""
+    from dssm_tpu_torch.train.compiled import (
+        GRAPH_CACHE_SIZE, CompiledForward)
+
+    fwd = CompiledForward(lambda p, q, d: rank_counts(q, d))
+    rng = np.random.default_rng(0)
+    xs = [torch.from_numpy(rng.standard_normal((8 + i, 16)).astype(
+        np.float32)).to(dev) for i in range(GRAPH_CACHE_SIZE + 1)]
+    for x in xs:
+        fwd({}, x, x, device=dev)
+    assert fwd.num_graphs == GRAPH_CACHE_SIZE
+    _build.reset_launch_counts()
+    for x in xs[1:]:
+        assert torch.equal(fwd({}, x, x, device=dev), rank_counts(x, x))
+    assert fwd.num_graphs == GRAPH_CACHE_SIZE  # every one replayed
+    assert _build.launch_counts()["rank_counts"] == 2 * GRAPH_CACHE_SIZE
+    fwd({}, xs[0], xs[0], device=dev)  # captured again, xs[1]'s dropped
+    assert fwd.num_graphs == GRAPH_CACHE_SIZE
+    assert fwd._lookup(compiled_key(xs[1])) is None
+
+
+@pytest.mark.cuda
+def test_compiled_forward_captures_again_after_clear(dev):
+    """clear() drops every graph and starts a new pool, so a capture after
+    it works even while a tensor made in the first capture lives on (as a
+    workspace a library caches for the capture stream does), which keeps
+    the old pool from being released."""
+    from dssm_tpu_torch.train.compiled import CompiledForward
+
+    kept = []
+
+    def fn(p, x):
+        kept.append(x * 2)  # the warm run's, then the capture's
+        return x @ p["w"]
+
+    fwd = CompiledForward(fn)
+    w = torch.randn(64, 64, device=dev)
+    x = torch.randn(32, 64, device=dev)
+    want = x @ w
+    for _ in range(2):
+        fwd.clear()
+        assert torch.equal(fwd({"w": w}, x), want)  # captures
+        assert torch.equal(fwd({"w": w}, x), want)  # replays
+        assert fwd.captures == fwd.replays
+    assert len(kept) == 4
+
+
+def compiled_key(x):
+    from dssm_tpu_torch.train.compiled import forward_key
+
+    return forward_key({}, (x, x), {}, x.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mlp", "cnn"])
+def test_compiled_serve_matches_eager(dev, arch):
+    """The doc index and the query embeddings, a replay a batch, against
+    the eager forward: bit-equal, launches equal; top_k's one graph of
+    every chunk and the ragged tail against the eager chunks, exact and
+    approximate: ids equal, scores bit-equal, a second call a replay."""
+    from dssm_tpu_torch.serve import retrieval as serve
+
+    cfg, hashed, _ = _train_config(arch, n=0)
+    params = model_base.init_params(cfg.tower, seed=0, device=dev)
+    _drop_forward_graphs()
+    texts = make_toy_pairs(300, 96, 9)
+    titles, queries = list(texts.titles), list(texts.queries)[:200]
+    runs = {}
+    for eager in (False, True, False):
+        _build.reset_launch_counts()
+        d_emb = build_doc_index(params, cfg, titles, 128, eager=eager)
+        q_emb = serve.embed_queries(params, cfg, queries, 128, eager=eager)
+        torch.cuda.synchronize()
+        runs.setdefault(eager, []).append((d_emb, q_emb,
+                                           _build.launch_counts()))
+    (d0, q0, c0), (d2, q2, c2) = runs[False]
+    (de, qe, ce), = runs[True]
+    assert np.array_equal(d0, de) and np.array_equal(q0, qe)
+    assert np.array_equal(d2, de) and np.array_equal(q2, qe)
+    assert c0 == ce == c2 and serve.EMBED.num_graphs == 2  # d and q
+    for exact in (True, False):
+        graphs = serve.TOPK.num_graphs
+        want = serve.top_k(q0, d0, k=10, chunk=64, exact=exact, eager=True)
+        for _ in range(2):
+            got = serve.top_k(q0, d0, k=10, chunk=64, exact=exact)
+            assert np.array_equal(got[1], want[1])
+            assert np.array_equal(got[0], want[0])
+        assert serve.TOPK.num_graphs == graphs + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False])
+def test_compiled_serve_top_k_pool_near_one_block(dev, exact):
+    """16 chunks of 1024 queries against 16,384 docs: the graph's pool
+    holds about one chunk's [1024, 16384] f32 score block (64 MiB), as the
+    capture reuses the block freed by chunk i for chunk i + 1; at most
+    three blocks (the approximate route pads a copy) and 48 MiB (cuBLAS's
+    workspace, where the capture makes it), where 16 blocks would be kept
+    if nothing were reused."""
+    from dssm_tpu_torch.serve import retrieval as serve
+    from dssm_tpu_torch.train.compiled import CompiledForward
+
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((16 * 1024, 32)).astype(
+        np.float32)).to(dev)
+    d = torch.from_numpy(rng.standard_normal((16384, 32)).astype(
+        np.float32)).to(dev)
+    fwd = CompiledForward(serve._top_k_all)
+    s, i = fwd({}, q, d, device=dev, k=10, chunk=1024, exact=exact)
+    block = 1024 * 16384 * 4
+    assert 0 < fwd.pool_bytes <= 3 * block + (48 << 20), fwd.pool_bytes
+    s2, i2 = fwd({}, q, d, device=dev, k=10, chunk=1024, exact=exact)
+    assert torch.equal(s, s2) and torch.equal(i, i2)
+
+
+@pytest.mark.cuda
+def test_compiled_serve_index_in_place_or_one_copy(dev):
+    """top_k reads an index on the card where it lies (no static copy; a
+    change to it in place shows at the next replay) and copies a numpy
+    index into one static buffer, shared by the graphs of every query
+    count."""
+    from dssm_tpu_torch.serve import retrieval as serve
+
+    _drop_forward_graphs()
+    rng = np.random.default_rng(2)
+    d = rng.standard_normal((500, 32)).astype(np.float32)
+    q = rng.standard_normal((300, 32)).astype(np.float32)
+    d_dev = torch.from_numpy(d).to(dev)
+    first = serve.top_k(q, d_dev, k=5, chunk=128)
+    assert serve.TOPK.buffer_bytes == q.nbytes  # only the host queries
+    d_dev.neg_()
+    replays = serve.TOPK.replays
+    got = serve.top_k(q, d_dev, k=5, chunk=128)
+    assert serve.TOPK.replays == replays + 1
+    want = serve.top_k(q, d_dev, k=5, chunk=128, eager=True)
+    assert np.array_equal(got[1], want[1]) and np.array_equal(got[0], want[0])
+    assert not np.array_equal(got[1], first[1])
+    _drop_forward_graphs()
+    for n in (300, 200, 100):
+        serve.top_k(q[:n], d, k=5, chunk=128)
+    assert serve.TOPK.num_graphs == 3
+    assert serve.TOPK.buffer_bytes == (500 + 300 + 200 + 100) * 32 * 4
+    _drop_forward_graphs()
+    assert serve.TOPK.buffer_bytes == 0
+
+
 @pytest.mark.cuda
 def test_compiled_step_capture_failure_raises(dev):
     """A body that reads a value back cannot be captured: the call raises

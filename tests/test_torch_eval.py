@@ -211,7 +211,7 @@ def test_cached_eval_matches_uncached(corpus):
     # an explicit cache object fills on its first pass and is reused
     own = teval.EvalCache()
     assert teval.evaluate(params, tc, corpus, BATCH, cache=own) == cold
-    assert own.complete and len(own.batches) == 5
+    assert own.complete and len(own.blocks) == 1  # 5 batches: K = 5
     assert teval.evaluate(params, tc, corpus, BATCH, cache=own) == cold
 
 

@@ -237,8 +237,9 @@ def test_eval_keeps_sequence_batches_whole(pairs):
     key tells the two apart."""
     _, tc = _cfgs("cnn")
     corpus = _hashed(pairs, tc)
-    tb, _ = next(teval._host_batches(tc, corpus, BATCH, 8,
-                                     torch.device("cpu")))
+    wire, _ = next(teval._host_blocks(tc, corpus, BATCH, 8, 1,
+                                      torch.device("cpu")))
+    tb = {k: v[0] for k, v in wire.fields().items()}
     assert "q_idx" in tb and tb["q_idx"].shape == (BATCH, 4, 4)
     assert "q_mask" in tb and "uniq" in tb
     jb = next(jloader.eval_batches(
@@ -248,8 +249,9 @@ def test_eval_keeps_sequence_batches_whole(pairs):
         np.testing.assert_array_equal(tb[k].numpy(), v.astype(
             tb[k].numpy().dtype), k)
     mlp = tc.replace(tower=tc.tower.replace(arch="mlp"))
-    mb, _ = next(teval._host_batches(mlp, corpus, BATCH, 8,
-                                     torch.device("cpu")))
+    mwire, _ = next(teval._host_blocks(mlp, corpus, BATCH, 8, 1,
+                                       torch.device("cpu")))
+    mb = mwire.fields()
     assert "q_idx" not in mb
     assert teval._cache_key(tc, corpus, BATCH, 8, "cpu") != \
         teval._cache_key(mlp, corpus, BATCH, 8, "cpu")
