@@ -88,10 +88,10 @@ model_parallel = 1 (500k x 384 table, batch 65,536, one per-shard slot
 space of 2048 a batch, sel_local [1, 2048]) on its own corpus: the first
 batch's host prep uncached and split, its kernels at the step's shapes
 against their plain versions, MH_STEPS steps through the kernels (steps/s,
-peak memory) and MH_TRACED traced; the parallel step over an NCCL group of
-one process against the single-device step (bit-equal, f32 wire); the
-shard-local bodies of an mp = 2 table summed by hand against the unsharded
-gather and scatters (bit-equal). At the end, cli.train
+peak memory) and MH_TRACED traced; the shard-local bodies of an mp = 2
+table summed by hand against the unsharded gather and scatters
+(bit-equal); the parallel step over an NCCL group of one runs in phase
+6j. At the end, cli.train
 --preset=multihost --mesh.model_parallel=1 for MH_CLI_STEPS steps and
 cli.eval on its workdir.
 
@@ -152,6 +152,25 @@ traced busy ms of a cached pass of each mode in a process of its own
 at I_PAIRS x I_PAIRS exact and approximate (ms, pool GB), all bit-equal
 to eager. Phase 7 checks that cli.train's periodic eval, cli.eval and
 cli.export capture and replay those graphs.
+
+The parallel steps compiled (phase 6j): over an NCCL group of one (the
+only group one card forms; its data and model groups are real process
+groups, so the sparse step's graph holds its all-reduces), from seeded
+fresh inits, the multihost preset at model_parallel = 1 on its bf16 wire,
+`full` f32 joint and the dense-table step with sgd and adam take the calls
+of H_ORDER through make_parallel_train_step (a CUDA graph holding the
+collectives) and the eager parallel body from one state in lockstep, and
+on an f32 wire (multihost's too) the single-device compiled step: the
+states bit-equal after every call (the dense step within H_ATOMICS_TOL),
+the launches equal, the state's tensors where they were; K_CALL steps a
+call (the second block a replay) against K = 1; steps/s compiled and
+eager in turns (median, min, max of H_REPEATS); the first call's peak and
+pool GB; one replay of each traced in a process of its own (`python3
+chip_smoke.py --trace-parallel FILE`), with the NCCL kernels it holds and
+the NCCL version; and cli.train --preset=full under DSSM_COORDINATOR /
+DSSM_NUM_PROCS=1 / DSSM_PROC_ID=0 at K = 1 and K_CALL, its records those
+of the one-process run. A line before the kernels line gives each phase's
+start in seconds.
 
 The tooling (phase 7b): cli.train --preset=full with the profiler hook
 and TensorBoard (--io.profile_dir, --io.tensorboard=true, an eval every
@@ -252,6 +271,10 @@ I_REPEATS = 3          # cached passes of each mode, in turns
 I_QUERIES = 64         # the query latency's queries
 I_QUERY_REPS = 21      # its repeats, each mode
 I_TOPK_REPS = 3        # top_k at I_PAIRS^2, each route and mode
+J_TIMED = 16           # phase 6j: steps a repeat of steps/s (full, dense)
+J_MH_TIMED = 4         # ... multihost steps a repeat (216.7 ms busy each)
+J_CLI_STEPS = 24       # cli.train under DSSM_* at K = 1 and K_CALL (an
+#                        eval every 12 steps)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -414,6 +437,81 @@ def trace_evals(cases_path: str) -> int:
     return 0
 
 
+def trace_parallel(cases_path: str) -> int:
+    """`python3 chip_smoke.py --trace-parallel FILE`, phase 6j's traced
+    replays in a process of their own: FILE holds [(name, config, numpy
+    batches)]. The process joins an NCCL group of one of its own (a file://
+    rendezvous beside FILE); each configuration's compiled parallel step
+    (make_parallel_train_step) captures its graph on the first batch (its
+    collectives inside) and replays once; then, on a line "go" on stdin,
+    one more replay a configuration is traced, the windows back to back.
+    Prints "ready" when the replays before the windows are done, then one
+    JSON line: {name: {traced device busy ms, wall ms, the device's busy
+    share, and the device events by name with their count and µs, the
+    NCCL ones (a name holding "nccl") and the copies apart}}."""
+    import pickle
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dssm_tpu_torch.bridge import batch_to_device
+    from dssm_tpu_torch.parallel import dist as pdist
+    from dssm_tpu_torch.parallel.mesh import make_mesh
+    from dssm_tpu_torch.parallel.train_step import (
+        create_sharded_state, make_parallel_train_step)
+
+    with open(cases_path, "rb") as f:
+        cases = pickle.load(f)
+    dev = pdist.initialize(f"file://{cases_path}.init", 1, 0)
+    ready = []
+    try:
+        inits = {}
+        for name, c, batches in cases:
+            mesh = make_mesh(c.mesh, dev)
+            state = create_sharded_state(c, mesh, {
+                tw: {k: v.clone() for k, v in tp.items()}
+                for tw, tp in g_init_params(inits, c, dev).items()})
+            step = make_parallel_train_step(c, mesh)
+            tb = [batch_to_device(b, dev).to_device() for b in batches]
+            for b in tb[:2]:  # the capture, then a replay
+                state, _ = step(state, b)
+            ready.append((name, step, state, tb[2]))
+        del inits
+        torch.cuda.synchronize()
+        print("ready", flush=True)  # the parent times nothing before this
+        if sys.stdin.readline().strip() != "go":
+            return 1
+        out = {}
+        for name, step, state, b in ready:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state, _ = step(state, b)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            events = {e.key: (e.count, float(getattr(
+                e, "self_device_time_total", 0.0)))
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+            busy = sum(us for _, us in events.values())
+            out[name] = dict(
+                graphs=step.num_graphs,
+                traced_device_busy_ms=busy / 1e3 if busy else None,
+                traced_wall_ms=wall * 1e3,
+                device_busy_share_traced=busy / 1e6 / wall if busy else None,
+                device_events=len(events),
+                nccl={k: dict(count=n, us=us) for k, (n, us) in events.items()
+                      if "nccl" in k.lower()},
+                copies={k: dict(count=n, us=us)
+                        for k, (n, us) in events.items()
+                        if "memcpy" in k.lower() or "memset" in k.lower()})
+        print(json.dumps(out))
+        return 0
+    finally:
+        ready.clear()
+        pdist.shutdown()
+
+
 def main() -> int:
     import torch
 
@@ -476,7 +574,15 @@ def main() -> int:
 
     dev = resolve_device(cpu=False)
     Event = torch.cuda.Event
+    t_run, laps = time.perf_counter(), {}
 
+    def lap(phase):
+        """Phase `phase` starts now: the run's seconds so far, printed
+        before the kernels line (where to cut when the run nears its
+        limit)."""
+        laps[phase] = round(time.perf_counter() - t_run, 1)
+
+    lap("1")
     # ---- phase 1: the card, and the kernels' build ----------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -603,6 +709,7 @@ def main() -> int:
             times.append(a.elapsed_time(b) / reps)
         return statistics.median(times)
 
+    lap("2")
     # ---- phase 2: the serving kernels against their plain versions -------
     cfg = validate(get_preset("full"))
     t = cfg.tower
@@ -857,6 +964,7 @@ def main() -> int:
               f"({r['bound_by']}), max err {r['max_abs_err']:.3g} "
               f"[{r['shape']}] on {card}")
 
+    lap("3")
     # ---- phase 3: the training kernels against their plain versions -----
     # Inputs are the first batch of the training stream (built below as
     # cli/train builds it), so slots, weights and live lookups are the
@@ -1318,6 +1426,7 @@ def main() -> int:
     )
     del tbl_k
 
+    lap("3b")
     # ---- phase 3b: the low-precision table kernels and the rank count ----
     # Tables of the full shape in bf16 (16-row groups) and int8 (32-row
     # groups); slots are the first batch's own `uniq` of a stream deduped at
@@ -1665,6 +1774,7 @@ def main() -> int:
               f"{r['max_abs_err']:.3g} (tolerance {r['tolerance']}) "
               f"[{r['shape']}] on {card}")
 
+    lap("3c")
     # ---- phase 3c: the raw-index embedding bag ---------------------------
     # At the shapes of the raw-index lookups of the cnn preset (word rows
     # [1024, 16, 8] into Wc [30000, 1024]), the lstm preset (into Win
@@ -2019,6 +2129,7 @@ def main() -> int:
         print(f"embedding bag, {case} shapes, {dname} table: " + json.dumps(
             {k: v for k, v in r_.items()}) + f" on {card}")
 
+    lap("4")
     # ---- phase 4: the training path at full width ------------------------
     def clone_params(p):
         return {tw: {k: v.clone() for k, v in tp_.items()}
@@ -2359,6 +2470,7 @@ def main() -> int:
                  "bwd_reduce_kernel"))  # the 2 count_lookup_bwd calls a step
     del params_ps, ps
 
+    lap("4b")
     # ---- phase 4b: the same path on a bf16 and on an int8 table ----------
     # Fresh seeded weights through the entry point (init_params casts or
     # quantizes the table), the stream deduped at the dtype's group size,
@@ -2436,6 +2548,7 @@ def main() -> int:
                         ("scatter_sr_kernel",))
         del params_lp, run
 
+    lap("4c")
     # ---- phase 4c: evaluation of the three trained models -----------------
     # The held-out split of the smoke corpus through evaluate(): both
     # towers over every batch, then the rank count. Kernels against plain
@@ -2521,6 +2634,7 @@ def main() -> int:
     eval_mod._EVAL_CACHES.clear()
     del lowprec_runs, eval_models
 
+    lap("5")
     # ---- phase 5: train -> save -> restore ---------------------------------
     t0 = time.perf_counter()
     ckpt = Checkpointer(workdir)
@@ -2541,6 +2655,7 @@ def main() -> int:
     tmp_dir.cleanup()
     del tr, restored, state_prof
 
+    lap("6")
     # ---- phase 6: the serving path, from the restored weights -----------
     t0 = time.perf_counter()
     titles = list(dict.fromkeys(pairs.titles))[
@@ -2683,6 +2798,7 @@ def main() -> int:
     print("device time by kernel in the traced forward (us, "
           f"{len(dev_batches)} batches): " + json.dumps(top))
 
+    lap("6b")
     # ---- phase 6b: the cnn and lstm presets at full width ----------------
     # Each preset trains SEQ_STEPS steps from its seeded fresh init on the
     # union-dedupe branch (the kernels of the mlp joint branch but the
@@ -2976,6 +3092,7 @@ def main() -> int:
           f", launches {dict((k, v) for k, v in grad_counts.items() if v)}")
     del p_g, b_g, grads_g
 
+    lap("6c")
     # ---- phase 6c: the host plane: C++ against plain, the thread pool ----
     # The C++ host data plane (data/native.py) against its plain Python /
     # numpy versions: the hashing of both toy corpora and the dedupe of the
@@ -3178,6 +3295,7 @@ def main() -> int:
           f"as cli.train; on {card}): " + json.dumps(stream_runs))
     del state_s, seq_state, state_, serial_ref, pooled_cached, fixed_
 
+    lap("6d")
     # ---- phase 6d: the dense-table step and K steps a call ---------------
     # The full preset off the sparse path (train.sparse_embed_update=False,
     # or adam with the sgd table optimizer), on raw-index batches of the
@@ -3474,6 +3592,7 @@ def main() -> int:
           f"version to {oob_err:.3g}")
     del params_d, oob, oob_k, oob_dead, oob_p
 
+    lap("6e")
     # ---- phase 6e: the multi-device path on one card ---------------------
     # The multihost preset at model_parallel = 1 (what dssm_tpu runs on one
     # device): its full width (500k x 384 f32 table, 300->300->128 bf16),
@@ -3484,22 +3603,15 @@ def main() -> int:
     # batch, so the epoch cache replays the first. The path's kernels at
     # its shapes against their plain versions; MH_STEPS steps through the
     # kernels (the counts reset just before and read just after), their
-    # steps/s and peak memory; MH_TRACED more traced. Then the parallel
-    # step over a real NCCL group of one process against the
-    # single-device step from one state (f32 wire: bit-equal), and the
+    # steps/s and peak memory; MH_TRACED more traced. Then the
     # shard-local bodies of the mp = 2 table (kernels/sharded_embed.py),
     # both shards in this process, summed by hand against the unsharded
-    # kernels.
+    # kernels. (The parallel step over an NCCL group of one: phase 6j.)
     from dssm_tpu_torch.data.loader import reslot_local
     from dssm_tpu_torch.kernels.gather import sublane_group
     from dssm_tpu_torch.kernels.sharded_embed import (
         embedding_bag_local, gather_compact_local, scatter_add_groups_local,
         scatter_sr_groups_local)
-    from dssm_tpu_torch.parallel import dist as pdist
-    from dssm_tpu_torch.parallel.mesh import make_mesh
-    from dssm_tpu_torch.parallel.train_step import (
-        create_sharded_state, make_parallel_train_step)
-
     cfg_mh = validate(get_preset("multihost").replace(
         mesh=get_preset("multihost").mesh.replace(model_parallel=1)))
     tm, dm = cfg_mh.tower, cfg_mh.data
@@ -3754,54 +3866,6 @@ def main() -> int:
         traced_wall_ms_per_step=mh_traced["wall_ms_per_step"])
     print("multihost training path, mp = 1: " + json.dumps(mh_summary))
 
-    # The parallel step over an NCCL group of one against the single-device
-    # step, from one state, on an f32 wire: bit-equal.
-    import socket
-
-    cfg_w = validate(cfg_mh.replace(mesh=cfg_mh.mesh.replace(
-        collective_dtype="float32")))
-    with socket.socket() as s_:
-        s_.bind(("127.0.0.1", 0))
-        port_ = s_.getsockname()[1]
-    t0 = time.perf_counter()
-    pdist.initialize(f"127.0.0.1:{port_}", 1, 0)
-    mesh1 = make_mesh(cfg_w.mesh, dev)
-    nccl_init_s = time.perf_counter() - t0
-    try:
-        check(mesh1.groups["data"] is not None
-              and torch.distributed.get_backend() == "nccl",
-              "world-1 parallel step: no NCCL group")
-        s_a = create_run_state(cfg_w, clone_params(params_mh))
-        s_b = create_sharded_state(cfg_w, mesh1, clone_params(params_mh))
-        single_fn = make_train_step(cfg_w)
-        par_fn = make_parallel_train_step(cfg_w, mesh1)
-        w1_ms = {"single": [], "parallel": []}
-        for _ in range(2):
-            for what, fn in (("single", single_fn), ("parallel", par_fn)):
-                st_ = s_a if what == "single" else s_b
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                st_, aux_ = fn(st_, batch_to_torch(mh_np, dev))
-                torch.cuda.synchronize()
-                w1_ms[what].append((time.perf_counter() - t0) * 1e3)
-                if what == "single":
-                    s_a, loss_a = st_, float(aux_["loss"])
-                else:
-                    s_b, loss_b = st_, float(aux_["loss"])
-            check(loss_a == loss_b, f"world-1 parallel step: loss {loss_b} "
-                  f"against the single-device step's {loss_a}")
-        for k_, v_ in s_a.params["shared"].items():
-            check(torch.equal(v_, s_b.params["shared"][k_]),
-                  f"world-1 parallel step: {k_} differs from the "
-                  "single-device step's")
-    finally:
-        pdist.shutdown()
-    del s_a, s_b
-    print(f"parallel step over an NCCL group of one, f32 wire, 2 steps from "
-          f"one state: bit-equal to the single-device step; wall ms a step "
-          f"{json.dumps(w1_ms)} (NCCL init and groups {nccl_init_s:.2f} s) "
-          f"on {card}")
-
     # The shard-local bodies of the mp = 2 table, both shards here.
     rows_half = tm.vocab_size // 2
     shards = [table_mh[m * rows_half:(m + 1) * rows_half].clone()
@@ -3847,6 +3911,7 @@ def main() -> int:
     del s_mh, params_mh, table_mh, tbm, mh_fields, lq_mk, ld_mk, c_mk
 
 
+    lap("6f")
     # ---- phase 6f: a dssm_tpu workdir on the card ------------------------
     # tests/fixtures/dssm_tpu_workdir, written by dssm_tpu on the CPU
     # (tests/fixtures/make_dssm_tpu_workdir.py): the full preset's widths
@@ -4051,6 +4116,7 @@ def main() -> int:
           f"{agree:.4f} on {card}")
     del d_top, q_top
 
+    lap("6g")
     # ---- phase 6g: configurations no earlier phase ran -------------------
     # At the presets' widths, from seeded fresh inits: per-side cnn and lstm
     # steps (the count lookup's backward at Wc's 1024 and Win's 384
@@ -4403,6 +4469,7 @@ def main() -> int:
           f"{time.perf_counter() - t0_g:.1f} s")
     del g_batches
 
+    lap("6h")
     # ---- phase 6h: the compiled step --------------------------------------
     # On the card make_train_step's step is a captured CUDA graph replayed
     # on the state's own tensors, updated in place (train/compiled.py:
@@ -4661,6 +4728,7 @@ def main() -> int:
           f"{time.perf_counter() - t0_h:.1f} s")
     del h_batches
 
+    lap("6i")
     # ---- phase 6i: eval's and serving's dispatch --------------------------
     # On the card an eval pass is one replay a K-batch block of the stacked
     # forward's CUDA graph (train/eval.py::EMBED_STACKED, dssm_tpu's jitted
@@ -4989,6 +5057,288 @@ def main() -> int:
           f"{time.perf_counter() - t0_i:.1f} s")
     del pairs_i, hashed_i, i_corpora, seq_big
 
+    lap("6j")
+    # ---- phase 6j: the parallel steps compiled -----------------------------
+    # On the card make_parallel_train_step's step is a captured CUDA graph
+    # with its NCCL collectives inside, replayed on the state's own tensors
+    # (parallel/, train/compiled.py: dssm_tpu's jitted, donated parallel
+    # step), make_parallel_multi_step's K steps one graph of K bodies. The
+    # card forms only an NCCL group of one (NCCL refuses two ranks on one
+    # GPU), whose data and model groups are real process groups: the
+    # sparse step's graph holds the g_basis all-reduce and the dense
+    # gradients' all-reduce. On it, from seeded fresh inits: the multihost
+    # preset at model_parallel = 1 on its bf16 wire, `full` f32 joint, and
+    # the dense-table step with sgd and adam take the calls of H_ORDER
+    # compiled and eager (the parallel body run eagerly) from one state in
+    # lockstep, and, on an f32 wire, the single-device compiled step too:
+    # after every call the states bit-equal (the dense step's index_add_
+    # atomics: within H_ATOMICS_TOL of its update) and the launches equal.
+    # Then K_CALL steps a call (the second block a replay) against K = 1;
+    # steps/s compiled and eager in turns (median, min, max of H_REPEATS);
+    # the first compiled call's peak above resident and its pool. One
+    # replay of each is traced in a process of its own, with the NCCL
+    # kernels it holds as the trace names them. At the end, cli.train
+    # --preset=full under DSSM_COORDINATOR / DSSM_NUM_PROCS=1 /
+    # DSSM_PROC_ID=0 at K = 1 and K_CALL against the single-process run:
+    # the same records.
+    from dssm_tpu_torch.parallel import dist as pdist
+    from dssm_tpu_torch.parallel.mesh import make_mesh
+    from dssm_tpu_torch.parallel.train_step import (
+        create_sharded_state, make_eager_parallel_train_step,
+        make_parallel_multi_step, make_parallel_train_step)
+    from dssm_tpu_torch.train.compiled import state_tensors
+
+    t0_j = time.perf_counter()
+    nccl_v = torch.cuda.nccl.version()
+    nccl_version = (".".join(map(str, nccl_v)) if isinstance(nccl_v, tuple)
+                    else str(nccl_v))
+    cfg_mhw = validate(cfg_mh.replace(mesh=cfg_mh.mesh.replace(
+        collective_dtype="float32")))
+    full_np_j = h_stream(cfg, hashed_train)
+    dense_np_j = h_stream(cfg_dense, hashed_train)
+    j_cases = [  # (name, config, batches, bit-equal, steps a timed repeat)
+        ("multihost bf16 wire", cfg_mh, [mh_np] * 3, True, J_MH_TIMED),
+        ("multihost f32 wire", cfg_mhw, [mh_np] * 3, True, 0),
+        ("full f32 joint", cfg, full_np_j, True, J_TIMED),
+        ("dense sgd", cfg_dense, dense_np_j, False, J_TIMED),
+        ("dense adam", cfg_adam, dense_np_j, False, J_TIMED)]
+    j_tmp = tempfile.TemporaryDirectory(prefix="dssm_smoke_nccl_")
+    with open(os.path.join(j_tmp.name, "cases.pkl"), "wb") as f:
+        pickle.dump([(name, c, (b_np * 3)[:3]) for name, c, b_np, _, _ in
+                     j_cases if name != "multihost f32 wire"], f)
+    j_trace_err = tempfile.TemporaryFile(mode="w+")
+    j_tracer = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--trace-parallel",
+         os.path.join(j_tmp.name, "cases.pkl")], stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=j_trace_err, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def j_tracer_failed(what_):
+        j_trace_err.seek(0)
+        return (f"phase 6j: the traced replays' process {what_}: "
+                f"{j_trace_err.read()[-3000:]}")
+    pdist.initialize(f"file://{j_tmp.name}/init", 1, 0)
+    j_summary, j_inits = {}, {}
+    try:
+        mesh_j = make_mesh(cfg.mesh, dev)
+        check(mesh_j.groups["data"] is not None
+              and torch.distributed.get_backend() == "nccl",
+              "phase 6j: no NCCL group of one")
+        for name, c, b_np, exact, timed in j_cases:
+            what = f"phase 6j, {name}"
+            init_ = g_init_params(j_inits, c, dev)
+            steps = {"compiled": make_parallel_train_step(c, mesh_j)}
+            if timed:
+                steps["eager"] = make_eager_parallel_train_step(c, mesh_j)
+            if c.mesh.collective_dtype == "float32":
+                steps["single"] = make_train_step(c)
+            states = {m: create_run_state(c, clone_params(init_))
+                      if m == "single" else
+                      create_sharded_state(c, mesh_j, clone_params(init_))
+                      for m in steps}
+            where = {m: [t_.data_ptr() for t_ in state_tensors(s_)]
+                     for m, s_ in states.items()}
+            order = H_ORDER if timed else (0, 1, 2)
+            worst, peaks, auxes = 0.0, {}, {m: [] for m in steps}
+            launches = {}
+            for j_, i_ in enumerate(order):
+                counts_ = {}
+                for m in steps:
+                    tb_ = (batch_to_torch if m == "eager" else
+                           batch_to_device)(b_np[i_ % len(b_np)], dev,
+                                            vocab_size=c.tower.vocab_size)
+                    torch.cuda.synchronize()
+                    if j_ == 0:
+                        torch.cuda.empty_cache()
+                    resident_ = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    _build.reset_launch_counts()
+                    states[m], aux_ = steps[m](states[m], tb_)
+                    torch.cuda.synchronize()
+                    counts_[m] = {k_: v_ for k_, v_ in
+                                  _build.launch_counts().items() if v_}
+                    if j_ == 0:
+                        peaks[m] = dict(peak_above_resident_gb=(
+                            torch.cuda.max_memory_allocated()
+                            - resident_) / 1e9)
+                    auxes[m].append(aux_)
+                # (the single-device joint step fuses the gather into its
+                # lookup, the parallel one gathers first: other launches)
+                check(counts_["compiled"] and counts_.get(
+                    "eager", counts_["compiled"]) == counts_["compiled"],
+                    f"{what}, call {j_ + 1}: launches {counts_}")
+                for m in steps:
+                    worst = max(worst, state_gap(states["compiled"],
+                                                 states[m], init_,
+                                                 f"{what} against {m}",
+                                                 exact))
+                check(int(states["compiled"].step) == j_ + 1
+                      == states["compiled"].host_step,
+                      f"{what}: step counter after call {j_ + 1}")
+                for n_, v_ in counts_["compiled"].items():
+                    launches[n_] = launches.get(n_, 0) + v_
+            check(steps["compiled"].num_graphs == 1,
+                  f"{what}: {steps['compiled'].num_graphs} graphs captured")
+            for m, s_ in states.items():
+                check([t_.data_ptr() for t_ in state_tensors(s_)] == where[m],
+                      f"{what}: the {m} step put new tensors into the state")
+            aux_gap = max(abs(float(a_[k_]) - float(e_[k_]))
+                          for m in steps for a_, e_ in
+                          zip(auxes["compiled"], auxes[m]) for k_ in e_)
+            check((aux_gap == 0.0) if exact else worst <= H_ATOMICS_TOL,
+                  f"{what}: compiled and eager / single-device part: aux "
+                  f"{aux_gap}, updates {worst} of themselves apart")
+            peaks["compiled"]["pool_gb"] = steps["compiled"].pool_bytes / 1e9
+            for n_, v_ in launches.items():
+                results[n_].setdefault("launches_parallel", {})[name] = v_
+            j_summary[name] = dict(
+                card=card, nccl=nccl_version, calls=len(order),
+                against=[m for m in steps if m != "compiled"],
+                compared="bit-equal" if exact else dict(
+                    update_gap=worst, aux_gap=aux_gap),
+                launches_per_call=counts_["compiled"],
+                first_call_memory=peaks)
+            if timed:
+                # K_CALL steps a call (two blocks: the second a replay)
+                # against K = 1, compiled, from one state.
+                k_np = [b_np[i_ % len(b_np)] for i_ in range(2 * K_CALL)]
+                ends = {}
+                for k_ in (1, K_CALL):
+                    fn_ = (make_parallel_train_step(c, mesh_j) if k_ == 1
+                           else make_parallel_multi_step(c, mesh_j))
+                    st_ = create_sharded_state(c, mesh_j, clone_params(init_))
+                    units_ = ([batch_to_device(b_, dev) for b_ in k_np]
+                              if k_ == 1 else
+                              [batch_to_device(stack_batches(
+                                  k_np[i_:i_ + K_CALL]), dev)
+                               for i_ in (0, K_CALL)])
+                    for u_ in units_:
+                        _build.reset_launch_counts()
+                        st_, aux_ = fn_(st_, u_)
+                    torch.cuda.synchronize()
+                    # The last call a replay: its launches k_ steps'.
+                    check(fn_.num_graphs == 1 and {
+                        k2: v2 for k2, v2 in _build.launch_counts().items()
+                        if v2} == {k2: v2 * k_ for k2, v2 in
+                                   counts_["compiled"].items()}
+                        and int(st_.step) == 2 * K_CALL,
+                        f"{what}, K={k_}: {fn_.num_graphs} graphs, launches "
+                        f"{_build.launch_counts()} in the last call")
+                    ends[k_] = st_
+                    del fn_
+                k_gap = state_gap(ends[K_CALL], ends[1], init_,
+                                  f"{what}, K={K_CALL} against K=1", exact)
+                check(k_gap <= H_ATOMICS_TOL, f"{what}: K={K_CALL} against "
+                      f"K=1: updates {k_gap} of themselves apart")
+                del ends
+                # Steps/s on batches made ahead, compiled and eager in
+                # turns.
+                t_np = [b_np[i_ % len(b_np)] for i_ in range(timed)]
+                made = {"compiled": [batch_to_device(b_, dev).to_device()
+                                     for b_ in t_np],
+                        "eager": [batch_to_torch(b_, dev) for b_ in t_np]}
+                if name == "multihost bf16 wire":
+                    # The tracer's captures are done before any timing.
+                    check(j_tracer.stdout.readline().strip() == "ready",
+                          j_tracer_failed("did not start"))
+                rates = {m: [] for m in made}
+                for _ in range(H_REPEATS):
+                    for m in ("compiled", "eager"):
+                        torch.cuda.synchronize()
+                        t1_ = time.perf_counter()
+                        for tb_ in made[m]:
+                            states[m], aux_ = steps[m](states[m], tb_)
+                        float(aux_["loss"])
+                        torch.cuda.synchronize()
+                        rates[m].append(timed / (time.perf_counter() - t1_))
+                check(steps["compiled"].num_graphs == 1,
+                      f"{what}: a timed batch was captured anew")
+                j_summary[name].update(
+                    k_call=dict(k=K_CALL, steps=2 * K_CALL,
+                                compared=("bit-equal" if exact else
+                                          dict(update_gap=k_gap))),
+                    steps_per_s={m: dict(median=statistics.median(r_),
+                                         min=min(r_), max=max(r_))
+                                 for m, r_ in rates.items()})
+                del made
+            print(f"{what}: " + json.dumps(j_summary[name]))
+            del steps, states, auxes
+        del j_inits
+    finally:
+        pdist.shutdown()
+    torch.cuda.synchronize()
+    try:
+        traced_out, _ = j_tracer.communicate("go\n", timeout=600)
+    finally:
+        if j_tracer.poll() is None:
+            j_tracer.kill()
+            j_tracer.communicate()
+    check(j_tracer.returncode == 0, j_tracer_failed("failed"))
+    j_trace_err.close()
+    traced_j = json.loads(traced_out.strip().splitlines()[-1])
+    for name, tr_ in traced_j.items():
+        check(tr_["graphs"] == 1, f"phase 6j, traced {name}: "
+              f"{tr_['graphs']} graphs")
+        j_summary[name]["traced"] = tr_
+    print(f"phase 6j, traced (one replay each after a capture and a "
+          f"replay, one process of its own, NCCL {nccl_version}) on {card}: "
+          + json.dumps(traced_j))
+
+    # cli.train --preset=full under DSSM_* (a world-1 NCCL group, the
+    # compiled parallel step on wire blocks) and in one process, at K = 1
+    # and K_CALL: the same records (the timing keys aside).
+    from dssm_tpu_torch.cli import train as cli_train_j
+
+    def j_values(r_):
+        """A record's values but its clock and durations."""
+        return {q: v for q, v in r_.items()
+                if q != "time" and not q.endswith(("_s", "_ms", "_sec"))}
+
+    j_cli = {}
+    for k_ in (1, K_CALL):
+        recs_ = {}
+        for how in ("one process", "world 1"):
+            work_ = tempfile.mkdtemp(prefix="dssm_smoke_j_cli_",
+                                     dir=j_tmp.name)
+            env_ = ({"DSSM_COORDINATOR": f"file://{work_}/init",
+                     "DSSM_NUM_PROCS": "1", "DSSM_PROC_ID": "0"}
+                    if how == "world 1" else {})
+            os.environ.update(env_)
+            try:
+                cli_train_j.main([
+                    "--preset=full", f"--io.workdir={work_}",
+                    f"--data.toy_num_pairs={CLI_PAIRS}",
+                    f"--train.max_steps={J_CLI_STEPS}",
+                    "--train.log_every=1", "--train.eval_every=12",
+                    f"--train.steps_per_call={k_}"])
+            finally:
+                for v_ in env_:
+                    os.environ.pop(v_)
+            check(not torch.distributed.is_initialized(),
+                  f"cli.train {how}: the process group outlived the run")
+            with open(os.path.join(work_, cfg.io.metrics_file)) as f:
+                recs_[how] = [json.loads(line) for line in f]
+        one_, w1_ = recs_["one process"], recs_["world 1"]
+        check([(r_["tag"], r_["step"]) for r_ in w1_]
+              == [(r_["tag"], r_["step"]) for r_ in one_]
+              and all(j_values(a_) == j_values(b_)
+                      for a_, b_ in zip(w1_, one_)),
+              f"cli.train at K={k_}: the world-1 records differ from the "
+              f"one-process run's: {w1_} against {one_}")
+        j_cli[f"K={k_}"] = {
+            how: dict(records=len(r_), steps_per_s=statistics.median(
+                [x["steps_per_sec"] for x in r_
+                 if x["tag"] == "train"][1:]))
+            for how, r_ in recs_.items()}
+    j_summary["cli.train"] = j_cli
+    print(f"phase 6j, cli.train --preset=full, {J_CLI_STEPS} steps, world-1 "
+          f"NCCL against one process: the same records; steps/s (median of "
+          f"the train records after the first) {json.dumps(j_cli)} on {card}")
+    j_tmp.cleanup()
+    print(f"phase 6j: {len(j_cases)} configurations in "
+          f"{time.perf_counter() - t0_j:.1f} s")
+
+    lap("7")
     # ---- phase 7: the same path through the command-line entry points ----
     # cli.train in this process: the full preset on a toy corpus cut to
     # CLI_PAIRS pairs, first on the f32 table (CLI_STEPS steps and the final
@@ -5477,6 +5827,7 @@ def main() -> int:
           f"run's final eval (recall@1 {reported['recall@1']:.4f}) on {card}")
     mh_dir.cleanup()
 
+    lap("7b")
     # ---- phase 7b: the tooling -------------------------------------------
     # (a) cli.train --preset=full with the profiler hook and TensorBoard,
     # TOOL_STEPS steps on CLI_PAIRS toy pairs, an eval every TOOL_EVAL
@@ -5589,6 +5940,7 @@ def main() -> int:
               f"({time.perf_counter() - t0:.1f} s, its own process):")
         print(run_.stdout.strip())
 
+    lap("8")
     # ---- phase 8: the kernels line, then the result line ----------------
     # Every kernel of the build holds its comparison and a launch count from
     # a main path's run.
@@ -5604,8 +5956,9 @@ def main() -> int:
         row["kernel_ms"] = r["ms"]
         row["eager_ms"] = r["eager_ms"]
         row.update({k: v for k, v in r.items() if k.startswith("ms_")
-                    or k.endswith("_multihost")})
+                    or k.endswith("_multihost") or k == "launches_parallel"})
         kernels.append(row)
+    print("phase start seconds: " + json.dumps(laps))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5618,4 +5971,6 @@ if __name__ == "__main__":
         sys.exit(trace_steps(sys.argv[2]))
     if sys.argv[1:2] == ["--trace-evals"]:
         sys.exit(trace_evals(sys.argv[2]))
+    if sys.argv[1:2] == ["--trace-parallel"]:
+        sys.exit(trace_parallel(sys.argv[2]))
     sys.exit(main())

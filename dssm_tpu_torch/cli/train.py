@@ -32,11 +32,12 @@ dense-table step on raw-index batches of an f32 table. With
 --train.steps_per_call=K > 1 it runs blocks of K steps (stacked in a
 background thread) while K steps remain, then single steps; its log, eval
 and checkpoint records land on a block's last step, where step % every < K,
-as dssm_tpu's do. On one GPU a step, or a block of K, is one replay of a
+as dssm_tpu's do. On the GPU a step, or a block of K, is one replay of a
 captured CUDA graph (train/compiled.py: the state updated in place on the
-card, as dssm_tpu's jitted step donates it); with --cpu the same step body
-runs eagerly. At most train.max_inflight_steps steps or blocks are queued
-on the card before the loop waits for the oldest.
+card, as dssm_tpu's jitted step donates it; on a mesh the NCCL collectives
+inside the graph); with --cpu the same step body runs eagerly. At most
+train.max_inflight_steps steps or blocks are queued on the card before the
+loop waits for the oldest.
 
 --io.tensorboard=true mirrors the records' scalars to TensorBoard event
 files under <workdir>/tb/<tag> and writes a `weights` record
@@ -51,7 +52,8 @@ DSSM_NUM_PROCS and DSSM_PROC_ID set, one process a GPU runs the same command
 (parallel/dist.py: NCCL on the GPU, gloo with --cpu): the processes form a
 data_parallel x model_parallel mesh (--mesh.*), each loads its data
 coordinate's shard of every batch and, at model_parallel > 1, its rows of
-the table, and trains with the parallel step (parallel/train_step.py);
+the table, and trains with the compiled parallel step
+(parallel/train_step.py), fed wire blocks as on one GPU;
 process 0 saves the remap, writes the records and the checkpoints (the
 table gathered whole, so cli.eval and cli.export read the workdir as a
 single-device one) and runs the evals. A joint-dedupe batch gets a
@@ -76,7 +78,7 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     import torch
 
-    from dssm_tpu_torch.bridge import batch_to_device, batch_to_torch
+    from dssm_tpu_torch.bridge import batch_to_device
     from dssm_tpu_torch.config import get_preset
     from dssm_tpu_torch.config import validate as validate_cfg
     from dssm_tpu_torch.data import (
@@ -210,17 +212,16 @@ def main(argv: Optional[List[str]] = None) -> None:
         cache_epoch_batches=cfg.data.cache_epoch_batches,
     ), depth=2))
     spc = cfg.train.steps_per_call
+    # Compiled: on the GPU a replayed CUDA graph a step or a block (on a
+    # mesh with its NCCL collectives inside), which copies the batch's wire
+    # block into static buffers and widens it inside the graph
+    # (train/compiled.py).
     if mesh:
         step_fn = make_parallel_train_step(cfg, mesh)
         multi_fn = make_parallel_multi_step(cfg, mesh) if spc > 1 else None
-        to_device = batch_to_torch
     else:
-        # Compiled: on the GPU a replayed CUDA graph a step or a block,
-        # which copies the batch's wire block into static buffers and
-        # widens it inside the graph (train/compiled.py).
         step_fn = make_train_step(cfg)
         multi_fn = make_multi_train_step(cfg) if spc > 1 else None
-        to_device = batch_to_device
     # The table's global rows, which a raw batch's lookups must lie in.
     rows = cfg.tower.vocab_size
     # The bounded in-flight window (train.max_inflight_steps): an event
@@ -282,13 +283,13 @@ def main(argv: Optional[List[str]] = None) -> None:
                     add_rotation_offsets(next(batches), cfg, step + j)
                     for j in range(spc))
             state, auxes = multi_fn(
-                state, to_device(stacked, device, vocab_size=rows))
+                state, batch_to_device(stacked, device, vocab_size=rows))
             aux = {k: v[-1] for k, v in auxes.items()}
             step += spc - 1  # the records below land on the block's last step
         else:
             batch = add_rotation_offsets(next(batches), cfg, step)
             state, aux = step_fn(
-                state, to_device(batch, device, vocab_size=rows))
+                state, batch_to_device(batch, device, vocab_size=rows))
         if device.type == "cuda":
             inflight.append(torch.cuda.Event())
             inflight[-1].record()

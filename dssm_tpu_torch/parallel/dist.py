@@ -19,6 +19,24 @@ field, the batch-wide dedupe fields whole) and the collectives are explicit
 (all_reduce, AllReduceSum, AllGather). A collective over a group of None
 (no process group) is the identity. Counterpart of
 dssm_tpu/parallel/dist.py.
+
+The collectives can be captured into a CUDA graph (train/compiled.py
+captures the parallel steps with their NCCL collectives inside): none reads
+a value back, waits on the host or hands out async work to wait on. Three
+rules keep it so:
+
+  - TORCH_NCCL_BLOCKING_WAIT stays unset: a blocking wait blocks the host
+    on the collective's event, which a stream under capture cannot do;
+  - NCCL_GRAPH_MIXING_SUPPORT keeps its default of 1: the same
+    communicators run captured collectives (the steps) and eager ones
+    (gather_tree, the checkpoints' barriers);
+  - NCCL creates a group's communicator at the group's first collective,
+    which a capture cannot hold. The compiled step runs its body once
+    before it captures it (a real step), which reaches every collective
+    the graph holds; a collective on a group that has run none yet in this
+    process, issued under capture, raises (_enter) rather than hang.
+
+check_graph_safe() raises when either variable says otherwise.
 """
 
 from __future__ import annotations
@@ -36,6 +54,10 @@ from dssm_tpu_torch.device import as_device
 
 # How long a collective waits for its peers before it raises.
 TIMEOUT = datetime.timedelta(minutes=10)
+
+# The ids of the groups that have run a collective in this process (their
+# communicators exist); cleared by shutdown().
+_LIVE_GROUPS: set = set()
 
 
 def initialize(coordinator: Optional[str] = None,
@@ -96,6 +118,38 @@ def barrier() -> None:
 def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
+    _LIVE_GROUPS.clear()
+
+
+def check_graph_safe() -> None:
+    """Raise when the environment keeps NCCL collectives out of a CUDA
+    graph (the module docstring): TORCH_NCCL_BLOCKING_WAIT set, or
+    NCCL_GRAPH_MIXING_SUPPORT=0."""
+    for var in ("TORCH_NCCL_BLOCKING_WAIT", "NCCL_BLOCKING_WAIT"):
+        if os.environ.get(var, "0") not in ("", "0"):
+            raise RuntimeError(
+                f"{var}={os.environ[var]}: a blocking wait cannot run while "
+                "a stream is captured, and the parallel steps are captured "
+                "CUDA graphs; unset it")
+    if os.environ.get("NCCL_GRAPH_MIXING_SUPPORT", "1") == "0":
+        raise RuntimeError(
+            "NCCL_GRAPH_MIXING_SUPPORT=0: the parallel steps' captured "
+            "collectives share their communicators with eager ones "
+            "(gather_tree, barriers); leave it at its default of 1")
+
+
+def _enter(group) -> None:
+    """Before a collective on `group`: under a CUDA graph capture the
+    group's communicator must exist already (a warm step ran its
+    collectives), since creating one cannot be captured."""
+    if (id(group) not in _LIVE_GROUPS and torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError(
+            "a collective on a process group that has run none in this "
+            "process, under CUDA graph capture: its NCCL communicator "
+            "would be created inside the graph. Run the step once eagerly "
+            "first (train/compiled.py's warm step does)")
+    _LIVE_GROUPS.add(id(group))
 
 
 def is_batch_wide(key: str) -> bool:
@@ -151,6 +205,7 @@ def all_reduce(t: torch.Tensor, group, wire_dtype: Optional[torch.dtype] = None
     wire_dtype the sum rides that dtype and is widened back to t's."""
     if group is None:
         return t
+    _enter(group)
     if wire_dtype is not None and wire_dtype != t.dtype:
         w = t.to(wire_dtype)
         dist.all_reduce(w, group=group)
@@ -166,6 +221,7 @@ def all_reduce_tree(tree: Dict, group) -> Dict:
     buffer)."""
     if group is None:
         return tree
+    _enter(group)
     leaves = [(t, k) for t, tp in tree.items() for k in tp]
     out = {t: {} for t in tree}
     by_dtype: Dict[torch.dtype, list] = {}
@@ -186,6 +242,7 @@ def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     """[n * B, ...]: the group's ranks' t stacked in rank order."""
     if group is None:
         return t
+    _enter(group)
     n = dist.get_world_size(group)
     out = torch.empty((n * t.shape[0], *t.shape[1:]), dtype=t.dtype,
                       device=t.device)
@@ -197,6 +254,7 @@ def reduce_scatter_rows(t: torch.Tensor, group) -> torch.Tensor:
     """[B, ...]: this rank's block of rows of t summed over `group`."""
     if group is None:
         return t
+    _enter(group)
     n = dist.get_world_size(group)
     out = torch.empty((t.shape[0] // n, *t.shape[1:]), dtype=t.dtype,
                       device=t.device)

@@ -21,18 +21,22 @@ its model shard of the table. A step:
     transpose; or the compact gradients) and the dense gradients. The mp
     ranks of one data coordinate hold the same batch shard and compute the
     same gradients, so nothing is summed over the whole world;
-  - updates its table shard in place (the scatters on the groups it owns;
-    the stochastic-rounding stream seeded step * 4 * mp + shard ...) and
-    the replicated dense parameters.
+  - updates, in place, its table shard (the scatters on the groups it
+    owns; the stochastic-rounding stream seeded (step * 4 + ix) * mp +
+    shard from the device step counter), the replicated dense parameters
+    and their optimizer state, and the step counter.
 
-With no process group (one process) or at world size 1 it computes what
-train/sparse_update.py's step computes; at world size 1 bit for bit on an
-f32 wire. Counterpart of dssm_tpu/parallel/sparse_step.py.
+The body is in place and reads nothing back, so the compiled step
+(train/compiled.py) captures it, its NCCL collectives inside the graph,
+as dssm_tpu jits its body with the state donated. With no process group
+(one process) or at world size 1 it computes what train/sparse_update.py's
+body computes; at world size 1 bit for bit on an f32 wire. Counterpart of
+dssm_tpu/parallel/sparse_step.py.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict
 
 import torch
 
@@ -46,12 +50,13 @@ from dssm_tpu_torch.kernels.sharded_embed import (
 from dssm_tpu_torch.loss.cosine_softmax import (
     in_batch_loss, in_batch_loss_sharded, rotate_loss, rotate_loss_sharded)
 from dssm_tpu_torch.models.base import TABLE_KEY, torch_dtype
-from dssm_tpu_torch.parallel.dist import all_reduce, all_reduce_tree
+from dssm_tpu_torch.parallel.dist import (
+    all_reduce, all_reduce_tree, check_graph_safe)
+from dssm_tpu_torch.train.compiled import CompiledStep
 from dssm_tpu_torch.train.sparse_update import (
-    _dense_subtree, apply_table_update, grads_of, joint_fields, side_lookups,
-    table_update_vals, towers_from_lookups)
-from dssm_tpu_torch.train.state import (
-    TrainState, apply_updates, optimizer_update)
+    _dense_subtree, apply_table_update, grads_of, joint_fields,
+    scatter_seed, side_lookups, table_update_vals, towers_from_lookups)
+from dssm_tpu_torch.train.state import TrainState, optimizer_step_
 
 Batch = Dict[str, torch.Tensor]
 
@@ -88,11 +93,17 @@ def make_loss(cfg: RunConfig, mesh, impl: str = "auto") -> Callable:
     return loss_of
 
 
-def make_parallel_sparse_train_step(cfg: RunConfig, mesh,
-                                    impl: str = "auto") -> Callable:
-    """(state, local batch) -> (state, aux): dedupe batches only. The
-    table in `state` is this rank's shard (parallel/train_step.py::
-    create_sharded_state), updated in place."""
+def make_parallel_sparse_step_body(cfg: RunConfig, mesh,
+                                   impl: str = "auto") -> Callable:
+    """(state, local batch) -> aux: one sparse step on dedupe batches, IN
+    PLACE, as train/sparse_update.py::make_sparse_train_step_body: this
+    rank's table shard scattered where it lies, the dense parameters and
+    their optimizer state stepped by optimizer_step_, the device step
+    counter advanced, nothing read back to the host. The table in `state`
+    is this rank's shard (parallel/train_step.py::create_sharded_state).
+    The stochastic-rounding seeds are scatter_seed(state.step, ix), then *
+    mp + shard, computed on the card, so each replay of a captured step and
+    each body of a K-step graph draws its own step's stream."""
     table_key = TABLE_KEY[cfg.tower.arch]
     compute_dtype = torch_dtype(cfg.tower.compute_dtype)
     mp = mesh.shape["model"]
@@ -125,25 +136,25 @@ def make_parallel_sparse_train_step(cfg: RunConfig, mesh,
 
     def update_table(table, uniq, vals, seed, scale=None):
         if mp == 1:
-            return apply_table_update(table, uniq, vals, seed, scale,
-                                      cfg.train.table_stochastic_round, impl)
+            apply_table_update(table, uniq, vals, seed, scale,
+                               cfg.train.table_stochastic_round, impl)
+            return
         group = sublane_group(table.dtype)
         if table.dtype == torch.int8:
             raise ValueError("an int8 table trains at model_parallel=1 only "
                              "(config.validate)")
         if table.dtype == torch.bfloat16 and cfg.train.table_stochastic_round:
-            return scatter_sr_groups_sharded(table, uniq, vals.float(), group,
-                                             seed, mesh, impl=impl)
-        return scatter_add_groups_sharded(table, uniq, vals.to(table.dtype),
-                                          group, mesh, impl=impl)
+            scatter_sr_groups_sharded(table, uniq, vals.float(), group, seed,
+                                      mesh, impl=impl)
+        else:
+            scatter_add_groups_sharded(table, uniq, vals.to(table.dtype),
+                                       group, mesh, impl=impl)
 
-    def dense_update(state, dense, g_dense):
-        g_dense = all_reduce_tree(g_dense, data_group)
-        updates, new_opt = optimizer_update(cfg.train, g_dense,
-                                            state.opt_state)
-        return apply_updates(dense, updates), new_opt
+    def dense_update_(state, dense, g_dense):
+        optimizer_step_(cfg.train, dense,
+                        all_reduce_tree(g_dense, data_group), state.opt_state)
 
-    def joint_step(state: TrainState, batch: Batch):
+    def joint_body(state: TrainState, batch: Batch) -> Dict:
         params = state.params
         if "shared" not in params:
             raise ValueError(
@@ -180,19 +191,13 @@ def make_parallel_sparse_train_step(cfg: RunConfig, mesh,
                 # compact row (padding slots carry zeros).
                 g_c = torch.zeros_like(c).index_add_(
                     0, batch["sel"].long(), g_basis.to(c.dtype))
-            new_dense, new_opt = dense_update(state, dense, g_dense)
-            vals = table_update_vals(cfg, g_c, c)
-            table = update_table(table, batch["uniq"], vals, state.step * 4,
-                                 scale)
-        tp = dict(new_dense["shared"])
-        tp[table_key] = table
-        if scale is not None:
-            tp[f"{table_key}_scale"] = scale
-        return TrainState(step=state.step + 1, params={"shared": tp},
-                          opt_state=new_opt,
-                          host_step=state.host_step + 1), aux
+            dense_update_(state, dense, g_dense)
+            update_table(table, batch["uniq"], table_update_vals(cfg, g_c, c),
+                         scatter_seed(state.step, 0), scale)
+            state.step.add_(1)
+        return aux
 
-    def side_step(state: TrainState, batch: Batch):
+    def side_body(state: TrainState, batch: Batch) -> Dict:
         params = state.params
         dense = _dense_subtree(params, table_key)
 
@@ -209,33 +214,36 @@ def make_parallel_sparse_train_step(cfg: RunConfig, mesh,
         with torch.no_grad():
             g_cq = all_reduce(g_cq, data_group)
             g_cd = all_reduce(g_cd, data_group)
-            new_dense, new_opt = dense_update(state, dense, g_dense)
-            new_params = {}
+            dense_update_(state, dense, g_dense)
             scatter_ix = 0  # the scatter's seed offset within the step
             for tower in params:
-                tp = dict(new_dense[tower])
                 table = params[tower][table_key]
                 scale = params[tower].get(f"{table_key}_scale")
                 for side in {"shared": "qd", "query": "q", "doc": "d"}[tower]:
                     g_c, compact = (g_cq, cq) if side == "q" else (g_cd, cd)
-                    vals = table_update_vals(cfg, g_c, compact)
-                    table = update_table(table, batch[f"{side}_uniq"], vals,
-                                         state.step * 4 + scatter_ix, scale)
+                    update_table(table, batch[f"{side}_uniq"],
+                                 table_update_vals(cfg, g_c, compact),
+                                 scatter_seed(state.step, scatter_ix), scale)
                     scatter_ix += 1
-                tp[table_key] = table
-                if scale is not None:
-                    tp[f"{table_key}_scale"] = scale
-                new_params[tower] = tp
-        return TrainState(step=state.step + 1, params=new_params,
-                          opt_state=new_opt,
-                          host_step=state.host_step + 1), aux
+            state.step.add_(1)
+        return aux
 
-    def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict]:
+    def body(state: TrainState, batch: Batch) -> Dict:
         if "uniq" in batch:
-            return joint_step(state, batch)
+            return joint_body(state, batch)
         if "q_uniq" in batch:
-            return side_step(state, batch)
+            return side_body(state, batch)
         raise ValueError("the parallel sparse step takes dedupe batches "
                          "(raw-index batches take the dense parallel step)")
 
-    return step
+    return body
+
+
+def make_parallel_sparse_train_step(cfg: RunConfig, mesh,
+                                    impl: str = "auto") -> CompiledStep:
+    """(state, local batch) -> (state, aux): the parallel sparse step,
+    compiled (train/compiled.py: a replayed CUDA graph with its NCCL
+    collectives on a CUDA state, eager on a CPU state)."""
+    check_graph_safe()
+    return CompiledStep(make_parallel_sparse_step_body(cfg, mesh, impl),
+                        collectives=True)

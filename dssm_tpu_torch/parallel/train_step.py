@@ -13,14 +13,19 @@ collectives, the steps here call them on the mesh's groups:
   - the gradients of the replicated parameters summed over the data group
     only: the mp ranks of one data coordinate compute the same ones.
 
-make_parallel_train_step dispatches as dssm_tpu's does: on the sparse path
-(sgd or the AdaGrad table optimizer, with dedupe lookups) a dedupe batch
-takes the sparse step (parallel/sparse_step.py) and a raw-index batch the
-dense one, which differentiates the whole tree (the table's shard through
-the sharded bag) and runs the dense optimizer over it, this rank's shard of
-the table and of its optimizer state included. make_parallel_multi_step
-runs K of them over a stacked batch. Counterpart of
-dssm_tpu/parallel/train_step.py.
+make_parallel_train_step_body dispatches as dssm_tpu's step does: on the
+sparse path (sgd or the AdaGrad table optimizer, with dedupe lookups) a
+dedupe batch takes the sparse body (parallel/sparse_step.py) and a
+raw-index batch the dense one, which differentiates the whole tree (the
+table's shard through the sharded bag) and runs the dense optimizer over
+it, this rank's shard of the table and of its optimizer state included.
+Both bodies update the state in place and read nothing back, so the steps
+are compiled as the single-device ones are (train/compiled.py):
+make_parallel_train_step a CUDA graph a batch signature on the card, the
+NCCL collectives captured inside it (dssm_tpu's jitted, donated step),
+make_parallel_multi_step one graph of K bodies (its lax.scan), and
+make_parallel_eval_fn a replayed forward; on the CPU (gloo) the same
+bodies run eagerly. Counterpart of dssm_tpu/parallel/train_step.py.
 """
 
 from __future__ import annotations
@@ -36,12 +41,13 @@ from dssm_tpu_torch.models import base as model_base
 from dssm_tpu_torch.parallel import dist as pdist
 from dssm_tpu_torch.parallel.mesh import MODEL_AXIS
 from dssm_tpu_torch.parallel.sparse_step import (
-    make_loss, make_parallel_sparse_train_step)
-from dssm_tpu_torch.train.loop import make_loss_fn, repeat_step
+    make_loss, make_parallel_sparse_step_body)
+from dssm_tpu_torch.train.compiled import (
+    CompiledForward, CompiledStep, eager_step)
+from dssm_tpu_torch.train.loop import make_loss_fn
 from dssm_tpu_torch.train.sparse_update import uses_sparse_update
 from dssm_tpu_torch.train.state import (
-    TrainState, apply_updates, check_dense_table, create_run_state,
-    optimizer_update)
+    TrainState, check_dense_table, create_run_state, optimizer_step_)
 
 # The first-layer trigram tables (one per model family): the only
 # parameters cut over the model axis.
@@ -97,28 +103,54 @@ def create_sharded_state(cfg: RunConfig, mesh, params) -> TrainState:
     return create_run_state(cfg, shard_tree(params, mesh))
 
 
-def make_parallel_train_step(cfg: RunConfig, mesh,
-                             impl: str = "auto") -> Callable:
-    """(state, local batch) -> (state, aux), dispatched by the batch."""
-    dense_step = _make_dense_parallel_step(cfg, mesh, impl)
+def make_parallel_train_step_body(cfg: RunConfig, mesh,
+                                  impl: str = "auto") -> Callable:
+    """(state, local batch) -> aux, in place, dispatched by the batch's
+    keys as dssm_tpu's make_parallel_train_step dispatches: on the sparse
+    path a dedupe batch takes the sparse body, a raw-index batch the dense
+    one. The compiled step keys its graphs on the batch's wire layout, so
+    each branch gets a graph of its own."""
+    dense_body = _make_dense_parallel_step_body(cfg, mesh, impl)
     if not (uses_sparse_update(cfg) and cfg.data.dedup_lookup):
-        return dense_step
-    sparse_step = make_parallel_sparse_train_step(cfg, mesh, impl)
+        return dense_body
+    sparse_body = make_parallel_sparse_step_body(cfg, mesh, impl)
 
-    def dispatch(state, batch):
+    def body(state, batch):
         if "q_uniq" in batch or "uniq" in batch:
-            return sparse_step(state, batch)
-        return dense_step(state, batch)
+            return sparse_body(state, batch)
+        return dense_body(state, batch)
 
-    return dispatch
+    return body
+
+
+def make_parallel_train_step(cfg: RunConfig, mesh,
+                             impl: str = "auto") -> CompiledStep:
+    """(state, local batch) -> (state, aux), compiled (train/compiled.py):
+    on a CUDA state a replayed CUDA graph a batch signature, its NCCL
+    collectives inside, on the state's own tensors; eager on a CPU state
+    (gloo). batch: a bridge.WireBatch or fields on the state's device."""
+    pdist.check_graph_safe()
+    return CompiledStep(make_parallel_train_step_body(cfg, mesh, impl),
+                        collectives=True)
 
 
 def make_parallel_multi_step(cfg: RunConfig, mesh,
-                             impl: str = "auto") -> Callable:
+                             impl: str = "auto") -> CompiledStep:
     """(state, stacked local batch) -> (state, aux stacked [K]): the
-    parallel step K times over the [K, ...] fields, as
-    train/loop.py::make_multi_train_step runs the single-device one."""
-    return repeat_step(make_parallel_train_step(cfg, mesh, impl))
+    parallel body K times over the [K, ...] fields, one CUDA graph of K
+    bodies and K times their collectives on the card (dssm_tpu's jitted
+    lax.scan), as train/loop.py::make_multi_train_step runs the
+    single-device body."""
+    pdist.check_graph_safe()
+    return CompiledStep(make_parallel_train_step_body(cfg, mesh, impl),
+                        multi=True, collectives=True)
+
+
+def make_eager_parallel_train_step(cfg: RunConfig, mesh, impl: str = "auto",
+                                   multi: bool = False) -> Callable:
+    """make_parallel_train_step's (with multi, make_parallel_multi_step's)
+    body run eagerly on any device: what the compiled step is held to."""
+    return eager_step(make_parallel_train_step_body(cfg, mesh, impl), multi)
 
 
 def _lookup_context(cfg: RunConfig, mesh, impl: str):
@@ -127,16 +159,18 @@ def _lookup_context(cfg: RunConfig, mesh, impl: str):
     return contextlib.nullcontext()
 
 
-def _make_dense_parallel_step(cfg: RunConfig, mesh,
-                              impl: str = "auto") -> Callable:
-    """The dense-table step on raw-index batches: autograd over the whole
-    tree through the (sharded) bag, the gradients summed over the data
-    group, the dense optimizer over this rank's tree."""
+def _make_dense_parallel_step_body(cfg: RunConfig, mesh,
+                                   impl: str = "auto") -> Callable:
+    """(state, raw-index batch) -> aux: the dense-table step, IN PLACE, as
+    train/loop.py::make_dense_train_step_body: autograd over the whole tree
+    through the (sharded) bag, the gradients summed over the data group,
+    optimizer_step_ over this rank's tree (its table shard and that
+    shard's optimizer state included), the step counter advanced."""
     table_key = model_base.TABLE_KEY[cfg.tower.arch]
     loss_fn = make_loss_fn(cfg, impl, make_loss(cfg, mesh, impl))
     data_group = mesh.groups["data"]
 
-    def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+    def body(state: TrainState, batch: Dict) -> Dict:
         if "uniq" in batch or "q_uniq" in batch:
             raise ValueError(
                 "the dense-table step takes raw-index batches: dedupe "
@@ -152,26 +186,29 @@ def _make_dense_parallel_step(cfg: RunConfig, mesh,
         grads = {tower: {k: next(it) for k in tp}
                  for tower, tp in params.items()}
         with torch.no_grad():
-            grads = pdist.all_reduce_tree(grads, data_group)
-            updates, new_opt = optimizer_update(cfg.train, grads,
-                                                state.opt_state)
-            new_params = apply_updates(state.params, updates)
-        return TrainState(step=state.step + 1, params=new_params,
-                          opt_state=new_opt,
-                          host_step=state.host_step + 1), aux
+            optimizer_step_(cfg.train, state.params,
+                            pdist.all_reduce_tree(grads, data_group),
+                            state.opt_state)
+            state.step.add_(1)
+        return aux
 
-    return step
+    return body
 
 
 def make_parallel_eval_fn(cfg: RunConfig, mesh,
-                          impl: str = "auto") -> Callable:
+                          impl: str = "auto") -> CompiledForward:
     """(params, local batch) -> (q, d) unit vectors of this rank's rows,
-    forward only, the lookups over the (sharded) table."""
+    forward only, the lookups over the (sharded) table: a CompiledForward
+    (train/compiled.py; dssm_tpu's jitted fwd), a replayed CUDA graph on
+    the card with the model group's sums inside, eager on the CPU. batch:
+    a bridge.WireBatch (batch_to_device), copied into a static block a
+    layout; the parameters are read where they lie."""
+    pdist.check_graph_safe()
 
     def fwd(params, batch):
-        with torch.no_grad(), _lookup_context(cfg, mesh, impl):
+        with _lookup_context(cfg, mesh, impl):
             q = model_base.embed(params, cfg.tower, "q", batch, impl=impl)
             d = model_base.embed(params, cfg.tower, "d", batch, impl=impl)
         return q, d
 
-    return fwd
+    return CompiledForward(fwd, collectives=True)

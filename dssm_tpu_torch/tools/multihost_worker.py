@@ -15,8 +15,14 @@ numpy inputs, writing this rank's results to <out.npz>:
 
   steps   the parallel train step over the spec's batches from the spec's
           initial parameters (whole; this rank's cut, bridge.shard_state),
-          or K steps a call over one stacked batch ("stacked"): the losses,
-          and the final parameters gathered whole (rank 0 writes them)
+          or K steps a call over one stacked batch ("stacked"), each batch
+          a wire block (bridge.batch_to_device) as cli.train feeds it: the
+          losses, the final parameters gathered whole (rank 0 writes
+          them), whether every state tensor kept its address and the
+          device step counter
+  k_steps the spec's batches ("batches", K of them) as one call of K steps
+          and as K single steps from one state: whether the two end
+          states are bit-equal on this rank
   loss    in_batch_loss_sharded of this rank's q, d rows, its pmean value
           and aux, the gradients of its rows, the sum_shards sums and the
           local-pool loss
@@ -121,6 +127,8 @@ def parity(spec_path: str, out_path: str, device) -> None:
     from dssm_tpu_torch.parallel.train_step import (
         create_sharded_state, gather_tree, make_parallel_eval_fn,
         make_parallel_multi_step, make_parallel_train_step, shard_tree)
+    from dssm_tpu_torch.train.compiled import state_tensors
+    from dssm_tpu_torch.train.loop import stack_batches, state_device
 
     arrays = np.load(spec_path)
     spec = json.loads(str(arrays["spec"]))
@@ -129,8 +137,11 @@ def parity(spec_path: str, out_path: str, device) -> None:
     out: Dict[str, np.ndarray] = {}
 
     def to_dev(batch, stacked=False):
-        return bridge.batch_to_torch(
+        return bridge.batch_to_device(
             pdist.local_shard(batch, mesh, stacked=stacked), device)
+
+    def addresses(state):
+        return [t.data_ptr() for t in state_tensors(state)]
 
     for run in spec["runs"]:
         name, kind = run["name"], run["kind"]
@@ -139,6 +150,7 @@ def parity(spec_path: str, out_path: str, device) -> None:
             params = bridge.params_from_jax(_tree(arrays, run["params"]),
                                             cfg.tower, device)
             state = create_sharded_state(cfg, mesh, params)
+            before = addresses(state)
             if "stacked" in run:
                 multi = make_parallel_multi_step(cfg, mesh)
                 state, auxes = multi(state, to_dev(
@@ -151,6 +163,11 @@ def parity(spec_path: str, out_path: str, device) -> None:
                     state, aux = step(state, to_dev(_batch(arrays, b)))
                     losses.append(float(aux["loss"]))
             out[f"{name}/losses"] = np.asarray(losses)
+            out[f"{name}/in_place"] = np.asarray(addresses(state) == before)
+            # (device counter, host mirror, counter on the state's device)
+            out[f"{name}/step"] = np.asarray(
+                [int(state.step), state.host_step,
+                 state.step.device == state_device(state)])
             whole = gather_tree(state.params, mesh)
             if mesh.rank == 0:
                 for tower, tp in bridge.params_to_numpy(whole).items():
@@ -164,6 +181,24 @@ def parity(spec_path: str, out_path: str, device) -> None:
                        for t in cut for k in cut[t]):
                 raise RuntimeError(f"{name}: the gathered state's cut is "
                                    "not this rank's state")
+        elif kind == "k_steps":
+            cfg = run_config(run["cfg"])
+            batches = [_batch(arrays, b) for b in run["batches"]]
+
+            def fresh():  # the steps update the parameters they are given
+                return create_sharded_state(cfg, mesh, bridge.params_from_jax(
+                    _tree(arrays, run["params"]), cfg.tower, device))
+
+            one = fresh()
+            step = make_parallel_train_step(cfg, mesh)
+            for b in batches:
+                one, _ = step(one, to_dev(b))
+            k, _ = make_parallel_multi_step(cfg, mesh)(
+                fresh(), to_dev(stack_batches(batches), stacked=True))
+            out[f"{name}/bit_equal"] = np.asarray(
+                int(k.step) == int(one.step) == len(batches)
+                and all(torch.equal(a, b) for a, b in zip(
+                    state_tensors(k), state_tensors(one), strict=True)))
         elif kind == "loss":
             q, d = (torch.from_numpy(a).to(device) for a in pdist.local_shard(
                 {"q": arrays[run["q"]], "d": arrays[run["d"]]}, mesh).values())

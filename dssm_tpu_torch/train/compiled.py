@@ -29,6 +29,10 @@ stochastic-rounding seeds and adam's bias correction are computed on the
 card from the device counters, so each replay, and each body of a replay,
 computes its own step's values.
 
+The parallel steps (parallel/) are compiled the same way, their NCCL
+collectives captured into the graph (collectives=True: the capture mode of
+_capture; parallel/dist.py says what keeps a collective capturable).
+
 A replay's aux values are the graph's static outputs: a call returns
 clones, so the aux of step i survives replay i + 1. The kernels' launches
 recorded during capture (kernels/_build.py) are counted again at every
@@ -116,13 +120,18 @@ def _warm(run: Callable[[], Any], dev: torch.device) -> Any:
     return out
 
 
-def _capture(run: Callable[[], Any], pool
+def _capture(run: Callable[[], Any], pool, collectives: bool = False
              ) -> Tuple[torch.cuda.CUDAGraph, Any, Dict[str, int]]:
     """(graph, its static outputs, the kernels' launches a replay makes) of
-    run() captured into `pool`."""
+    run() captured into `pool`. collectives: run() issues process-group
+    collectives; the capture then refuses unsafe calls of this thread only
+    (thread_local), since ProcessGroupNCCL's watchdog thread polls the
+    events of earlier eager collectives meanwhile, which the default global
+    mode counts against the capture."""
     graph = torch.cuda.CUDAGraph()
     _build.captured_launches(reset=True)
-    with torch.cuda.graph(graph, pool=pool):
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode=(
+            "thread_local" if collectives else "global")):
         out = run()
     launches = _build.captured_launches(reset=True)
     return graph, out, {k: n for k, n in launches.items() if n}
@@ -155,11 +164,15 @@ class CompiledStep:
     a CUDA state (the module docstring), eagerly on a CPU state. The state
     is updated in place and returned. batch: a WireBatch
     (bridge.batch_to_device) or fields on the state's device
-    (bridge.batch_to_torch), which are packed into a block first."""
+    (bridge.batch_to_torch), which are packed into a block first.
+    collectives: the body issues process-group collectives (the parallel
+    steps, parallel/), captured into the graph with them (_capture)."""
 
-    def __init__(self, body: Body, multi: bool = False):
+    def __init__(self, body: Body, multi: bool = False,
+                 collectives: bool = False):
         functools.update_wrapper(self, body)
         self.body, self.multi = body, multi
+        self.collectives = collectives
         self._eager = eager_step(body, multi)
         self._graphs: Dict[tuple, _Graph] = {}
         self._pool = None
@@ -191,7 +204,7 @@ class CompiledStep:
             self._pool = torch.cuda.graph_pool_handle()
         graph, (_, static_aux), launches = _capture(
             lambda: _run(self.body, self.multi, state, wire.fields(block)),
-            self._pool)
+            self._pool, self.collectives)
         moved = key[1] != tuple(t.data_ptr() for t in state_tensors(state))
         if moved:
             raise RuntimeError(
@@ -204,6 +217,11 @@ class CompiledStep:
     def num_graphs(self) -> int:
         """The graphs captured so far (one a batch signature and state)."""
         return len(self._graphs)
+
+    @property
+    def pool_bytes(self) -> int:
+        """The device memory the graphs' pool holds (its segments)."""
+        return _pool_bytes(self._pool)
 
 
 # The captured forward graphs a CompiledForward keeps (dssm_tpu's
@@ -288,11 +306,14 @@ class CompiledForward:
     captures fn into a pool this object's graphs share; a later call copies
     its inputs in and replays. Each replay counts its kernels' launches
     (kernels/_build.py). A capture or a replay that fails raises.
+    collectives: fn issues process-group collectives (the parallel eval
+    forward's model-group sums), captured with it as CompiledStep's.
     """
 
-    def __init__(self, fn: Callable, multi: bool = False):
+    def __init__(self, fn: Callable, multi: bool = False,
+                 collectives: bool = False):
         functools.update_wrapper(self, fn)
-        self.fn, self.multi = fn, multi
+        self.fn, self.multi, self.collectives = fn, multi, collectives
         self._graphs: "collections.OrderedDict[ForwardKey, _Forward]" = (
             collections.OrderedDict())
         # {(position, input key): static buffer}, while a graph that
@@ -367,7 +388,8 @@ class CompiledForward:
         out = _warm(run, dev)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        graph, static_out, launches = _capture(run, self._pool)
+        graph, static_out, launches = _capture(run, self._pool,
+                                               self.collectives)
         self.captures += 1
         self._store(key, _Forward(graph, buffers, static_out, launches))
         return out
@@ -410,8 +432,12 @@ class CompiledForward:
     @property
     def pool_bytes(self) -> int:
         """The device memory the graphs' pool holds (its segments)."""
-        if self._pool is None:
-            return 0
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ()))
-                   == tuple(self._pool))
+        return _pool_bytes(self._pool)
+
+
+def _pool_bytes(pool) -> int:
+    """The device memory of a graph pool's segments (0 for no pool)."""
+    if pool is None:
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))

@@ -26,7 +26,7 @@ Counterpart of dssm_tpu/train/loop.py.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -152,25 +152,6 @@ def make_eager_train_step(cfg: RunConfig, impl: str = "auto",
     """make_train_step's (or, with multi, make_multi_train_step's) body run
     eagerly on any device: what the compiled step is held to."""
     return eager_step(make_train_step_body(cfg, impl), multi)
-
-
-def repeat_step(step_fn: Callable) -> Callable:
-    """(state, stacked batch) -> (state, aux stacked [K]): step_fn on the
-    views [j] of every [K, ...] field, j = 0 .. K - 1, state threaded
-    through."""
-
-    def multi_step(state: TrainState, batches: Dict
-                   ) -> Tuple[TrainState, Dict]:
-        k = next(iter(batches.values())).shape[0]
-        auxes = []
-        for j in range(k):
-            state, aux = step_fn(state, {key: v[j]
-                                         for key, v in batches.items()})
-            auxes.append(aux)
-        return state, {key: torch.stack([a[key] for a in auxes])
-                       for key in auxes[0]}
-
-    return multi_step
 
 
 def stack_batches(batches: Iterable[Dict]) -> Dict:

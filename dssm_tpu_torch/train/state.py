@@ -13,11 +13,12 @@ seeds, adam's bias correction), so a replayed CUDA graph of a step sees each
 step's own values. TrainState.host_step mirrors the counter on the host for
 logging and checkpoints; the step functions advance both.
 
-optimizer_step_ is the in-place update the train steps take (the donated
-state of dssm_tpu's jitted step): the parameters and the optimizer state are
-written into the tensors they live in. optimizer_update / apply_updates are
-the same arithmetic as new tensors (bit-equal), which the parallel steps
-use.
+optimizer_step_ is the in-place update every train step takes, the
+single-device and the parallel ones (the donated state of dssm_tpu's jitted
+step): the parameters and the optimizer state are written into the tensors
+they live in. optimizer_update / apply_updates are the same arithmetic as
+new tensors (bit-equal), the reference the tests hold the in-place update
+to.
 
 opt_state layout (trees mirror the optimized parameter tree):
     sgd       {}

@@ -1849,6 +1849,176 @@ def test_compiled_k_steps_match_eager_k_steps(dev, table_dtype):
         assert torch.equal(c, e)
 
 
+# ---- the compiled parallel steps (parallel/, train/compiled.py) ------------
+
+# Each branch the compiled parallel step captures over an NCCL group of one:
+# (_step_case's kind, or "per_side" from _train_config; the collective
+# wire; a slot space). "raw" is the sparse config's raw batch, which the
+# parallel dispatch takes to the dense body, as "dense" and "dense_adam".
+PARALLEL_CASES = {
+    "joint_f32": ("joint", "float32", False),
+    "joint_local_f32": ("joint", "float32", True),
+    "joint_local_bf16_wire": ("joint", "bfloat16", True),
+    "per_side": ("per_side", "float32", False),
+    "raw": ("raw", "float32", False),
+    "dense": ("dense", "float32", False),
+    "dense_adam": ("dense_adam", "float32", False)}
+# The branches whose table update ends in index_add_'s float atomics.
+PARALLEL_ATOMICS = ("raw", "dense", "dense_adam")
+
+
+def _parallel_case(dev, name, n):
+    from dssm_tpu_torch.config import MeshConfig
+    from dssm_tpu_torch.data.loader import reslot_local
+
+    kind, wire, local = PARALLEL_CASES[name]
+    if kind == "per_side":
+        cfg, _, batches = _train_config(shared=False, n=n)
+    else:
+        cfg, batches = _step_case(dev, kind, n)
+    if local:
+        batches = [reslot_local(b, 128) for b in batches]
+    return validate(cfg.replace(mesh=MeshConfig(
+        model_parallel=1, collective_dtype=wire))), batches
+
+
+def _world1_parallel_checks(name: str, init: str) -> None:
+    """Run in a process of its own (test_compiled_parallel_step_on_nccl_
+    group_of_one): join an NCCL group of one at `init` and hold the
+    compiled parallel step of case `name` to the eager parallel body, and,
+    on an f32 wire, to the single-device compiled step; on joint_f32 also
+    K = 4 a call as one graph and one graph a batch signature. Raises on a
+    failed check."""
+    from dssm_tpu_torch.parallel import dist as pdist
+    from dssm_tpu_torch.parallel.mesh import make_mesh
+    from dssm_tpu_torch.parallel.train_step import (
+        create_sharded_state, make_eager_parallel_train_step,
+        make_parallel_multi_step, make_parallel_train_step)
+
+    dev = pdist.initialize(init, 1, 0)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        cfg, batches = _parallel_case(dev, name, 9)
+        mesh = make_mesh(cfg.mesh, dev)
+        assert mesh.groups["data"] is not None
+        init_p = model_base.init_params(cfg.tower, seed=0, device=dev)
+        order = [0, 1, 1, 2]
+        runs = {}
+        steps = {"compiled": make_parallel_train_step(cfg, mesh),
+                 "eager": make_eager_parallel_train_step(cfg, mesh)}
+        if cfg.mesh.collective_dtype == "float32":
+            steps["single"] = make_train_step(cfg)
+        for kind, step in steps.items():
+            state = (_fresh_state(cfg, init_p) if kind == "single" else
+                     create_sharded_state(cfg, mesh, {
+                         t: {k: v.clone() for k, v in tp.items()}
+                         for t, tp in init_p.items()}))
+            where = [t.data_ptr() for t in state_tensors(state)]
+            _build.reset_launch_counts()
+            auxes, states = [], []
+            for i in order:
+                state, aux = step(state, batch_to_device(batches[i], dev,
+                                                         vocab_size=V))
+                auxes.append(aux)
+                states.append([t.clone() for t in state_tensors(state)])
+            torch.cuda.synchronize()
+            assert [t.data_ptr() for t in state_tensors(state)] == where
+            assert int(state.step) == state.host_step == len(order)
+            runs[kind] = (_build.launch_counts(), auxes, states)
+        assert steps["compiled"].num_graphs == 1
+        (c_counts, c_aux, c_states) = runs["compiled"]
+        exact = name not in PARALLEL_ATOMICS
+        for kind in ("eager", "single") if exact else ("eager",):
+            if kind not in runs:
+                continue
+            counts, auxes, states = runs[kind]
+            if kind == "eager":
+                # (the single-device joint step fuses its gather into the
+                # lookup; the parallel one gathers first)
+                assert counts == c_counts, (counts, c_counts)
+            for i, (ca, a, cs, s) in enumerate(zip(c_aux, auxes, c_states,
+                                                   states)):
+                for k in a:
+                    if exact:
+                        assert torch.equal(ca[k], a[k]), (kind, i, k)
+                    else:
+                        assert abs(float(ca[k]) - float(a[k])) <= 1e-2
+                for c, e in zip(cs, s, strict=True):
+                    if exact:
+                        assert torch.equal(c, e), (kind, i)
+                    else:
+                        torch.testing.assert_close(c, e, rtol=0, atol=2e-3)
+        if name != "joint_f32":
+            return
+        # K = 4 a call: one graph of 4 bodies, bit-equal to 4 compiled
+        # single steps, launching 4 steps' kernels a replay.
+        from dssm_tpu_torch.train.loop import stack_batches
+
+        multi = make_parallel_multi_step(cfg, mesh)
+        ends = []
+        for fn, units in (
+                (steps["compiled"], [batch_to_device(b, dev)
+                                     for b in batches[:8]]),
+                (multi, [batch_to_device(stack_batches(batches[i:i + 4]),
+                                         dev) for i in (0, 4)])):
+            state = create_sharded_state(cfg, mesh, {
+                t: {k: v.clone() for k, v in tp.items()}
+                for t, tp in init_p.items()})
+            for u in units:
+                _build.reset_launch_counts()
+                state, aux = fn(state, u)
+            ends.append(state)
+        # The second block is a replay: its launches are the graph's.
+        assert multi.num_graphs == 1 and aux["loss"].shape == (4,)
+        assert _build.launch_counts()["joint_lookup_bwd"] == 4
+        assert int(ends[1].step) == ends[1].host_step == 8
+        assert all(torch.equal(a, b) for a, b in zip(
+            state_tensors(ends[0]), state_tensors(ends[1]), strict=True))
+        # One graph a batch signature: a wider dedupe captures a second,
+        # the first signature replays its own.
+        wider = next(batch_iterator(
+            hash_pairs(make_toy_pairs(640, 96, 7), cfg.tower, cfg.data),
+            128, seed=5, dedup_unique=2048, dedup_unique_rows=256,
+            dedup_joint=True, wire_compress=True, sort_rows=True))
+        step = steps["compiled"]
+        state = ends[0]  # a state the step has a graph of already
+        before = step.num_graphs
+        for b in (wider, batches[8], wider):
+            state, _ = step(state, batch_to_device(b, dev))
+            assert step.num_graphs == before + 1
+    finally:
+        pdist.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(PARALLEL_CASES))
+def test_compiled_parallel_step_on_nccl_group_of_one(dev, name, tmp_path):
+    """The compiled parallel step over a real NCCL group of one process
+    (its collectives captured into the graph), in a process of its own
+    (a file:// rendezvous): four calls (a capture, then replays; calls 2
+    and 3 on one batch) against the eager parallel body from one state,
+    each state bit-equal (the dense body's index_add_ atomics: 2e-3), the
+    aux and the launches equal, the state's tensors where they were; on
+    an f32 wire also bit-equal to the single-device compiled step; on the
+    f32 joint branch K = 4 a call as one graph, bit-equal to four calls,
+    and one graph a batch signature (_world1_parallel_checks)."""
+    import os
+    import subprocess
+    import sys
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path.insert(0, {tests!r}); "
+            "import test_torch_cuda as t; "
+            f"t._world1_parallel_checks({name!r}, "
+            f"{'file://' + str(tmp_path / 'init')!r})")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(tests))
+    env.pop("TORCH_NCCL_BLOCKING_WAIT", None)
+    run = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-6000:]
+
+
 # ---- eval's and serving's compiled forward (train/compiled.py) -------------
 
 # (arch, shared, table dtype, dedup) of each eval the compiled forward runs.

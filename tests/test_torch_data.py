@@ -24,6 +24,11 @@ from dssm_tpu_torch.data import remap as tremap
 from dssm_tpu_torch.data import toy as ttoy
 from dssm_tpu_torch.data import trigram as ttrigram
 
+import reference_native
+
+# dssm_tpu's C++ extension linked whole before any worker loads it.
+reference_native.build()
+
 VOCAB = 4096
 
 

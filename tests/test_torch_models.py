@@ -39,6 +39,11 @@ from dssm_tpu_torch.io.checkpoint import Checkpointer
 from dssm_tpu_torch.models import base as tbase
 from dssm_tpu_torch.train import eval as teval
 
+import reference_native
+
+# dssm_tpu's C++ extension linked whole before any worker loads it.
+reference_native.build()
+
 BATCH = 32
 
 

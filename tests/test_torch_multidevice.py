@@ -13,13 +13,19 @@ is computed while they run. From one init and the same batches:
   - three steps on raw-index batches: sgd through dssm_tpu's dispatch to
     the dense step, and the dense adam step (its moments cut like the
     table);
-  - K = 2 steps a call over a stacked batch with slot spaces;
+  - K = 2 steps a call over a stacked batch with slot spaces, and K = 4
+    against four single steps from one state (bit-equal on every rank);
   - three slot-space steps on a bf16 collective wire;
   - three joint steps of the rotate loss (its candidates over the whole
     batch, the docs all-gathered);
   - the sharded loss (the global pool), its gradients, its sum_shards sums
     and its local-pool value;
   - the sharded bag and the gradient of its sum.
+
+Every step takes its batch as a wire block (bridge.batch_to_device), as
+cli.train feeds it, and updates the state in place: every rank's state
+tensors keep their addresses, and its step counter lives on the state's
+device (on the card the steps are CUDA graphs; on gloo they run eagerly).
 
 Tolerances: f32 wire, losses and parameters rtol 1e-5 / atol 1e-6 (sums
 in another order), as tests/test_multihost.py; adam's parameters atol 1e-4
@@ -194,6 +200,10 @@ def _inputs(dp, mp):
             for i, b in enumerate(bs):
                 arrays.update({f"{name}/b{i}/{k}": v for k, v in b.items()})
         spec_runs.append(run)
+    # K = 4 steps a call against four single steps, on batches the runs
+    # above hold.
+    spec_runs.append(dict(name="k4", kind="k_steps", cfg=base, params="p",
+                          batches=[f"joint_local/b{i}" for i in (0, 1, 2, 0)]))
     rng = np.random.default_rng(1)
     arrays.update(q=_unit_rows(rng, B, 16), d=_unit_rows(rng, B, 16),
                   table=rng.normal(size=(64, 16)).astype(np.float32),
@@ -331,6 +341,27 @@ def test_steps_match_dssm_tpu_mesh(ranks, run):
                                        **ptol)
     if run == "dense_adam":
         assert int(outs[0][f"{run}/count"]) == 3
+
+
+@pytest.mark.parametrize("run", RUNS)
+def test_steps_update_the_state_in_place(ranks, run):
+    """On every rank the steps wrote the new state into the tensors it
+    lives in (their addresses before and after are the same), and the step
+    counter is on the state's device and mirrored on the host."""
+    dp, mp, outs, _ = ranks
+    n = 2 if run == "multi" else 3
+    for o in outs:
+        assert bool(o[f"{run}/in_place"]), (run, o["coords"])
+        assert o[f"{run}/step"].tolist() == [n, n, 1], o[f"{run}/step"]
+
+
+def test_k_steps_a_call_bit_equal_to_single_steps(ranks):
+    """K = 4 steps in one call of make_parallel_multi_step and four calls
+    of make_parallel_train_step, from one state: every state tensor
+    bit-equal on every rank."""
+    dp, mp, outs, _ = ranks
+    for o in outs:
+        assert bool(o["k4/bit_equal"]), o["coords"]
 
 
 def _by_data_shard(outs, key, mp):
