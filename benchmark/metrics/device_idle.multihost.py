@@ -1,0 +1,7 @@
+"""device_idle.train's reading for the multihost cell,
+which reports its own end-to-end metric, train_pairs_per_s.multihost."""
+from benchmark.metrics._read import idle
+
+
+def read(st):
+    return idle(st, "train")

@@ -1,0 +1,6 @@
+"""% of the profiled window of requests with no device operation running."""
+from benchmark.metrics._read import idle
+
+
+def read(st):
+    return idle(st, "serve")

@@ -1,0 +1,7 @@
+"""kernels_roofline.train's reading for the multihost cell,
+which reports its own end-to-end metric, train_pairs_per_s.multihost."""
+from benchmark.metrics._read import roofline
+
+
+def read(st):
+    return roofline(st, "train")

@@ -1,0 +1,7 @@
+"""% of the device's busy time over the profiled requests that their work
+takes at its bound (FLOPs at the peak rate or bytes at the bandwidth)."""
+from benchmark.metrics._read import roofline
+
+
+def read(st):
+    return roofline(st, "serve")

@@ -1,0 +1,7 @@
+"""% of the chip's peak matmul rate that the model's FLOPs a pass reach
+over the traced run's unprofiled stretch."""
+from benchmark.metrics._read import mfu
+
+
+def read(st):
+    return mfu(st, "eval")
